@@ -1,0 +1,52 @@
+"""Model factory keyed by the ``--net`` flag (port of
+``scat_tpu/models/factory.py:29-68``).  Only the flagship
+``reg_transformer`` is ported; every other net raises and names the
+ROADMAP.md queue 1 item that ports it."""
+
+from __future__ import annotations
+
+from typing import Tuple
+
+import numpy as np
+import torch
+
+from scat_tpu_torch import assets
+from scat_tpu_torch.config import Options
+from scat_tpu_torch.models.hand_net import EncoderTransformer
+
+_NOT_PORTED = {
+    "reg_transformer_coarse": 9,
+    "backbone_hrnet": 10,
+    "backbone_incepv3": 10,
+    "frankmocap": 11,
+    "ViT": 12,
+    "ViP": 13,
+}
+
+
+def compute_dtype(opt: Options) -> torch.dtype:
+    dtype = getattr(torch, opt.compute_dtype, None)
+    if dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"--compute_dtype {opt.compute_dtype!r}: the port "
+                         "computes in float32 or bfloat16")
+    return dtype
+
+
+def build_model(opt: Options, image_size: int = 224
+                ) -> Tuple[EncoderTransformer, np.ndarray]:
+    """``(float32 module with fresh parameters, mean_params ndarray)``
+    for ``opt.net``."""
+    if opt.net in _NOT_PORTED:
+        raise NotImplementedError(
+            f"--net {opt.net} is not ported to scat_tpu_torch yet "
+            f"(ROADMAP.md queue 1 item {_NOT_PORTED[opt.net]})")
+    if opt.net != "reg_transformer":
+        raise ValueError(f"unknown --net {opt.net!r}")
+    mean = assets.load_mean_params(outside=opt.outside)
+    model = EncoderTransformer(
+        mean_params=torch.from_numpy(mean), iteration=opt.iteration,
+        heads=opt.vit_heads, depth=opt.vit_depth, mask_rate=opt.mask_rate,
+        pos_embed=opt.pos_embed, pl_reg=opt.pl_reg,
+        token_dim=(image_size // 8) ** 2, norm_layer=opt.norm_layer,
+        use_kernel=opt.use_pallas_attention)
+    return model, mean

@@ -1,0 +1,136 @@
+"""Token-pyramid transformer, the SCAT core regressor (port of
+``scat_tpu/models/transformer.py:29-151,193-203``; reference
+models/vision_transformer.py:13-101).
+
+Each non-final layer is ``Residual(PreNorm(Attention))`` followed by a
+non-residual ``PreNorm(FeedForward)`` that halves the token dim (hidden
+``(dim*3)//4``); the final layer is ``Residual(PreNorm(Attention))`` then
+a raw ``FeedForward`` to ``out_dim`` 3.  With dim 784 and depth 3 that
+is 784 -> 392 -> 196 -> 3.  The module nesting is the reference's, so
+the state_dict keys are ``layers.{i}.0.fn.norm``,
+``layers.{i}.0.fn.fn.to_qkv``, ``layers.{i}.1.norm`` /
+``layers.{i}.1.fn.net.{0,2}`` and, on the final layer,
+``layers.{i}.1.net.{0,2}``.
+
+As in the JAX package: LayerNorm eps is flax's 1e-6 (not torch's 1e-5),
+GELU is exact, and the FFN hidden width is ``(dim*3)//4`` (the JAX
+package's ``mlp_dim`` is ignored there, so the port has none).  Dropout
+is 0 in the reference's eval path and the port has none yet.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+from torch import nn
+
+# the plain version of the attention math; the JAX package calls it
+# mha_reference (scat_tpu/models/transformer.py:29-46)
+from scat_tpu_torch.ops.attention import attention_reference as mha_reference
+from scat_tpu_torch.ops.attention import flash_attention
+
+LN_EPS = 1e-6
+
+
+class Residual(nn.Module):
+    def __init__(self, fn: nn.Module):
+        super().__init__()
+        self.fn = fn
+
+    def forward(self, x):
+        return self.fn(x) + x
+
+
+class PreNorm(nn.Module):
+    def __init__(self, dim: int, fn: nn.Module):
+        super().__init__()
+        self.norm = nn.LayerNorm(dim, eps=LN_EPS)
+        self.fn = fn
+
+    def forward(self, x):
+        return self.fn(self.norm(x))
+
+
+class Attention(nn.Module):
+    """Multi-head self-attention (reference vision_transformer.py:46-79).
+    ``use_kernel`` routes the attention math through the CUDA kernel
+    (``ops.attention.flash_attention``; the JAX package's ``use_pallas``),
+    otherwise the plain version runs."""
+
+    def __init__(self, dim: int, heads: int = 8, dim_head: int = 64,
+                 use_kernel: bool = False):
+        super().__init__()
+        inner = heads * dim_head
+        self.heads = heads
+        self.dim_head = dim_head
+        self.scale = dim_head ** -0.5
+        self.use_kernel = use_kernel
+        self.to_qkv = nn.Linear(dim, inner * 3, bias=False)
+        # a Sequential for the reference's key ``to_out.0``
+        self.to_out = nn.Sequential(nn.Linear(inner, dim))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        b, n, _ = x.shape
+        # [B,N,3,H,Dh] -> three [B,H,N,Dh] views, no copy
+        q, k, v = self.to_qkv(x).view(
+            b, n, 3, self.heads, self.dim_head).permute(2, 0, 3, 1, 4)
+        attend = flash_attention if self.use_kernel else mha_reference
+        out = attend(q, k, v, self.scale)
+        out = out.transpose(1, 2).reshape(b, n, self.heads * self.dim_head)
+        return self.to_out(out)
+
+
+class FeedForward(nn.Module):
+    """Linear-GELU-Linear; out = dim//2 or ``out_dim`` (reference
+    vision_transformer.py:28-44)."""
+
+    def __init__(self, dim: int, hidden_dim: int,
+                 out_dim: Optional[int] = None):
+        super().__init__()
+        out = dim // 2 if out_dim is None else out_dim
+        self.net = nn.Sequential(nn.Linear(dim, hidden_dim), nn.GELU(),
+                                 nn.Linear(hidden_dim, out))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.net(x)
+
+
+class PyramidTransformer(nn.Module):
+    """The dim-halving pyramid (reference vision_transformer.py:81-101)."""
+
+    def __init__(self, dim: int, depth: int = 3, heads: int = 8,
+                 dim_head: int = 64, use_kernel: bool = False):
+        super().__init__()
+        self.layers = nn.ModuleList()
+        for i in range(depth):
+            attn = Residual(PreNorm(dim, Attention(
+                dim, heads=heads, dim_head=dim_head,
+                use_kernel=use_kernel)))
+            hidden = (dim * 3) // 4
+            if i == depth - 1:
+                ff = FeedForward(dim, hidden, out_dim=3)
+            else:
+                ff = PreNorm(dim, FeedForward(dim, hidden))
+                dim //= 2
+            self.layers.append(nn.ModuleList([attn, ff]))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        for attn, ff in self.layers:
+            x = ff(attn(x))
+        return x
+
+
+def sinusoidal_position_encoding(max_len: int, d_model: int,
+                                 dtype: torch.dtype = torch.float32
+                                 ) -> torch.Tensor:
+    """[max_len, d_model] sin/cos table (reference hand_net.py:61-77),
+    computed in float32 like the JAX package."""
+    position = torch.arange(max_len, dtype=torch.float32)[:, None]
+    div_term = torch.exp(torch.arange(0, d_model, 2, dtype=torch.float32)
+                         * (-torch.log(torch.tensor(10000.0)) / d_model))
+    angles = position * div_term
+    pe = torch.zeros(max_len, d_model, dtype=torch.float32)
+    pe[:, 0::2] = torch.sin(angles)
+    pe[:, 1::2] = torch.cos(angles[:, : d_model // 2])
+    return pe.to(dtype)

@@ -1,0 +1,91 @@
+"""The port stands alone: no module of scat_tpu_torch, and not
+chip_smoke.py, imports jax, flax or the JAX package, and no kernel
+launch sits inside a try/except that could fall back."""
+
+import ast
+import os
+import subprocess
+import sys
+
+import pytest
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+PKG = os.path.join(REPO, "scat_tpu_torch")
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "scat_tpu")
+# the kernel wrappers and the calls that reach a compiled kernel
+KERNEL_CALLS = {"flash_attention", "scat_attention_fwd", "_library",
+                "load", "build_all"}
+
+
+def _sources():
+    paths = [os.path.join(REPO, "chip_smoke.py")]
+    for root, _, files in os.walk(PKG):
+        paths += [os.path.join(root, f) for f in sorted(files)
+                  if f.endswith(".py")]
+    return paths
+
+
+def _rel(path):
+    return os.path.relpath(path, REPO)
+
+
+def _forbidden(module: str) -> bool:
+    top = module.split(".")[0]
+    return top in FORBIDDEN
+
+
+@pytest.mark.parametrize("path", _sources(), ids=_rel)
+def test_no_jax_or_scat_tpu_imports(path):
+    with open(path) as f:
+        tree = ast.parse(f.read(), path)
+    bad = []
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            bad += [a.name for a in node.names if _forbidden(a.name)]
+        elif isinstance(node, ast.ImportFrom) and node.module \
+                and node.level == 0 and _forbidden(node.module):
+            bad.append(node.module)
+        elif isinstance(node, ast.Call) and getattr(
+                node.func, "id", getattr(node.func, "attr", "")) in (
+                    "import_module", "__import__") and node.args \
+                and isinstance(node.args[0], ast.Constant) \
+                and _forbidden(str(node.args[0].value)):
+            bad.append(node.args[0].value)
+    assert not bad, f"{_rel(path)} imports {bad}"
+
+
+def _called_names(node):
+    for sub in ast.walk(node):
+        if isinstance(sub, ast.Call):
+            f = sub.func
+            yield f.id if isinstance(f, ast.Name) else getattr(f, "attr", "")
+
+
+@pytest.mark.parametrize("path", _sources(), ids=_rel)
+def test_no_try_around_kernel_launch(path):
+    with open(path) as f:
+        tree = ast.parse(f.read(), path)
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Try) and node.handlers:
+            hit = KERNEL_CALLS.intersection(
+                n for stmt in node.body for n in _called_names(stmt))
+            assert not hit, (f"{_rel(path)}:{node.lineno} wraps {hit} "
+                             "in try/except")
+
+
+def test_runtime_imports_stay_clean():
+    """Importing every port module pulls in no JAX; importing the
+    package alone does not import torch."""
+    code = (
+        "import sys, importlib, pkgutil\n"
+        "import scat_tpu_torch\n"
+        "assert 'torch' not in sys.modules\n"
+        "for m in pkgutil.walk_packages(scat_tpu_torch.__path__,\n"
+        "                               'scat_tpu_torch.'):\n"
+        "    importlib.import_module(m.name)\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in\n"
+        "       ('jax', 'flax', 'scat_tpu')]\n"
+        "assert not bad, bad\n")
+    env = dict(os.environ, PYTHONPATH=REPO)
+    subprocess.run([sys.executable, "-c", code], check=True, env=env,
+                   cwd=REPO, timeout=300)

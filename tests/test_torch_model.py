@@ -1,0 +1,201 @@
+"""The port's model modules against the JAX package's, in float32 on the
+CPU, with the same weights carried by scat_tpu_torch.utils.weights.
+
+Inputs come from a seeded numpy RandomState and go to both sides."""
+
+import os
+
+import numpy as np
+import jax
+import jax.numpy as jnp
+import pytest
+import torch
+
+from scat_tpu.models import resnet as jresnet
+from scat_tpu.models import transformer as jtransformer
+from scat_tpu.models.hand_net import EncoderTransformer as JEncoder
+from scat_tpu.ops import geometry as jgeometry
+from scat_tpu.utils.torch_import import export_torch_encoder_transformer
+from scat_tpu_torch import assets
+from scat_tpu_torch.models import resnet, transformer
+from scat_tpu_torch.models.hand_net import EncoderTransformer
+from scat_tpu_torch.ops import geometry
+from scat_tpu_torch.utils import checkpoint
+from scat_tpu_torch.utils.weights import state_dict_from_flax
+
+
+def _unfreeze(tree):
+    if isinstance(tree, dict) or hasattr(tree, "items"):
+        return {k: _unfreeze(v) for k, v in tree.items()}
+    return np.asarray(tree)
+
+
+def _randomize_bn(batch_stats, rng):
+    """Non-trivial running statistics, so eval-mode BN is exercised."""
+    if "mean" in batch_stats:
+        batch_stats["mean"] = rng.uniform(
+            -0.1, 0.1, batch_stats["mean"].shape).astype(np.float32)
+        batch_stats["var"] = rng.uniform(
+            0.5, 1.5, batch_stats["var"].shape).astype(np.float32)
+        return
+    for sub in batch_stats.values():
+        _randomize_bn(sub, rng)
+
+
+def _strip(sd, prefix):
+    return {k[len(prefix):]: v for k, v in sd.items() if k.startswith(prefix)}
+
+
+def test_resnet18_five_outputs(rng):
+    x = rng.randn(2, 32, 32, 3).astype(np.float32)
+    jm = jresnet.resnet18()
+    variables = jax.jit(lambda x: jm.init(jax.random.key(0), x,
+                                          train=False))(x)
+    params = _unfreeze(variables["params"])
+    bs = _unfreeze(variables["batch_stats"])
+    _randomize_bn(bs, rng)
+    want = jax.jit(lambda p, b, x: jm.apply(
+        {"params": p, "batch_stats": b}, x, train=False))(params, bs, x)
+
+    tm = resnet.get_model("resnet18")
+    sd = _strip(state_dict_from_flax({"main_encoder": params},
+                                     {"main_encoder": bs}), "main_encoder.")
+    tm.load_state_dict(sd, strict=True)
+    tm.eval()
+    with torch.no_grad():
+        got = tm(torch.from_numpy(x.transpose(0, 3, 1, 2)))
+    np.testing.assert_allclose(got[0].numpy(), np.asarray(want[0]),
+                               atol=1e-4, err_msg="fc1 feature")
+    for i in range(1, 5):
+        np.testing.assert_allclose(
+            got[i].numpy().transpose(0, 2, 3, 1), np.asarray(want[i]),
+            atol=1e-4, err_msg=f"stage x{i}")
+
+
+@pytest.mark.parametrize("use_kernel", [False, True])
+def test_pyramid_transformer(rng, use_kernel):
+    x = rng.randn(2, 21, 64).astype(np.float32)
+    jm = jtransformer.PyramidTransformer(dim=64, depth=3, heads=2,
+                                         use_pallas=use_kernel)
+    params = _unfreeze(jm.init(jax.random.key(1), x)["params"])
+    want = jm.apply({"params": params}, x)
+
+    tm = transformer.PyramidTransformer(dim=64, depth=3, heads=2,
+                                        use_kernel=use_kernel)
+    tm.load_state_dict(_strip(state_dict_from_flax({"transformer": params}),
+                              "transformer."), strict=True)
+    with torch.no_grad():
+        got = tm(torch.from_numpy(x))
+    assert got.shape == (2, 21, 3)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-5)
+
+
+@pytest.mark.parametrize("max_len,d_model,atol", [
+    (21, 16, 1e-6), (21, 196, 1e-6), (128, 196, 1e-6),
+    # flagship table: XLA's and torch's float32 exp round 31 of the 392
+    # frequencies one ulp apart; at position 20 that one ulp moves the
+    # angle, and sin, by up to 1.9e-6 = one ulp of a float32 near 20
+    (21, 784, 2e-6)])
+def test_sinusoidal_position_encoding(max_len, d_model, atol):
+    got = transformer.sinusoidal_position_encoding(max_len, d_model)
+    want = jtransformer.sinusoidal_position_encoding(max_len, d_model)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=atol)
+
+
+def test_geometry(rng):
+    j3d = rng.randn(4, 21, 3).astype(np.float32)
+    cam = rng.randn(4, 3).astype(np.float32)
+    want = jgeometry.project_2d(jgeometry.batch_orth_proj_idrot(
+        jnp.asarray(j3d), jnp.asarray(cam)))
+    got = geometry.project_2d(geometry.batch_orth_proj_idrot(
+        torch.from_numpy(j3d), torch.from_numpy(cam)))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-5)
+
+
+def test_mean_params_match():
+    from scat_tpu import assets as jassets
+    for outside in (True, False):
+        np.testing.assert_array_equal(
+            assets.load_mean_params(outside=outside),
+            jassets.load_mean_params(outside=outside))
+
+
+@pytest.fixture(scope="module")
+def flax_encoder():
+    """One flax init of a small EncoderTransformer (resnet18, 32x32)."""
+    mean = assets.load_mean_params()
+    jm = JEncoder(mean_params=jnp.asarray(mean), iteration=2, heads=2,
+                  token_dim=16, backbone="resnet18")
+    x = np.zeros((1, 32, 32, 3), np.float32)
+    variables = jax.jit(lambda x: jm.init(jax.random.key(3), x,
+                                          train=False))(x)
+    return (mean, _unfreeze(variables["params"]),
+            _unfreeze(variables["batch_stats"]))
+
+
+def test_state_dict_from_flax_matches_exporter(flax_encoder):
+    _, params, bs = flax_encoder
+    got = state_dict_from_flax(params, bs)
+    want = export_torch_encoder_transformer(params, bs)
+    assert sorted(got) == sorted(want)
+    for k, v in want.items():
+        np.testing.assert_array_equal(got[k].numpy(), np.asarray(v),
+                                      err_msg=k)
+
+
+def _port_encoder(mean):
+    return EncoderTransformer(mean_params=torch.from_numpy(mean),
+                              iteration=2, heads=2, token_dim=16,
+                              backbone="resnet18")
+
+
+def test_state_dict_loads_strict(flax_encoder):
+    mean, params, bs = flax_encoder
+    tm = _port_encoder(mean)
+    tm.load_state_dict(state_dict_from_flax(params, bs), strict=True)
+    # the port's own keys are the reference layout, PE buffer aside
+    assert "transformer.layers.0.0.fn.fn.to_qkv.weight" in tm.state_dict()
+    assert "main_encoder.layer1.0.conv1.weight" in tm.state_dict()
+    assert not any("pe" == k.split(".")[-1] for k in tm.state_dict())
+
+
+def test_load_weights_pth_roundtrip(flax_encoder, tmp_path):
+    mean, params, bs = flax_encoder
+    sd = state_dict_from_flax(params, bs)
+    # a reference .pth also carries the PE buffer, which the port drops
+    sd[checkpoint.PE_KEY] = torch.zeros(1, 21, 16)
+    path = str(tmp_path / "hand_net_final.pth")
+    torch.save({"state_dict": sd}, path)
+    tm = _port_encoder(mean)
+    checkpoint.load_weights(tm, path)
+    for k, v in tm.state_dict().items():
+        assert torch.equal(v, sd[k]), k
+
+
+def test_load_weights_errors(tmp_path):
+    tm = _port_encoder(assets.load_mean_params())
+    with pytest.raises(FileNotFoundError):
+        checkpoint.load_weights(tm, str(tmp_path / "missing.pth"))
+    with pytest.raises(ValueError, match=".pth"):
+        checkpoint.load_weights(tm, str(tmp_path))
+    # a checkpoint of another architecture fails loudly (strict)
+    bad = str(tmp_path / "bad.pth")
+    torch.save({"regressor.weight": torch.zeros(66, 1090)}, bad)
+    with pytest.raises(RuntimeError, match="Missing key"):
+        checkpoint.load_weights(tm, bad)
+    assert os.path.exists(bad)
+
+
+def test_fresh_init_is_seeded():
+    mean = assets.load_mean_params()
+    a, b, c = (_port_encoder(mean) for _ in range(3))
+    checkpoint.load_weights(a, "", seed=0)
+    checkpoint.load_weights(b, "", seed=0)
+    checkpoint.load_weights(c, "", seed=1)
+    sa, sb, sc = a.state_dict(), b.state_dict(), c.state_dict()
+    assert all(torch.equal(sa[k], sb[k]) for k in sa)
+    assert not torch.equal(sa["regressor.weight"], sc["regressor.weight"])
+    # flax's init distributions: lecun-normal kernels, zero biases
+    w = sa["main_encoder.fc1.weight"]
+    assert abs(w.std().item() * w.shape[1] ** 0.5 - 1.0) < 0.05
+    assert torch.all(sa["regressor.bias"] == 0)
