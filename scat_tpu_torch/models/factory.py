@@ -43,10 +43,18 @@ def build_model(opt: Options, image_size: int = 224
     if opt.net != "reg_transformer":
         raise ValueError(f"unknown --net {opt.net!r}")
     mean = assets.load_mean_params(outside=opt.outside)
+    # --pl_reg differentiates twice through the attention stack (the loss
+    # takes the gradient of the path-length probe); the kernel's backward
+    # is once_differentiable, so pl_reg takes the plain attention path,
+    # as the JAX package's factory.py:46-60 does
+    use_kernel = opt.use_pallas_attention and not opt.pl_reg
+    if opt.use_pallas_attention and opt.pl_reg:
+        print("--pl_reg needs double-backward: using the plain attention "
+              "path (the kernel's backward is once_differentiable)")
     model = EncoderTransformer(
         mean_params=torch.from_numpy(mean), iteration=opt.iteration,
         heads=opt.vit_heads, depth=opt.vit_depth, mask_rate=opt.mask_rate,
         pos_embed=opt.pos_embed, pl_reg=opt.pl_reg,
         token_dim=(image_size // 8) ** 2, norm_layer=opt.norm_layer,
-        use_kernel=opt.use_pallas_attention)
+        use_kernel=use_kernel)
     return model, mean

@@ -10,7 +10,9 @@ Differences from the JAX package that are not differences in value:
   * the stem is the plain 7x7/s2/pad-3 convolution; the JAX package's
     ``Conv7S2D`` is an exact space-to-depth rewrite of it for the TPU;
   * the stride sits on the 3x3 convolution of ``Bottleneck``, as there.
-Only ``norm_layer="batch"`` (BatchNorm, eps 1e-5) is ported.
+Only ``norm_layer="batch"`` is ported: ``BatchNorm2d`` below, flax's
+``nn.BatchNorm`` (eps 1e-5, momentum 0.9, which is torch's 0.1) in train
+and eval mode.
 """
 
 from __future__ import annotations
@@ -18,7 +20,39 @@ from __future__ import annotations
 from typing import List, Sequence, Type, Union
 
 import torch
+import torch.nn.functional as F
 from torch import nn
+
+
+class BatchNorm2d(nn.BatchNorm2d):
+    """``torch.nn.BatchNorm2d`` whose train-mode update of
+    ``running_var`` is flax's.
+
+    Both normalise with the biased batch variance, and both update
+    ``running_mean`` as ``(1-m)*old + m*mean``.  For ``running_var``
+    torch takes the unbiased batch variance, n/(n-1) times the biased one
+    (n = batch * height * width), flax's ``_compute_stats`` the biased
+    one: a 14% larger update at the tests' bs 2 on 2x2 maps, 2e-4 at bs 96
+    on 7x7.  The port keeps torch's fused kernel and corrects its result
+    on the [C] vector afterwards, with no second pass over the
+    activation: torch's kernel updates a copy of the running variance to
+    ``t = (1-m)*old + m*var*n/(n-1)`` (a copy, because autograd saves the
+    tensor it is given), and ``((n-1)*t + (1-m)*old) / n = (1-m)*old +
+    m*var`` is flax's value.  Both terms are positive, so the correction
+    loses no precision."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not self.training:
+            return super().forward(x)
+        self.num_batches_tracked.add_(1)
+        t = self.running_var.clone()
+        y = F.batch_norm(x, self.running_mean, t, self.weight, self.bias,
+                         True, self.momentum, self.eps)
+        n = x.numel() // x.shape[1]
+        with torch.no_grad():
+            self.running_var.mul_((1.0 - self.momentum) / n).add_(
+                t, alpha=(n - 1) / n)
+        return y
 
 
 def _conv3x3(cin: int, cout: int, stride: int = 1) -> nn.Conv2d:
@@ -38,10 +72,10 @@ class BasicBlock(nn.Module):
                  downsample: nn.Module = None):
         super().__init__()
         self.conv1 = _conv3x3(inplanes, planes, stride)
-        self.bn1 = nn.BatchNorm2d(planes)
+        self.bn1 = BatchNorm2d(planes)
         self.relu = nn.ReLU(inplace=True)
         self.conv2 = _conv3x3(planes, planes)
-        self.bn2 = nn.BatchNorm2d(planes)
+        self.bn2 = BatchNorm2d(planes)
         self.downsample = downsample
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -60,11 +94,11 @@ class Bottleneck(nn.Module):
                  downsample: nn.Module = None):
         super().__init__()
         self.conv1 = _conv1x1(inplanes, planes)
-        self.bn1 = nn.BatchNorm2d(planes)
+        self.bn1 = BatchNorm2d(planes)
         self.conv2 = _conv3x3(planes, planes, stride)
-        self.bn2 = nn.BatchNorm2d(planes)
+        self.bn2 = BatchNorm2d(planes)
         self.conv3 = _conv1x1(planes, planes * self.expansion)
-        self.bn3 = nn.BatchNorm2d(planes * self.expansion)
+        self.bn3 = BatchNorm2d(planes * self.expansion)
         self.relu = nn.ReLU(inplace=True)
         self.downsample = downsample
 
@@ -92,7 +126,7 @@ class ResNet(nn.Module):
         self.block = block
         self.inplanes = 64
         self.conv1 = nn.Conv2d(3, 64, 7, stride=2, padding=3, bias=False)
-        self.bn1 = nn.BatchNorm2d(64)
+        self.bn1 = BatchNorm2d(64)
         self.relu = nn.ReLU(inplace=True)
         self.maxpool = nn.MaxPool2d(3, stride=2, padding=1)
         self.layer1 = self._make_layer(64, stage_sizes[0])
@@ -107,7 +141,7 @@ class ResNet(nn.Module):
         downsample = None
         if stride != 1 or self.inplanes != out:
             downsample = nn.Sequential(_conv1x1(self.inplanes, out, stride),
-                                       nn.BatchNorm2d(out))
+                                       BatchNorm2d(out))
         layers: List[nn.Module] = [
             self.block(self.inplanes, planes, stride, downsample)]
         self.inplanes = out

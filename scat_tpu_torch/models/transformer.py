@@ -12,10 +12,14 @@ the state_dict keys are ``layers.{i}.0.fn.norm``,
 ``layers.{i}.1.fn.net.{0,2}`` and, on the final layer,
 ``layers.{i}.1.net.{0,2}``.
 
-As in the JAX package: LayerNorm eps is flax's 1e-6 (not torch's 1e-5),
-GELU is exact, and the FFN hidden width is ``(dim*3)//4`` (the JAX
-package's ``mlp_dim`` is ignored there, so the port has none).  Dropout
-is 0 in the reference's eval path and the port has none yet.
+As in the JAX package: LayerNorm eps is flax's 1e-6 (not torch's 1e-5)
+and LayerNorm computes in float32 whatever the compute dtype (flax's
+``nn.LayerNorm`` without a dtype promotes to float32), GELU is exact,
+and the FFN hidden width is ``(dim*3)//4`` (the JAX package's ``mlp_dim``
+is ignored there, so the port has none).  Dropout is 0 in the
+reference's runs and the port has none.
+
+``random_token_mask`` is the port of ``transformer.py:206-220``.
 """
 
 from __future__ import annotations
@@ -49,7 +53,10 @@ class PreNorm(nn.Module):
         self.fn = fn
 
     def forward(self, x):
-        return self.fn(self.norm(x))
+        # LayerNorm in float32 (its parameters stay float32 under either
+        # compute-dtype scheme); the output is rounded to the compute dtype
+        # for the layer it feeds, as flax's bf16 Dense rounds its input
+        return self.fn(self.norm(x.float()).to(x.dtype))
 
 
 class Attention(nn.Module):
@@ -119,6 +126,23 @@ class PyramidTransformer(nn.Module):
         for attn, ff in self.layers:
             x = ff(attn(x))
         return x
+
+
+def random_token_mask(num_tokens: int, mask_rate: float,
+                      generator: Optional[torch.Generator] = None,
+                      device=None) -> torch.Tensor:
+    """Bool [num_tokens] flags of the tokens to replace with the learned
+    mask token: ``int(mask_rate * num_tokens)`` distinct tokens, uniformly
+    drawn by ``torch.randperm`` (the JAX package draws them with
+    ``jax.random.permutation``, the reference with python's
+    ``random.shuffle``; the distributions agree, the bits do not).  Drawn
+    on ``generator``'s device, else on ``device``."""
+    if generator is not None:
+        device = generator.device
+    k = int(mask_rate * num_tokens)
+    perm = torch.randperm(num_tokens, generator=generator, device=device)
+    flags = torch.zeros(num_tokens, dtype=torch.bool, device=perm.device)
+    return flags.index_fill_(0, perm[:k], True)
 
 
 def sinusoidal_position_encoding(max_len: int, d_model: int,

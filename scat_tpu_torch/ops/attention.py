@@ -1,35 +1,42 @@
-"""Fused softmax attention on [B,H,N,D]: the hand-written CUDA kernel and
-its plain PyTorch version.
+"""Fused softmax attention on [B,H,N,D], forward and backward: the
+hand-written CUDA kernels and their plain PyTorch versions.
 
-Replaces the Pallas TPU kernel ``scat_tpu/ops/pallas_attention.py``
-(``_fwd_kernel`` :49-60, launched by ``_flash_fwd_impl`` :111-129) and
-its wrapper ``flash_attention`` :167-176.  The kernel is
-``csrc/attention_fwd.cu``.
+Replaces the Pallas TPU kernels of ``scat_tpu/ops/pallas_attention.py``:
+``_fwd_kernel`` :49-60 (launched by ``_flash_fwd_impl`` :111-129) and
+``_bwd_kernel`` :63-86 (launched by ``_flash_bwd`` :136-161), tied
+together by the ``_flash_core`` custom VJP :106-164, and its wrapper
+``flash_attention`` :167-176.  The kernels are ``csrc/attention_fwd.cu``
+and ``csrc/attention_bwd.cu``; the custom VJP is ``_FlashAttention``, a
+``torch.autograd.Function``.
 
-What bounds it on the H100 is bytes, not flops: Q, K and V read once and
-O written once, 4*B*H*N*D elements, ~5.5 MB per call in bf16 at the
-flagship's largest bucket [64,8,21,64], against 4*B*H*N*N*D flops, about
-21 per element at N=21.  The kernel keeps the [N,N] scores and
-probabilities on chip (one block per batch*head, rows in shared memory,
-softmax by warp shuffles) and reads the projection's strided Q/K/V views
-in place, so the one device-memory round trip is all it moves.
+What bounds both on the H100 is bytes, not flops: the forward reads Q,
+K, V and writes O (4*B*H*N*D elements), the backward reads Q, K, V, dO
+and writes dQ, dK, dV (7*B*H*N*D), against 4 and 10 flops per element
+times N.  The kernels keep the [N,N] scores, probabilities and their
+gradients on chip (one block per batch*head, rows in shared memory,
+softmax by warp shuffles; the backward recomputes P instead of storing
+it) and read the projection's strided Q/K/V views in place, so the one
+device-memory round trip is all they move.
 
-``flash_attention`` launches the kernel for CUDA tensors and raises if
-it cannot; it never falls back.  CPU tensors take
-``attention_reference``, the plain version of the same math.  It takes
+``flash_attention`` launches the kernels for CUDA tensors and raises if
+it cannot; it never falls back.  CPU tensors take ``attention_reference``
+(and autograd through it), the plain version of the same math;
+``attention_bwd_reference`` is the plain version of the backward kernel.
+The backward kernel is ``once_differentiable``: a second backward through
+it (the ``pl_reg`` path-length probe) raises, and the model factory
+routes ``pl_reg`` to the plain path as the JAX package does.  It takes
 no mask: no model of the port passes one (the JAX package's masked path
-is unused by its shipped models), and the kernel has none.  The
-backward kernel comes with the training slice, so a CUDA input that
-requires grad raises.
+is unused by its shipped models), and the kernels have none.
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
+from torch.autograd.function import once_differentiable
 
 from scat_tpu_torch.kernels import build
 
@@ -52,74 +59,144 @@ def attention_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return torch.einsum("bhij,bhjd->bhid", attn, v)
 
 
+def attention_bwd_reference(q: torch.Tensor, k: torch.Tensor,
+                            v: torch.Tensor, do: torch.Tensor, scale: float
+                            ) -> Tuple[torch.Tensor, ...]:
+    """(dQ, dK, dV) of softmax attention for the output gradient ``do``,
+    computed as ``_bwd_kernel`` does: P recomputed in float32, results
+    cast to the inputs' dtype."""
+    dtype = q.dtype
+    q, k, v, do = (t.float() for t in (q, k, v, do))
+    p = (torch.einsum("bhid,bhjd->bhij", q, k) * scale).softmax(dim=-1)
+    dv = torch.einsum("bhij,bhid->bhjd", p, do)
+    dp = torch.einsum("bhid,bhjd->bhij", do, v)
+    ds = p * (dp - (dp * p).sum(dim=-1, keepdim=True))
+    dq = torch.einsum("bhij,bhjd->bhid", ds, k) * scale
+    dk = torch.einsum("bhij,bhid->bhjd", ds, q) * scale
+    return tuple(t.to(dtype) for t in (dq, dk, dv))
+
+
 @functools.lru_cache(maxsize=None)
-def _library() -> ctypes.CDLL:
-    lib = build.load("attention_fwd")
-    lib.scat_attention_fwd.argtypes = (
-        [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4
-        + [ctypes.POINTER(ctypes.c_longlong), ctypes.c_float, ctypes.c_int,
-           ctypes.c_void_p])
-    lib.scat_attention_fwd.restype = ctypes.c_int
+def _library(name: str) -> ctypes.CDLL:
+    lib = build.load(name)
+    n_ptr = {"attention_fwd": 4, "attention_bwd": 7}[name]
+    fn = getattr(lib, f"scat_{name}")
+    fn.argtypes = ([ctypes.c_void_p] * n_ptr + [ctypes.c_int] * 4
+                   + [ctypes.POINTER(ctypes.c_longlong), ctypes.c_float,
+                      ctypes.c_int, ctypes.c_void_p])
+    fn.restype = ctypes.c_int
     lib.scat_cuda_error_string.argtypes = [ctypes.c_int]
     lib.scat_cuda_error_string.restype = ctypes.c_char_p
     return lib
 
 
-def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
-    if q.dim() != 4 or q.shape != k.shape or q.shape != v.shape:
-        raise ValueError(f"q, k, v must share one [B,H,N,D] shape, got "
-                         f"{tuple(q.shape)}, {tuple(k.shape)}, "
-                         f"{tuple(v.shape)}")
-    if not (q.dtype == k.dtype == v.dtype) or q.dtype not in _DTYPE_CODES:
-        raise TypeError(f"the attention kernel takes float32 or bfloat16 "
-                        f"inputs of one dtype, got {q.dtype}, {k.dtype}, "
-                        f"{v.dtype}")
-    if not (q.device == k.device == v.device):
-        raise ValueError("q, k, v must be on one device")
+def _check(*ts: torch.Tensor) -> None:
+    q = ts[0]
+    if q.dim() != 4 or any(t.shape != q.shape for t in ts):
+        raise ValueError(f"attention operands must share one [B,H,N,D] "
+                         f"shape, got {[tuple(t.shape) for t in ts]}")
+    if any(t.dtype != q.dtype for t in ts) or q.dtype not in _DTYPE_CODES:
+        raise TypeError(f"the attention kernels take float32 or bfloat16 "
+                        f"inputs of one dtype, got {[t.dtype for t in ts]}")
+    if any(t.device != q.device for t in ts):
+        raise ValueError("attention operands must be on one device")
     _, _, n, d = q.shape
     if d != HEAD_DIM or not 1 <= n <= MAX_SEQ:
-        raise ValueError(f"the attention kernel takes head dim {HEAD_DIM} "
+        raise ValueError(f"the attention kernels take head dim {HEAD_DIM} "
                          f"and 1 <= N <= {MAX_SEQ}, got N={n}, D={d}")
-    if any(t.stride(-1) != 1 for t in (q, k, v)):
+    if any(t.stride(-1) != 1 for t in ts):
         raise ValueError("the head dimension of q, k, v must be contiguous")
 
 
-def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                    scale: float) -> torch.Tensor:
-    """Softmax attention on [B,H,N,D]; the kernel on CUDA tensors, the
-    plain version on CPU tensors."""
-    if q.device.type == "cpu":
-        return attention_reference(q, k, v, scale)
-    if q.device.type != "cuda":
-        raise ValueError(f"flash_attention runs on cuda or cpu tensors, "
-                         f"got {q.device}")
-    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
-                                    or v.requires_grad):
-        raise NotImplementedError(
-            "the attention backward kernel comes with the training slice "
-            "of the port (ROADMAP.md queue 2, pallas_attention._bwd_kernel)"
-            "; run the forward under torch.no_grad or inference_mode")
-    _check(q, k, v)
+def _operands(*ts: torch.Tensor):
+    """Pointers and the (batch, head, row) strides of [B,H,N,D] operands,
+    as the kernels' C interfaces take them."""
+    strides = (ctypes.c_longlong * (3 * len(ts)))(
+        *(s for t in ts for s in t.stride()[:3]))
+    return [t.data_ptr() for t in ts], strides
+
+
+def _raise_on(rc: int, lib: ctypes.CDLL, name: str) -> None:
+    if rc != 0:
+        raise RuntimeError(f"{name} launch failed: "
+                           + lib.scat_cuda_error_string(rc).decode())
+
+
+def _attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                   scale: float) -> torch.Tensor:
+    """The forward kernel on CUDA tensors (counted)."""
     b, h, n, d = q.shape
     # O is stored [B,N,H,D] and returned as its [B,H,N,D] view, so that
     # the caller's merge of heads back to [B,N,H*D] needs no copy
     o = torch.empty((b, n, h, d), dtype=q.dtype,
                     device=q.device).permute(0, 2, 1, 3)
-    strides = (ctypes.c_longlong * 12)(
-        *(s for t in (q, k, v, o) for s in t.stride()[:3]))
-    lib = _library()
+    ptrs, strides = _operands(q, k, v, o)
+    lib = _library("attention_fwd")
     with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
         rc = lib.scat_attention_fwd(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-            b, h, n, d, strides, float(scale), _DTYPE_CODES[q.dtype],
-            stream)
-    if rc != 0:
-        raise RuntimeError(
-            "attention_fwd launch failed: "
-            + lib.scat_cuda_error_string(rc).decode())
+            *ptrs, b, h, n, d, strides, float(scale), _DTYPE_CODES[q.dtype],
+            torch.cuda.current_stream(q.device).cuda_stream)
+    _raise_on(rc, lib, "attention_fwd")
     flash_attention.launches += 1
     return o
 
 
+def attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                  do: torch.Tensor, scale: float
+                  ) -> Tuple[torch.Tensor, ...]:
+    """(dQ, dK, dV) for the output gradient ``do``: the backward kernel
+    on CUDA tensors, the plain version on CPU tensors."""
+    if q.device.type == "cpu":
+        return attention_bwd_reference(q, k, v, do, scale)
+    if q.device.type != "cuda":
+        raise ValueError(f"attention_bwd runs on cuda or cpu tensors, "
+                         f"got {q.device}")
+    if do.stride(-1) != 1:
+        do = do.contiguous()
+    _check(q, k, v, do)
+    grads = tuple(torch.empty(q.shape, dtype=q.dtype, device=q.device)
+                  for _ in range(3))
+    b, h, n, d = q.shape
+    ptrs, strides = _operands(q, k, v, do, *grads)
+    lib = _library("attention_bwd")
+    with torch.cuda.device(q.device):
+        rc = lib.scat_attention_bwd(
+            *ptrs, b, h, n, d, strides, float(scale), _DTYPE_CODES[q.dtype],
+            torch.cuda.current_stream(q.device).cuda_stream)
+    _raise_on(rc, lib, "attention_bwd")
+    attention_bwd.launches += 1
+    return grads
+
+
+class _FlashAttention(torch.autograd.Function):
+    """The ``_flash_core`` custom VJP: the forward kernel, and the
+    backward kernel recomputing P from the saved Q, K, V."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, scale):
+        ctx.save_for_backward(q, k, v)
+        ctx.scale = scale
+        return _attention_fwd(q, k, v, scale)
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, do):
+        q, k, v = ctx.saved_tensors
+        return (*attention_bwd(q, k, v, do, ctx.scale), None)
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    scale: float) -> torch.Tensor:
+    """Softmax attention on [B,H,N,D], differentiable; the kernels on
+    CUDA tensors, the plain version on CPU tensors."""
+    if q.device.type == "cpu":
+        return attention_reference(q, k, v, scale)
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_attention runs on cuda or cpu tensors, "
+                         f"got {q.device}")
+    _check(q, k, v)
+    return _FlashAttention.apply(q, k, v, scale)
+
+
 flash_attention.launches = 0
+attention_bwd.launches = 0

@@ -154,7 +154,7 @@ class HandPosePredictor:
                 # uint8 requests normalise on the device: the host
                 # uploads 4x fewer bytes than float32 crops
                 images = images.float() / 127.5 - 1.0
-            pred, _ = self.model(images.permute(0, 3, 1, 2))
+            pred = self.model(images.permute(0, 3, 1, 2))[0]
             cam = pred[:, :3]
             j3d = pred[:, 3:66].reshape(-1, 21, 3)
             j2d = project_2d(batch_orth_proj_idrot(j3d, cam))

@@ -1,0 +1,53 @@
+"""Train state (port of ``scat_tpu/training/state.py``): the model (its
+parameters and BatchNorm statistics), the optimizer, the lr schedule,
+the step, the path-length EMA and the generator that draws the token
+masks, in one object, so a checkpoint captures everything.  The JAX
+package's ``constants`` (ViP's frozen FAVOR+ projection) arrive with
+ViP (ROADMAP.md queue 1 item 13).
+
+Unlike the JAX package's immutable pytree, the state is updated in
+place by the train step, as PyTorch modules and optimizers are."""
+
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+from torch import nn
+
+
+@dataclasses.dataclass
+class TrainState:
+    model: nn.Module
+    optimizer: torch.optim.Optimizer
+    scheduler: torch.optim.lr_scheduler.LRScheduler
+    generator: torch.Generator
+    pl_mean: torch.Tensor
+    step: int = 0
+
+    @classmethod
+    def create(cls, model: nn.Module, optimizer, scheduler,
+               seed: int = 0) -> "TrainState":
+        device = next(model.parameters()).device
+        return cls(model=model, optimizer=optimizer, scheduler=scheduler,
+                   generator=torch.Generator(device).manual_seed(seed),
+                   pl_mean=torch.zeros((), device=device))
+
+    def state_dict(self) -> dict:
+        """Everything, as tensors and plain values; the model part is the
+        reference-keyed state_dict under ``"state_dict"``, so the file
+        also loads as a reference ``.pth``."""
+        return {"state_dict": self.model.state_dict(),
+                "optimizer": self.optimizer.state_dict(),
+                "scheduler": self.scheduler.state_dict(),
+                "generator": self.generator.get_state(),
+                "step": self.step,
+                "pl_mean": self.pl_mean}
+
+    def load_state_dict(self, sd: dict) -> None:
+        self.model.load_state_dict(sd["state_dict"], strict=True)
+        self.optimizer.load_state_dict(sd["optimizer"])
+        self.scheduler.load_state_dict(sd["scheduler"])
+        self.generator.set_state(sd["generator"])
+        self.step = int(sd["step"])
+        self.pl_mean = sd["pl_mean"].to(self.pl_mean.device)

@@ -1,0 +1,161 @@
+"""Train and eval steps (port of ``scat_tpu/training/steps.py:27-224``).
+
+Reference hot loop (train.py:136-209): empty-sample filter -> forward ->
+weak-perspective projection -> 3D MSE + 2D L1 (+ PL reg) -> backward ->
+Adam step.  As in the JAX package the filter is a per-sample ``valid``
+mask.  Batches are dicts of device tensors: ``image`` NHWC [B,S,S,3] in
+[-1,1] (seen by the model as an NCHW channels_last view), ``label``
+[B,105] or [B,166], optional ``valid`` [B].  The JAX package's
+``make_fused_preprocess_train_step`` waits for ``data/preprocess.py``
+(ROADMAP.md queue 1 item 7).
+"""
+
+from __future__ import annotations
+
+from typing import Callable, Dict, Optional, Sequence, Tuple
+
+import torch
+from torch import nn
+
+from scat_tpu_torch.models import losses as losses_lib
+from scat_tpu_torch.models.hand_net import NUM_TOKENS
+from scat_tpu_torch.models.transformer import random_token_mask
+from scat_tpu_torch.ops import metrics as metrics_lib
+from scat_tpu_torch.ops import procrustes
+from scat_tpu_torch.ops.geometry import batch_orth_proj_idrot, project_2d
+from scat_tpu_torch.training.state import TrainState
+
+Batch = Dict[str, torch.Tensor]
+
+
+def predictions_to_keypoints(pred_params: torch.Tensor
+                             ) -> Tuple[torch.Tensor, torch.Tensor,
+                                        torch.Tensor]:
+    """Split [B,66] -> (cam [B,3], joints3d [B,21,3], joints2d_px
+    [B,21,2]) (reference train.py:164-174)."""
+    cam = pred_params[:, :3]
+    j3d = pred_params[:, 3:66].reshape(-1, 21, 3)
+    return cam, j3d, project_2d(batch_orth_proj_idrot(j3d, cam))
+
+
+def forward_loss(model: nn.Module, images: torch.Tensor,
+                 labels: torch.Tensor, valid: Optional[torch.Tensor],
+                 l_weight_3d: float, l_weight_2d: float,
+                 pl_reg: bool = False,
+                 pl_mean: Optional[torch.Tensor] = None,
+                 ema_reset_compat: bool = True,
+                 token_mask: Optional[torch.Tensor] = None):
+    """The model in its current mode on NHWC ``images``, and the SCAT
+    loss: ``(breakdown, new_pl_mean, joints3d, joints2d_px)``."""
+    outputs = model(images.permute(0, 3, 1, 2), token_mask=token_mask)
+    _, j3d, j2d = predictions_to_keypoints(outputs[0])
+    breakdown, new_pl = losses_lib.scat_loss(
+        j3d.reshape(-1, 63), j2d.reshape(-1, 42), labels, l_weight_3d,
+        l_weight_2d, valid=valid, pl_grad=outputs[-1] if pl_reg else None,
+        pl_mean_state=pl_mean, ema_reset_compat=ema_reset_compat)
+    return breakdown, new_pl, j3d, j2d
+
+
+def make_train_step(l_weight_3d: float, l_weight_2d: float,
+                    pl_reg: bool = False, ema_reset_compat: bool = True,
+                    grad_accum: int = 1
+                    ) -> Callable[[TrainState, Batch], Dict[str, torch.Tensor]]:
+    """The train step for a state whose model has the ``(pred,
+    feat_visual[, pl_grad])`` output contract: one forward and backward
+    (or ``grad_accum`` of them over sequential microbatches) and one
+    optimizer and schedule step, in place; returns the step's stats as
+    device tensors (nothing waits for the device).
+
+    Under ``grad_accum > 1`` each microbatch's keypoint loss is weighted
+    by its share of the batch's valid samples, so that part of the
+    summed gradient equals the full-batch gradient; the PL term is
+    weighted 1/A, and BN statistics, the PL EMA and the token masks
+    thread through the microbatches in turn, as in the JAX package."""
+    if grad_accum < 1:
+        raise ValueError(f"grad_accum must be >= 1, got {grad_accum}")
+
+    def train_step(state: TrainState, batch: Batch
+                   ) -> Dict[str, torch.Tensor]:
+        model = state.model
+        model.train()
+        images, labels = batch["image"], batch["label"]
+        valid = batch.get("valid")
+        if valid is None:
+            valid = metrics_lib.valid_sample_mask(images)
+        n = images.shape[0]
+        if n % grad_accum:
+            raise ValueError(f"batch size {n} is not divisible by "
+                             f"--grad_accum {grad_accum}")
+        m = n // grad_accum
+        masking = 0.1 <= model.mask_rate <= 0.9
+        sv_total = valid.sum().clamp(min=1.0)
+        state.optimizer.zero_grad(set_to_none=True)
+        sums = torch.zeros(4, device=labels.device)
+        pl_mean = state.pl_mean
+        pred0 = None
+        for i in range(grad_accum):
+            sl = slice(i * m, (i + 1) * m)
+            flags = (random_token_mask(NUM_TOKENS, model.mask_rate,
+                                       state.generator) if masking else None)
+            bd, pl_mean, j3d, j2d = forward_loss(
+                model, images[sl], labels[sl], valid[sl], l_weight_3d,
+                l_weight_2d, pl_reg, pl_mean, ema_reset_compat, flags)
+            if grad_accum == 1:
+                total, parts = bd.total, (bd.total, bd.l_3d, bd.l_2d,
+                                          bd.l_pl)
+            else:
+                w = valid[sl].sum() / sv_total
+                w_pl = 1.0 / grad_accum
+                pl_part = losses_lib.PL_WEIGHT * bd.l_pl
+                total = w * (bd.total - pl_part) + w_pl * pl_part
+                parts = (total, w * bd.l_3d, w * bd.l_2d, w_pl * bd.l_pl)
+            total.backward()
+            sums += torch.stack(parts).detach()
+            pl_mean = pl_mean.detach()
+            if pred0 is None:
+                pred0 = (j3d[0].detach(), j2d[0].detach())
+        state.optimizer.step()
+        state.scheduler.step()
+        state.step += 1
+        state.pl_mean = pl_mean
+        return {"loss": sums[0],
+                "loss_3d": l_weight_3d * sums[1],
+                "loss_2d": l_weight_2d * sums[2],
+                "loss_pl": losses_lib.PL_WEIGHT * sums[3],
+                "valid_frac": valid.float().mean(),
+                "pred0_3d": pred0[0],
+                "pred0_2d": pred0[1]}
+
+    return train_step
+
+
+def make_eval_step(model: nn.Module,
+                   pck_range: Sequence[float] =
+                   metrics_lib.DEFAULT_PCK_RANGE_MM,
+                   flat_compat: bool = True
+                   ) -> Callable[[Batch], Dict[str, torch.Tensor]]:
+    """Eval step: forward in eval mode -> projection -> PA-Procrustes ->
+    PCK and MPJPE (reference eval.py:810-1027 minus visualization).  The
+    model's train/eval mode is restored afterwards."""
+
+    def eval_step(batch: Batch) -> Dict[str, torch.Tensor]:
+        images, labels = batch["image"], batch["label"]
+        valid = batch.get("valid")
+        if valid is None:
+            valid = metrics_lib.valid_sample_mask(images)
+        was_training = model.training
+        model.eval()
+        with torch.no_grad():
+            pred = model(images.permute(0, 3, 1, 2))[0]
+            _, j3d, j2d = predictions_to_keypoints(pred)
+            gt3d = losses_lib.split_labels(labels).joints_3d.reshape(-1, 21,
+                                                                     3)
+            aligned = procrustes.similarity_align(j3d, gt3d)
+            pck = metrics_lib.cal_pck(aligned, gt3d, pck_range,
+                                      flat_compat=flat_compat, valid=valid)
+            err = metrics_lib.mpjpe(aligned, gt3d)
+        model.train(was_training)
+        return {"pck": pck, "mpjpe_per_sample": err, "valid": valid,
+                "pred_joints_3d": aligned, "pred_joints_2d": j2d}
+
+    return eval_step

@@ -1,0 +1,205 @@
+"""The trainer (port of ``scat_tpu/training/trainer.py``; reference
+train.py:122-246): epoch loop -> batch loop -> train step (valid mask,
+forward, projection, losses, backward, Adam with the warmup) -> the
+reference's loss prints every ``--log_every`` steps -> a checkpoint every
+``--checkpoint_every_epochs`` epochs -> the final save.
+
+``Trainer(opt, device=None).train()`` runs on the CUDA device unless the
+caller asks for another (the tests pass ``device="cpu"``).  Parameters,
+BatchNorm statistics and Adam moments are float32; the backbone, 1x1
+conv and transformer compute in ``--compute_dtype`` under autocast.  The
+step stays asynchronous: losses accumulate on the device and reach the
+host only at the log boundary.
+
+This slice trains on the synthetic task (``--synthetic_data True``, the
+JAX package's ``data/synthetic.py``).  Flags whose feature is not ported
+raise and name their ROADMAP.md item (``UNPORTED_FLAGS``); none is
+ignored.  ``--donate_state`` has nothing to do: the state is updated in
+place.
+"""
+
+from __future__ import annotations
+
+import time
+from typing import Iterable, Optional, Union
+
+import torch
+
+from scat_tpu_torch.config import BaseOptions, Options
+from scat_tpu_torch.data.synthetic import SyntheticDataset
+from scat_tpu_torch.models import build_model
+from scat_tpu_torch.models.factory import compute_dtype
+from scat_tpu_torch.training import schedule, steps
+from scat_tpu_torch.training.state import TrainState
+from scat_tpu_torch.utils import checkpoint as ckpt_lib
+from scat_tpu_torch.utils.logging import MetricsLogger
+
+# (flag, test on the options, ROADMAP.md queue 1 item that ports it)
+UNPORTED_FLAGS = (
+    ("--synthetic_data False (the STB/FreiHAND/... loaders)",
+     lambda o: not o.synthetic_data, 7),
+    ("--debug True (the debug grid of viz/)", lambda o: o.debug, 18),
+    ("--param_sharding fsdp", lambda o: o.param_sharding == "fsdp", 17),
+    ("a multi-device --mesh_shape",
+     lambda o: any(size not in (1, -1) for _, size in mesh_axes(o)), 17),
+    ("--profile_trace_dir", lambda o: bool(o.profile_trace_dir), 18),
+    ("--tensorboard True", lambda o: o.tensorboard, 18),
+)
+
+
+def mesh_axes(opt: Options):
+    """``--mesh_shape`` as ((name, size), ...), -1 = every device."""
+    axes = []
+    for part in opt.mesh_shape.split(","):
+        name, _, n = part.partition(":")
+        axes.append((name.strip(), int(n) if n else -1))
+    return tuple(axes)
+
+
+def check_flags(opt: Options) -> None:
+    """Raise on a flag the port does not carry yet, naming its item."""
+    for what, hit, item in UNPORTED_FLAGS:
+        if hit(opt):
+            raise NotImplementedError(
+                f"{what} is not ported to scat_tpu_torch yet "
+                f"(ROADMAP.md queue 1 item {item})")
+    if opt.param_sharding not in ("replicated", "fsdp"):
+        raise ValueError(f"--param_sharding {opt.param_sharding!r}: "
+                         "expected 'replicated' or 'fsdp'")
+    if opt.grad_accum < 1 or opt.batch_size % opt.grad_accum:
+        raise ValueError(
+            f"--grad_accum {opt.grad_accum} must be >= 1 and divide "
+            f"--batch_size {opt.batch_size}")
+
+
+def resolve_device(device: Union[str, torch.device, None]) -> torch.device:
+    """``device``, or ``cuda`` when None; raises if that is absent."""
+    device = torch.device("cuda" if device is None else device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("the trainer runs on a CUDA device and none is "
+                           "available; pass device='cpu' to run on the CPU")
+    return device
+
+
+def _sync(device: torch.device) -> None:
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+class Trainer:
+    """``Trainer(opt).train()``, the reference train.py:29-246 surface."""
+
+    def __init__(self, opt: Options, device=None, image_size: int = 224,
+                 dataset: Optional[Iterable] = None):
+        check_flags(opt)
+        self.opt = opt
+        self.device = resolve_device(device)
+        self.batch_size = opt.batch_size
+        self.epoches = opt.epoch
+        self.pl = opt.pl_reg
+        print("with pose length reg" if self.pl else "no pose length reg")
+        if not (opt.l_weight_3d or opt.l_weight_2d or self.pl):
+            print("WARNING: l_weight_3d == l_weight_2d == 0 and pl_reg "
+                  "off — the training loss is identically zero (the "
+                  "reference's default too); pass --l_weight_3d 100000 "
+                  "--l_weight_2d 10 for the canonical run")
+        if opt.net == "reg_transformer":
+            print("[iccv2021 scat] Transformer regressor...")
+        model, self.mean_params = build_model(opt, image_size)
+        ckpt_lib.load_weights(model, "", seed=opt.seed)
+        if opt.pretrained_resnet_pth:
+            ckpt_lib.load_pretrained_backbone(model,
+                                              opt.pretrained_resnet_pth)
+        # NHWC batches are channels_last NCHW views; channels_last
+        # weights let cuDNN run NHWC convolutions
+        model = model.to(self.device, memory_format=torch.channels_last)
+        model.set_compute_dtype(compute_dtype(opt))
+
+        self.train_loader = dataset if dataset is not None else \
+            SyntheticDataset(opt.batch_size,
+                             num_batches=opt.steps_per_epoch or 16,
+                             seed=opt.seed, image_size=image_size,
+                             mean_params=self.mean_params,
+                             layout=opt.synthetic_layout,
+                             device=self.device)
+        steps_per_epoch = len(self.train_loader)
+        print("batch num", steps_per_epoch)
+        optimizer, scheduler = schedule.make_optimizer(
+            model, opt.lr, steps_per_epoch, warmup_epochs=15,
+            freeze_backbone=opt.freeze)
+        self.state = TrainState.create(model, optimizer, scheduler,
+                                       seed=opt.seed)
+        self.success_load = False
+        if opt.resume:
+            self.success_load = ckpt_lib.restore_state(opt.checkpoint_hand,
+                                                       self.state)
+        self.train_step = steps.make_train_step(
+            opt.l_weight_3d, opt.l_weight_2d, pl_reg=self.pl,
+            ema_reset_compat=opt.compat_pl_ema_reset,
+            grad_accum=opt.grad_accum)
+
+    @property
+    def model(self):
+        return self.state.model
+
+    def train(self) -> None:
+        opt = self.opt
+        log_every = max(opt.log_every, 1)
+        logger = MetricsLogger(opt.checkpoint_folder)
+        global_step = self.state.step
+        for epoch in range(self.epoches):
+            # loss_pl accumulates over the whole epoch and prints raw, as
+            # the reference's does (train.py:224-234)
+            running = torch.zeros(3, device=self.device)
+            loss_pl = torch.zeros((), device=self.device)
+            window_steps = 0
+            _sync(self.device)
+            t_epoch = t_window = time.perf_counter()
+            n_samples = 0
+            for i, batch in enumerate(self.train_loader):
+                stats = self.train_step(self.state, batch)
+                n_samples += self.batch_size
+                global_step += 1
+                running += torch.stack([stats["loss"], stats["loss_3d"],
+                                        stats["loss_2d"]])
+                loss_pl += stats["loss_pl"]
+                window_steps += 1
+                if i % log_every == 0:
+                    total, l3d, l2d = running.tolist()  # waits for the step
+                    pl = float(loss_pl)
+                    dt = time.perf_counter() - t_window
+                    # stdout divides by log_every like the reference
+                    # (train.py:231-232); the CSV by the true step count
+                    print("[%d, %5d] loss: %.3f, 3d loss: %.3f, "
+                          "2d loss: %.3f, pose length reg: %.3f"
+                          % (epoch + 1, i + 1, total / log_every,
+                             l3d / log_every, l2d / log_every, pl))
+                    logger.log(global_step, {
+                        "epoch": epoch + 1,
+                        "loss": total / window_steps,
+                        "loss_3d": l3d / window_steps,
+                        "loss_2d": l2d / window_steps,
+                        "loss_pl": pl,
+                        "samples_per_sec":
+                            window_steps * self.batch_size / dt,
+                        "ms_per_step": 1e3 * dt / window_steps})
+                    running.zero_()
+                    window_steps = 0
+                    t_window = time.perf_counter()
+            _sync(self.device)
+            dt = time.perf_counter() - t_epoch
+            print(f"epoch {epoch + 1}: {n_samples / dt:.1f} samples/s")
+            if epoch % opt.checkpoint_every_epochs == 0:
+                ckpt_lib.save_state(opt.checkpoint_folder, self.state)
+        print("Finished Training")
+        logger.close()
+        ckpt_lib.save_state(opt.checkpoint_folder, self.state,
+                            ckpt_lib.FINAL_NAME)
+
+
+def main(argv=None):
+    Trainer(BaseOptions().parse(argv)).train()
+
+
+if __name__ == "__main__":
+    main()

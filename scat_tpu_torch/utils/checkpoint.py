@@ -1,5 +1,8 @@
-"""Weights of a model: a reference ``.pth`` or a seeded fresh init (the
-eval-path part of ``scat_tpu/utils/checkpoint.py:138-171``).
+"""Checkpoints (port of ``scat_tpu/utils/checkpoint.py:27-171``): the
+weights of a model, a reference ``.pth`` or a seeded fresh init, and the
+full train state.
+
+Weights, ``load_weights(model, path, seed)``:
 
   * ``""`` (empty path): a fresh init drawn from a ``torch.Generator``
     seeded with ``seed``, with the distributions of the JAX package's
@@ -11,6 +14,15 @@ eval-path part of ``scat_tpu/utils/checkpoint.py:138-171``).
     ``strict=True``; only the reference's positional-encoding buffer,
     which the port recomputes, is dropped.  A missing file raises, as
     in the JAX package: a typo must not serve random weights.
+
+Train state, ``save_state``/``restore_state``: one ``torch.save`` of
+``TrainState.state_dict()`` (model, optimizer, schedule, generator,
+step, PL EMA), loadable with ``torch.load(weights_only=True)``, written
+atomically to ``{folder}/hand_net.pth`` (periodic) and
+``hand_net_final.pth`` (final), the reference's names (train.py:237-246).
+The model part sits under ``"state_dict"`` in the reference key layout,
+so the file is also a reference ``.pth`` that ``load_weights`` (and
+``HandPosePredictor.from_checkpoint``) reads as it is.
 
 Orbax checkpoints of the JAX package are not read here; export them to a
 ``.pth`` with ``scat_tpu.utils.torch_import.export_torch_encoder_transformer``.
@@ -25,6 +37,8 @@ import torch
 from torch import nn
 
 PE_KEY = "positionalEncoding.pe"  # reference hand_net.py:61-77 buffer
+FINAL_NAME = "hand_net_final.pth"
+PERIODIC_NAME = "hand_net.pth"
 # std of a standard normal truncated to [-2, 2] (flax truncated_normal)
 _TRUNC_STD = 0.87962566103423978
 
@@ -62,7 +76,82 @@ def load_weights(model: nn.Module, path: str, seed: int = 0) -> None:
     apath = os.path.abspath(path)
     if not os.path.exists(apath):
         raise FileNotFoundError(f"torch checkpoint {apath} does not exist")
-    sd = torch.load(apath, map_location="cpu", weights_only=True)
+    sd = _read(apath)
     sd = sd.get("state_dict", sd)
     model.load_state_dict({k: v for k, v in sd.items() if k != PE_KEY},
                           strict=True)
+
+
+def _read(path: str) -> dict:
+    sd = torch.load(path, map_location="cpu", weights_only=True)
+    if not isinstance(sd, dict):
+        raise ValueError(f"{path}: not a state_dict")
+    return sd
+
+
+def save_state(folder: str, state, name: str = PERIODIC_NAME) -> str:
+    """Atomic full-state save; returns the path."""
+    os.makedirs(folder, exist_ok=True)
+    path = os.path.abspath(os.path.join(folder, name))
+    tmp = f"{path}.{os.getpid()}.tmp"
+    torch.save(state.state_dict(), tmp)
+    os.replace(tmp, path)
+    return path
+
+
+def restore_state(path: str, state) -> bool:
+    """Resume ``state`` in place from ``path``; False (and a message) if
+    the file is missing, as the reference trains from scratch then
+    (train.py:68-70).  A full-state file restores everything; a reference
+    ``.pth`` (weights only) merges the tensors whose names and shapes
+    match, non-strict, and the optimizer starts fresh, the reference's
+    resume (train.py:66-75)."""
+    path = os.path.abspath(path)
+    if not os.path.exists(path):
+        print(f"Error: {path} does not exists, Start from Scratch...")
+        return False
+    sd = _read(path)
+    if "optimizer" in sd:
+        state.load_state_dict(sd)
+    else:
+        merged = merge_matching(state.model, sd.get("state_dict", sd))
+        print(f"torch checkpoint: merged {merged} tensors from {path}")
+    print(f"Checkpoint loaded from: {path}")
+    return True
+
+
+def merge_matching(module: nn.Module, sd: dict, prefix: str = "") -> int:
+    """Copy the tensors of ``sd`` whose ``prefix``-stripped names and
+    shapes match ``module``'s state into it (``strict=False`` semantics,
+    size mismatches skipped); returns how many were copied."""
+    own = module.state_dict()
+    picked = {}
+    for k, v in sd.items():
+        if not k.startswith(prefix):
+            continue
+        name = k[len(prefix):]
+        if name in own and tuple(own[name].shape) == tuple(v.shape):
+            picked[name] = v
+    module.load_state_dict(picked, strict=False)
+    return len(picked)
+
+
+def load_pretrained_backbone(model: nn.Module, path: str) -> int:
+    """Merge a torchvision ImageNet ResNet ``.pth`` into
+    ``model.main_encoder``, non-strict (the reference initializes from
+    model-zoo weights, resnet.py:186-196; ``--pretrained_resnet_pth``).
+    A file with no matching tensor raises: a wrong file must not train
+    from scratch unnoticed."""
+    sd = _read(path)
+    sd = sd.get("state_dict", sd)
+    # a full hand_net .pth carries the backbone under main_encoder.
+    prefix = ("main_encoder." if any(k.startswith("main_encoder.")
+                                      for k in sd) else "")
+    merged = merge_matching(model.main_encoder, sd, prefix)
+    if merged == 0:
+        raise ValueError(
+            f"--pretrained_resnet_pth {path!r}: no tensor matched the "
+            "torchvision ResNet layout (expected keys like "
+            "'conv1.weight', 'layer1.0.conv1.weight')")
+    print(f"pretrained backbone: merged {merged} tensors from {path}")
+    return merged

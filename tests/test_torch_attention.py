@@ -1,12 +1,14 @@
 """The port's attention (scat_tpu_torch.ops.attention) against the JAX
-package's Pallas kernel in interpret mode, on the CPU.
+package's Pallas kernels in interpret mode, on the CPU.
 
-On CPU tensors ``flash_attention`` takes its plain version, so these
-tests hold the plain math and the wrapper's routing; the CUDA kernel
-itself is held against the plain version on the card (chip_smoke.py,
+On CPU tensors ``flash_attention`` and ``attention_bwd`` take their plain
+versions, so these tests hold the plain math, the wrapper's routing and
+the autograd.Function's wiring; the CUDA kernels themselves are held
+against the plain versions on the card (chip_smoke.py,
 tests/test_torch_cuda.py)."""
 
 import numpy as np
+import jax
 import jax.numpy as jnp
 import pytest
 import torch
@@ -43,6 +45,79 @@ def test_matches_pallas_forward(rng, fn, b, h, n, d):
     assert ta.flash_attention.launches == before
 
 
+BWD_SHAPES = [(2, 2, 21, 64), (1, 3, 128, 64)]
+
+
+def _strided(a):
+    """[B,H,N,D] numpy -> the same values as a strided [B,H,N,D] view of
+    a [B,N,H,D] tensor, as the projection and autograd pass them."""
+    return torch.from_numpy(np.ascontiguousarray(
+        a.transpose(0, 2, 1, 3))).permute(0, 2, 1, 3)
+
+
+@pytest.mark.parametrize("strided", [False, True])
+@pytest.mark.parametrize("b,h,n,d", BWD_SHAPES)
+def test_bwd_reference_matches_pallas_bwd(rng, b, h, n, d, strided):
+    q, k, v, do = [rng.randn(b, h, n, d).astype(np.float32)
+                   for _ in range(4)]
+    scale = d ** -0.5
+    want = pa._flash_bwd(scale, tuple(map(jnp.asarray, (q, k, v))),
+                         jnp.asarray(do))
+    conv = _strided if strided else torch.from_numpy
+    before = ta.attention_bwd.launches
+    for fn in (ta.attention_bwd_reference, ta.attention_bwd):
+        got = fn(*map(conv, (q, k, v, do)), scale)
+        for name, a, w in zip(("dq", "dk", "dv"), got, want):
+            np.testing.assert_allclose(a.numpy(), np.asarray(w), atol=ATOL,
+                                       err_msg=name)
+    assert ta.attention_bwd.launches == before
+
+
+@pytest.mark.parametrize("b,h,n,d", BWD_SHAPES)
+def test_autograd_matches_jax_grad(rng, b, h, n, d):
+    """flash_attention's gradients (autograd) against jax.grad through
+    the Pallas custom VJP, for a random output cotangent."""
+    q, k, v, w = [rng.randn(b, h, n, d).astype(np.float32)
+                  for _ in range(4)]
+    scale = d ** -0.5
+    want = jax.grad(lambda q, k, v: jnp.sum(
+        pa._flash_core(q, k, v, scale) * w), argnums=(0, 1, 2))(
+            *map(jnp.asarray, (q, k, v)))
+    tq, tk, tv = (torch.from_numpy(a).requires_grad_(True)
+                  for a in (q, k, v))
+    out = ta.flash_attention(tq, tk, tv, scale)
+    got = torch.autograd.grad((out * torch.from_numpy(w)).sum(),
+                              (tq, tk, tv))
+    for name, a, g in zip(("dq", "dk", "dv"), got, want):
+        np.testing.assert_allclose(a.numpy(), np.asarray(g), atol=ATOL,
+                                   err_msg=name)
+
+
+def test_autograd_function_wiring(rng, monkeypatch):
+    """The CUDA path's autograd.Function, with the forward launch
+    replaced by the plain version (the backward takes it on CPU
+    tensors): its gradients are autograd's through the plain forward,
+    and a second backward through it raises (once_differentiable)."""
+    monkeypatch.setattr(ta, "_attention_fwd", ta.attention_reference)
+    b, h, n, d = 2, 2, 21, 64
+    q, k, v, w = (torch.from_numpy(rng.randn(b, h, n, d).astype(np.float32))
+                  for _ in range(4))
+    leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    out = ta._FlashAttention.apply(*leaves, 0.125)
+    got = torch.autograd.grad((out * w).sum(), leaves)
+    ref = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    want = torch.autograd.grad(
+        (ta.attention_reference(*ref, 0.125) * w).sum(), ref)
+    for a, e in zip(got, want):
+        torch.testing.assert_close(a, e, atol=ATOL, rtol=0)
+    w.requires_grad_(True)
+    out = ta._FlashAttention.apply(*leaves, 0.125)
+    (dq,) = torch.autograd.grad((out * w).sum(), leaves[0],
+                                create_graph=True)
+    with pytest.raises(RuntimeError, match="once_differentiable"):
+        dq.sum().backward()
+
+
 def test_mask_matches_pallas_fallback(rng):
     """The masked math of the plain version; the kernel and its wrapper
     take no mask, as no model of the port passes one."""
@@ -74,6 +149,8 @@ def test_other_devices_raise():
     q = torch.empty(1, 8, 21, 64, device="meta")
     with pytest.raises(ValueError, match="cuda or cpu"):
         ta.flash_attention(q, q, q, 0.125)
+    with pytest.raises(ValueError, match="cuda or cpu"):
+        ta.attention_bwd(q, q, q, q, 0.125)
 
 
 def test_build_raises_without_nvcc(monkeypatch, tmp_path):

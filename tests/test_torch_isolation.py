@@ -13,8 +13,9 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PKG = os.path.join(REPO, "scat_tpu_torch")
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "scat_tpu")
 # the kernel wrappers and the calls that reach a compiled kernel
-KERNEL_CALLS = {"flash_attention", "scat_attention_fwd", "_library",
-                "load", "build_all"}
+KERNEL_CALLS = {"flash_attention", "scat_attention_fwd", "_attention_fwd",
+                "attention_bwd", "scat_attention_bwd", "_library", "load",
+                "build_all"}
 
 
 def _sources():

@@ -199,3 +199,48 @@ def test_fresh_init_is_seeded():
     w = sa["main_encoder.fc1.weight"]
     assert abs(w.std().item() * w.shape[1] ** 0.5 - 1.0) < 0.05
     assert torch.all(sa["regressor.bias"] == 0)
+
+
+def test_cast_compute_keeps_norm_layers_float32(flax_encoder):
+    """bf16 serving rounds only the compute: BatchNorm weights and running
+    statistics, LayerNorm parameters and the regressor stay float32, as
+    the JAX package keeps them."""
+    mean, params, bs = flax_encoder
+    tm = _port_encoder(mean)
+    tm.load_state_dict(state_dict_from_flax(params, bs), strict=True)
+    tm.cast_compute(torch.bfloat16)
+    norms = [m for m in tm.modules()
+             if isinstance(m, (torch.nn.BatchNorm2d, torch.nn.LayerNorm))]
+    assert len(norms) == 20 + 5   # resnet18's BNs, the pyramid's LNs
+    for m in norms:
+        for name, t in list(m.named_parameters()) + list(m.named_buffers()):
+            if t.is_floating_point():
+                assert t.dtype == torch.float32, (m, name)
+    assert tm.conv1x1_channel_reduction.weight.dtype == torch.bfloat16
+    assert tm.main_encoder.layer1[0].conv1.weight.dtype == torch.bfloat16
+    assert tm.regressor.weight.dtype == torch.float32
+
+
+def test_bf16_eval_forward_matches_jax_bf16(flax_encoder, rng):
+    """The bf16 eval forward against the JAX package's bf16 forward from
+    the same weights.  The two differ only in where rounding of the
+    compute lands (XLA's and oneDNN's bf16 convolutions round partial
+    results differently; one flipped bf16 rounding, 2^-9 relative, moves
+    later activations), so they are held to the bound of the card's
+    bf16 checks (chip_smoke.py): 2% of the largest magnitude."""
+    mean, params, bs = flax_encoder
+    bs = _unfreeze(bs)   # new dicts: the fixture's stay as they are
+    _randomize_bn(bs, np.random.RandomState(1))
+    jm = JEncoder(mean_params=jnp.asarray(mean), iteration=2, heads=2,
+                  token_dim=16, backbone="resnet18", dtype=jnp.bfloat16)
+    x = (rng.randn(2, 32, 32, 3) * 0.5).astype(np.float32)
+    want = np.asarray(jax.jit(lambda p, b, x: jm.apply(
+        {"params": p, "batch_stats": b}, x, train=False))(params, bs, x)[0])
+    tm = _port_encoder(mean)
+    tm.load_state_dict(state_dict_from_flax(params, bs), strict=True)
+    tm.cast_compute(torch.bfloat16).eval()
+    with torch.no_grad():
+        got = tm(torch.from_numpy(x.transpose(0, 3, 1, 2)))[0].numpy()
+    assert got.dtype == np.float32
+    np.testing.assert_allclose(got, want, rtol=0,
+                               atol=2e-2 * np.abs(want).max())

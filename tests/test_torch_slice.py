@@ -225,13 +225,25 @@ def test_unported_nets_name_their_roadmap_item(net, item):
 
 
 def test_training_only_paths_raise():
-    with pytest.raises(NotImplementedError, match="training slice"):
-        build_model(Options(net="reg_transformer", pl_reg=True))
+    """The training-only paths arrived with the training slice and no
+    longer raise: pl_reg builds on the plain attention path, and token
+    masking runs in train mode only."""
+    m, _ = build_model(Options(net="reg_transformer", vit_heads=2,
+                               pl_reg=True), image_size=IMG)
+    assert m.pl_reg and not m.transformer.layers[0][0].fn.fn.use_kernel
     m, _ = build_model(Options(net="reg_transformer", vit_heads=2,
                                mask_rate=0.2), image_size=IMG)
+    x = torch.zeros(2, 3, IMG, IMG)
+    flags = torch.zeros(21, dtype=torch.bool)
+    m.eval()
+    with torch.no_grad():
+        plain = m(x)[0]
+        assert torch.equal(m(x, token_mask=~flags)[0], plain)
     m.train()
-    with pytest.raises(NotImplementedError, match="training slice"):
-        m(torch.zeros(2, 3, IMG, IMG))
+    with torch.no_grad():
+        assert torch.isfinite(m(x)[0]).all()
+        masked = m(x, token_mask=~flags)[0]
+        assert not torch.allclose(masked, m(x, token_mask=flags)[0])
 
 
 def _post(port, arr):
