@@ -38,13 +38,40 @@ Phases, in order; any failure raises and exits non-zero:
               grad_accum 2 step; hand_net_final.pth served by
               HandPosePredictor; the eval step's PCK and MPJPE; then the
               training rate, p50 step time and a profile;
-  6. the card line, the kernels line, and the final
+  6. favor    the FAVOR+ stats and apply kernels against their plain
+              versions at --net ViP's shapes (BH 4, 28, 256, 384 at
+              T = 3137, e = 128, m = 64; T at chunk and tile edges; e 64
+              / m 32): float32 at rtol 1e-4 (atol 1e-5, times the largest
+              magnitude for the stats' sums over T), bf16 operands
+              against the plain version fed their float32 values;
+              favor_attention_fused's autograd against autograd through
+              favor_attention; then each kernel timed beside its plain
+              version, and the plain three-einsum path (no single PyTorch
+              call computes FAVOR+, so no library time);
+  7. vip-serve  the --net ViP predictor at full width (224 px, 3137
+              tokens x 512, 4 heads, depth 3, m 64, iteration 3, bf16,
+              --use_pallas_favor True, weights from seed 0) serves uint8
+              requests of 1, 7, 64 and 150 crops: 3 stats + 3 apply
+              launches per forward chunk and none of attention; kernel
+              vs plain FAVOR+ in float32 (1e-3), bf16 against the same
+              model with the plain float32 FAVOR+ substituted (2%); the
+              end-to-end rate, p50 request latency at buckets 1 and 64
+              and a profile;
+  8. vip-train  the Trainer on --net ViP (bs 96, lr 5e-4, weights 1e5 /
+              10, bf16, dropout 0.1) for 3 epochs of 8 steps: 3 + 3
+              launches a step, a falling loss; one step's loss and
+              gradient norm against the plain float32 FAVOR+; remat_blocks
+              against none (6 + 6 launches, the same loss and
+              gradients); hand_net_final.pth served; the training rate,
+              p50 step time and a profile;
+  9. the card line, the kernels line, and the final
      {"ok": true, "device": ...} line.
 
 TF32 is off for the whole run (torch.backends.cuda.matmul.allow_tf32 and
 torch.backends.cudnn.allow_tf32), so float32 comparisons are float32.
 """
 
+import contextlib
 import copy
 import csv
 import dataclasses
@@ -62,11 +89,15 @@ import torch.nn.functional as F
 
 from scat_tpu_torch.config import Options
 from scat_tpu_torch.kernels import build
+from scat_tpu_torch.models import performer
 from scat_tpu_torch.models.transformer import Attention
 from scat_tpu_torch.ops.attention import (attention_bwd,
                                           attention_bwd_reference,
                                           attention_reference,
                                           flash_attention)
+from scat_tpu_torch.ops.favor import (favor_apply, favor_apply_reference,
+                                      favor_attention, favor_attention_fused,
+                                      favor_stats, favor_stats_reference)
 from scat_tpu_torch.server import make_server
 from scat_tpu_torch.serving import HandPosePredictor
 from scat_tpu_torch.training import steps
@@ -105,6 +136,39 @@ WINDOW_REQUESTS, WINDOW_CROPS = 6, 640
 BF16_REL = 2e-2
 F32_ATOL = 1e-3
 
+# --net ViP at the JAX package's defaults (performer.py:155-178): 224 px
+# crops in 4x4 patches, 3136 tokens + cls, emb_s 128 x 4 heads, depth 3,
+# m = 64 features; the kernel path of FAVOR+
+VIP = Options(net="ViP", iteration=3, compute_dtype="bfloat16",
+              use_pallas_favor=True, checkpoint_path_eval="", seed=0)
+VIP_TRAIN = dataclasses.replace(
+    VIP, batch_size=96, lr=5e-4, l_weight_3d=1e5, l_weight_2d=10.0,
+    synthetic_data=True, debug=False, epoch=3, steps_per_epoch=8,
+    log_every=1, checkpoint_folder=os.path.join("build", "chip_smoke_vip"))
+VIP_HEADS, VIP_T, VIP_E, VIP_M = 4, 3137, 128, 64
+# [B, H, T, e, m]: BH 4, 28, 256 and 384 (serving buckets 1, 7, 64;
+# training at bs 96) at ViP's T, e, m; T at chunk and tile edges; e 64
+FAVOR_SHAPES = [(b, VIP_HEADS, VIP_T, VIP_E, VIP_M) for b in (1, 7, 64, 96)]
+FAVOR_SHAPES += [(2, VIP_HEADS, t, VIP_E, VIP_M) for t in (1, 33, 1048, 1049)]
+FAVOR_SHAPES += [(2, 3, 257, 64, 32)]
+FAVOR_TRAIN = (TRAIN_BATCH, VIP_HEADS, VIP_T, VIP_E, VIP_M)
+# float32 against float32 (TF32 off): rtol 1e-4; atol 1e-5 for y, and
+# 1e-5 times the largest magnitude for the stats, sums over 3137 rows of
+# exponentials
+FAVOR_RTOL, FAVOR_ATOL = 1e-4, 1e-5
+VIP_WINDOW_REQUESTS, VIP_WINDOW_CROPS = 3, 256
+# device kernels grouped by what they do, first match wins; the rest is
+# elementwise arithmetic (adds, products, activations, dropout, the
+# optimizer)
+PROFILE_FAMILIES = (
+    ("hand-written kernels", ("attention_fwd", "attention_bwd", "favor_")),
+    ("float32 GEMM", ("gemm_f32f32",)),
+    ("GEMM and convolution", ("gemm", "nvjet", "xmma", "cutlass", "conv")),
+    ("normalisation", ("norm",)),
+    ("copies and casts", ("copy", "Memcpy", "Cat", "Memset")),
+    ("reductions", ("reduce",)),
+)
+
 
 @dataclasses.dataclass
 class Kernel:
@@ -113,16 +177,27 @@ class Kernel:
     source: str
     replaces: str
     wrapper: object
+    # device kernels counted as this one's in a profile
+    profile_keys: tuple = ()
     result: dict = dataclasses.field(default_factory=dict)
 
 
 KERNELS = [
     Kernel("attention_fwd", "cuda", "scat_tpu_torch/csrc/attention_fwd.cu",
-           "scat_tpu/ops/pallas_attention.py:49", flash_attention),
+           "scat_tpu/ops/pallas_attention.py:49", flash_attention,
+           ("attention_fwd",)),
     Kernel("attention_bwd", "cuda", "scat_tpu_torch/csrc/attention_bwd.cu",
-           "scat_tpu/ops/pallas_attention.py:63", attention_bwd),
+           "scat_tpu/ops/pallas_attention.py:63", attention_bwd,
+           ("attention_bwd",)),
+    # the stats wrapper's second launch (the sum of T-tiles) is its own
+    Kernel("favor_stats", "cuda", "scat_tpu_torch/csrc/favor.cu",
+           "scat_tpu/ops/pallas_favor.py:63", favor_stats,
+           ("favor_stats", "favor_reduce")),
+    Kernel("favor_apply", "cuda", "scat_tpu_torch/csrc/favor.cu",
+           "scat_tpu/ops/pallas_favor.py:90", favor_apply,
+           ("favor_apply",)),
 ]
-FWD, BWD = KERNELS
+FWD, BWD, STATS, APPLY = KERNELS
 
 
 def reset_counts():
@@ -189,11 +264,12 @@ def grad_out(b, h, n, d, dtype, seed):
     return do.permute(0, 2, 1, 3)
 
 
-def bound(n_bytes, flops):
+def bound(n_bytes, flops, dtype=torch.bfloat16):
     """(ms, what bounds it): the larger of bytes over the memory rate
-    and bf16 flops over the tensor cores' peak."""
+    and flops over the card's peak for ``dtype`` (bf16: the tensor
+    cores; float32: the non-tensor-core rate)."""
     t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / PEAK_FLOPS[torch.bfloat16] * 1e3
+    t_ops = flops / PEAK_FLOPS[dtype] * 1e3
     return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
 
 
@@ -304,13 +380,16 @@ def n_chunks(n: int, big: int) -> int:
     return -(-n // big)
 
 
-def check_output(out, n):
+def check_output(out, n, root_centred=True):
+    """Shapes and finiteness; the flagship root-centres on joint 1, ViP
+    does not."""
     assert out["camera"].shape == (n, 3), out["camera"].shape
     assert out["joints_3d"].shape == (n, 21, 3), out["joints_3d"].shape
     assert out["joints_2d"].shape == (n, 21, 2), out["joints_2d"].shape
     for k, v in out.items():
         assert v.dtype == np.float32 and np.isfinite(v).all(), k
-    assert np.all(out["joints_3d"][:, 1] == 0), "joint 1 is the root"
+    if root_centred:
+        assert np.all(out["joints_3d"][:, 1] == 0), "joint 1 is the root"
 
 
 def phase_slice(rng):
@@ -379,15 +458,7 @@ def phase_slice(rng):
                o32["joints_3d"], o32_plain["joints_3d"], F32_ATOL),
               ("float32 float32 vs uint8 request, 7 crops, joints_3d",
                o32_float["joints_3d"], o32["joints_3d"], F32_ATOL)]
-    failed = []
-    for what, got, want, bound in pairs:
-        if bound is None:
-            bound = BF16_REL * float(np.abs(want).max())
-        diff = float(np.abs(got - want).max())
-        print(f"[slice] {what}: max abs diff {diff:.4e} (bound {bound:.4e})")
-        if not diff <= bound:
-            failed.append(what)
-    assert not failed, failed
+    compare("slice", pairs)
 
     # end to end: every crop of a window of back-to-back requests over
     # the window's wall time, on the pipelined serving path
@@ -424,7 +495,7 @@ def phase_slice(rng):
 
 def device_profile(tag, fn, what):
     """torch.profiler over ``fn()`` (which ends in a synchronize): wall
-    time, the device's busy and idle share of it, each attention
+    time, the device's busy and idle share of it, each hand-written
     kernel's share of device time, and the top device operations (one
     stream, so kernel times add up).  Returns the busy time in ms."""
     acts = [torch.profiler.ProfilerActivity.CPU,
@@ -444,16 +515,27 @@ def device_profile(tag, fn, what):
     busy_pct = 100 * busy / wall_us
     shares = []
     for k in KERNELS:
-        t = sum(e.self_device_time_total for e in events if k.name in e.key)
+        t = sum(e.self_device_time_total for e in events
+                if any(key in e.key for key in k.profile_keys))
         shares.append(f"{k.name} {t / 1e3:.4f} ms "
                       f"({100 * t / max(busy, 1e-9):.2f}% of device time)")
     print(f"[{tag}] {what}: wall {wall_us / 1e3:.3f} ms, device busy "
           f"{busy / 1e3:.3f} ms ({busy_pct:.1f}%, idle "
           f"{100 - busy_pct:.1f}%), {', '.join(shares)}")
+    family = {}
+    for e in events:
+        name = next((f for f, keys in PROFILE_FAMILIES
+                     if any(key in e.key for key in keys)), "other")
+        family[name] = family.get(name, 0) + e.self_device_time_total
+    print(f"[{tag}] device time by family: " + ", ".join(
+        f"{name} {100 * t / max(busy, 1e-9):.1f}%"
+        for name, t in sorted(family.items(), key=lambda kv: -kv[1])))
     for e in sorted(events, key=lambda e: -e.self_device_time_total)[:12]:
+        key = e.key.replace("void ", "").replace("at::native::", "").replace(
+            "(anonymous namespace)::", "")
         print(f"[{tag}]   {e.self_device_time_total / 1e3:9.3f} ms "
               f"{100 * e.self_device_time_total / busy:5.1f}% "
-              f"x{e.count:<5d} {e.key[:90]}")
+              f"x{e.count:<5d} {key[:120]}")
     return busy / 1e3
 
 
@@ -629,6 +711,405 @@ def phase_train(rng):
           f"{100 * (1 - busy / 3 / p50):.1f}% of an unprofiled step")
 
 
+def favor_operands(b, h, t, e, m, dtype, seed):
+    """k, q, v as the Performer block passes them (strided [B,H,T,e]
+    views of one [B,T,H,3e] kqv output, k and q scaled by 0.5 as ViP's
+    are about) and w N(0,1) [m, e] float32."""
+    g = torch.Generator().manual_seed(seed)
+    kqv = torch.randn(b, t, h, 3 * e, generator=g)
+    kqv[..., :2 * e] *= 0.5
+    k, q, v = kqv.to("cuda", dtype).permute(0, 2, 1, 3).split(e, dim=-1)
+    return q, k, v, torch.randn(m, e, generator=g).cuda()
+
+
+def favor_work(b, h, t, e, m, in_bytes):
+    """{kernel: (bytes, flops)} of one stats and one apply launch: each
+    input read once and each output written once (y in float32); the
+    flops of the two dot products a row (4 m e) and of |x|^2, exp, the
+    scale, ksum, D and the division."""
+    bh, rows = b * h, b * h * t
+    stats_out = bh * (m + m * e) * 4
+    return {
+        "favor_stats": (2 * rows * e * in_bytes + m * e * 4 + stats_out,
+                        rows * (4 * m * e + 2 * e + 3 * m)),
+        "favor_apply": (rows * e * in_bytes + m * e * 4 + stats_out
+                        + rows * e * 4,
+                        rows * (4 * m * e + 3 * e + 4 * m))}
+
+
+def phase_favor_kernels():
+    for i, shape in enumerate(FAVOR_SHAPES):
+        for dtype in (torch.float32, torch.bfloat16):
+            q, k, v, w = favor_operands(*shape, dtype, seed=200 + i)
+            ksum, kptv = favor_stats(k, v, w)
+            y = favor_apply(q, ksum, kptv, w)
+            torch.cuda.synchronize()
+            # the plain versions on the float32 values of the operands;
+            # apply alone (the kernel's stats) and the chain
+            wks, wkv = favor_stats_reference(k.float(), v.float(), w)
+            wy = favor_apply_reference(q.float(), ksum, kptv, w)
+            chain = favor_apply_reference(q.float(), wks, wkv, w)
+            scale = wkv.abs().max().item()
+            s_err = max((ksum - wks).abs().max().item(),
+                        (kptv - wkv).abs().max().item())
+            y_err = (y - wy).abs().max().item()
+            c_err = (y - chain).abs().max().item()
+            for got, want in ((ksum, wks), (kptv, wkv)):
+                torch.testing.assert_close(
+                    got, want, rtol=FAVOR_RTOL,
+                    atol=FAVOR_ATOL * want.abs().max().item())
+            for want in (wy, chain):
+                torch.testing.assert_close(y, want, rtol=FAVOR_RTOL,
+                                           atol=FAVOR_ATOL)
+            assert torch.equal(favor_stats(k, v, w)[1], kptv), \
+                "favor_stats is not deterministic"
+            print(f"[favor] {list(shape)} {str(dtype)[6:]}: favor_stats "
+                  f"max_abs_err {s_err:.3e} (|kptv| max {scale:.4g}, "
+                  f"relative {s_err / scale:.3e}), favor_apply max_abs_err "
+                  f"{y_err:.3e}, chain {c_err:.3e} (rtol {FAVOR_RTOL}, atol "
+                  f"{FAVOR_ATOL}); deterministic")
+            if shape == FAVOR_TRAIN and dtype == torch.bfloat16:
+                STATS.result["max_abs_err"] = s_err
+                APPLY.result["max_abs_err"] = y_err
+            del q, k, v, ksum, kptv, y, wks, wkv, wy, chain
+
+    # the autograd.Function against autograd through the plain path,
+    # float32, on the strided views the block passes
+    shape = (8, VIP_HEADS, VIP_T, VIP_E, VIP_M)
+    q, k, v, w = favor_operands(*shape, torch.float32, seed=300)
+    g = torch.randn(q.shape, device="cuda")
+    leaves = [t.detach().requires_grad_(True) for t in (q, k, v)]
+    out = favor_attention_fused(*leaves, w)
+    got = torch.autograd.grad((out * g).sum(), leaves)
+    ref = [t.detach().requires_grad_(True) for t in (q, k, v)]
+    want_out = favor_attention(*ref, w)
+    want = torch.autograd.grad((want_out * g).sum(), ref)
+    torch.testing.assert_close(out, want_out, rtol=FAVOR_RTOL,
+                               atol=FAVOR_ATOL)
+    err = max((a - b).abs().max().item() for a, b in zip(got, want))
+    for a, b in zip(got, want):
+        torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-6)
+    print(f"[favor] favor_attention_fused autograd {list(shape[:4])} "
+          f"float32 vs autograd through favor_attention: forward max_abs_err "
+          f"{(out - want_out).abs().max().item():.3e}, gradients "
+          f"{err:.3e} (rtol 1e-05, atol 1e-06)")
+    del q, k, v, g, leaves, out, got, ref, want_out, want
+
+    print("[favor] device times in ms, bf16 q/k/v strided views as the "
+          "block passes them, float32 w and outputs; 20 calls in one CUDA "
+          "graph, timed by CUDA events; library: none (no single PyTorch "
+          "call computes FAVOR+)")
+    for b in (64, TRAIN_BATCH):
+        shape = (b, VIP_HEADS, VIP_T, VIP_E, VIP_M)
+        q, k, v, w = favor_operands(*shape, torch.bfloat16, seed=400 + b)
+        ksum, kptv = favor_stats(k, v, w)
+        calls = {
+            "favor_stats": lambda: favor_stats(k, v, w),
+            "favor_stats plain": lambda: favor_stats_reference(k, v, w),
+            "favor_apply": lambda: favor_apply(q, ksum, kptv, w),
+            "favor_apply plain": lambda: favor_apply_reference(q, ksum, kptv,
+                                                               w),
+            "kernels": lambda: favor_attention_fused(q, k, v, w),
+            "three-einsum path": lambda: favor_attention(q, k, v, w)}
+        with torch.no_grad():
+            dev = {name: device_ms(fn, iters=20) for name, fn in calls.items()}
+        work = favor_work(*shape, in_bytes=2)
+        for kern in (STATS, APPLY):
+            n_bytes, flops = work[kern.name]
+            ms, by = bound(n_bytes, flops, torch.float32)
+            print(f"[favor] {kern.name} [{b},4,3137,128] m 64: kernel "
+                  f"{dev[kern.name]:.5f} plain {dev[kern.name + ' plain']:.5f}"
+                  f" | bound {ms:.6f} ({by}: {n_bytes} B, {flops} flop at the "
+                  f"float32 rate) | {100 * ms / dev[kern.name]:.1f}% of the "
+                  f"bound")
+            if b == TRAIN_BATCH:
+                kern.result.update(ms=dev[kern.name],
+                                   plain_ms=dev[kern.name + " plain"],
+                                   bound_ms=ms, bound_by=by, library_ms=None)
+        print(f"[favor] [{b},4,3137,128]: the two kernels (stats + apply) "
+              f"{dev['kernels']:.5f}, the plain three-einsum path that "
+              f"--use_pallas_favor False runs {dev['three-einsum path']:.5f}")
+        del q, k, v, ksum, kptv, calls
+
+
+def plain_favor(q, k, v, w):
+    """FAVOR+ through the kernels' plain float32 versions, on the card."""
+    return favor_apply_reference(q, *favor_stats_reference(k, v, w), w)
+
+
+@contextlib.contextmanager
+def plain_favor_inside():
+    """Substitute the plain float32 FAVOR+ for the kernel wrapper in the
+    Performer blocks (a comparison of this script, not a package
+    option)."""
+    real = performer.favor_attention_fused
+    performer.favor_attention_fused = plain_favor
+    try:
+        yield
+    finally:
+        performer.favor_attention_fused = real
+
+
+def compare(tag, pairs):
+    """(what, got, want, bound or None for BF16_REL * max|want|)."""
+    failed = []
+    for what, got, want, bnd in pairs:
+        if bnd is None:
+            bnd = BF16_REL * float(np.abs(want).max())
+        diff = float(np.abs(got - want).max())
+        print(f"[{tag}] {what}: max abs diff {diff:.4e} (bound {bnd:.4e})")
+        if not diff <= bnd:
+            failed.append(what)
+    assert not failed, failed
+
+
+def phase_vip_serve(rng):
+    t0 = time.perf_counter()
+    pred = HandPosePredictor.from_checkpoint(VIP, image_size=IMAGE)
+    model = pred.model
+    assert isinstance(model, performer.ViP)
+    assert model.tokens == VIP_T and model.emb == VIP_HEADS * VIP_E
+    assert len(model.mains) == 3 and all(b.use_kernel for b in model.mains)
+    block = model.mains[0]
+    assert block.w.shape == (VIP_M, VIP_E) and block.w.dtype == torch.float32
+    assert block.kqv.weight.dtype == torch.bfloat16
+    assert block.ln1.weight.dtype == torch.float32
+    assert model.head.weight.dtype == torch.float32
+    print(f"[vip-serve] predictor built in {time.perf_counter() - t0:.1f} s "
+          f"(224 px, {VIP_T} tokens x {model.emb}, {VIP_HEADS} heads, depth "
+          f"3, m {VIP_M}, iteration 3, bf16, FAVOR+ kernels); buckets "
+          f"{pred._buckets}")
+    t0 = time.perf_counter()
+    pred.warmup()
+    print(f"[vip-serve] warmup of every bucket, uint8 and float32: "
+          f"{time.perf_counter() - t0:.1f} s")
+
+    crops = {n: rng.randint(0, 256, (n, IMAGE, IMAGE, 3)).astype(np.uint8)
+             for n in REQUESTS}
+    big = pred._buckets[-1]
+    reset_counts()
+    outs = {n: pred.predict(crops[n]) for n in REQUESTS}
+    st, ap = favor_stats.launches, favor_apply.launches
+    chunks = sum(n_chunks(n, big) for n in REQUESTS)
+    STATS.result["launches"], APPLY.result["launches"] = st, ap
+    print(f"[vip-serve] requests {list(REQUESTS)} uint8: {chunks} forward "
+          f"chunks, favor_stats launches {st}, favor_apply launches {ap}, "
+          f"attention launches {flash_attention.launches} + "
+          f"{attention_bwd.launches}")
+    assert st == 3 * chunks and ap == 3 * chunks, (st, ap, chunks)
+    assert flash_attention.launches == 0 and attention_bwd.launches == 0
+    for n, out in outs.items():
+        check_output(out, n, root_centred=False)
+    j = outs[64]["joints_3d"]
+    print(f"[vip-serve] outputs finite, of the right shapes; |joints_3d| "
+          f"max {np.abs(j).max():.4f}, joint 1 of crop 0 {j[0, 1]}")
+
+    # bf16: the same model with the plain float32 FAVOR+ in the blocks
+    with plain_favor_inside():
+        out_sub = pred.predict(crops[64])
+    assert favor_stats.launches == st, "the substitution launched"
+    pairs = [(f"bf16 kernels vs plain float32 FAVOR+, 64 crops, {k}",
+              outs[64][k], out_sub[k], None) for k in out_sub]
+    # float32: the kernel path against the plain path, same seed
+    f32 = dataclasses.replace(VIP, compute_dtype="float32")
+    o32 = HandPosePredictor.from_checkpoint(f32, image_size=IMAGE).predict(
+        crops[7])
+    o32_plain = HandPosePredictor.from_checkpoint(
+        dataclasses.replace(f32, use_pallas_favor=False),
+        image_size=IMAGE).predict(crops[7])
+    pairs += [(f"float32 kernels vs plain FAVOR+ path, 7 crops, {k}",
+               o32[k], o32_plain[k],
+               F32_ATOL * (IMAGE / 2 if k == "joints_2d" else 1))
+              for k in ("camera", "joints_3d", "joints_2d")]
+    compare("vip-serve", pairs)
+    # bf16 against --use_pallas_favor False (printed: that path rounds
+    # |x|^2 to bf16, the kernels do not)
+    out_plain = HandPosePredictor.from_checkpoint(
+        dataclasses.replace(VIP, use_pallas_favor=False),
+        image_size=IMAGE).predict(crops[64])
+    diff = float(np.abs(outs[64]["joints_3d"] - out_plain["joints_3d"]).max())
+    print(f"[vip-serve] bf16 kernels vs --use_pallas_favor False, 64 crops, "
+          f"joints_3d: max abs diff {diff:.4e} (|joints_3d| max "
+          f"{np.abs(out_plain['joints_3d']).max():.4f})")
+
+    window = [rng.randint(0, 256, (VIP_WINDOW_CROPS, IMAGE, IMAGE, 3),
+                          dtype=np.uint8) for _ in range(VIP_WINDOW_REQUESTS)]
+    pred.predict(window[0])
+    t0 = time.perf_counter()
+    for x in window:
+        pred.predict(x)
+    dt = time.perf_counter() - t0
+    n = VIP_WINDOW_REQUESTS * VIP_WINDOW_CROPS
+    print(f"[vip-serve] end to end: {VIP_WINDOW_REQUESTS} back-to-back "
+          f"requests of {VIP_WINDOW_CROPS} uint8 crops (chunks of {big}), "
+          f"{n} crops in {dt * 1e3:.1f} ms: {n / dt:.1f} crops/s")
+    for b in (1, big):
+        x = rng.randint(0, 256, (b, IMAGE, IMAGE, 3), dtype=np.uint8)
+        req_t = []
+        for _ in range(20):
+            t0 = time.perf_counter()
+            pred.predict(x)
+            req_t.append(time.perf_counter() - t0)
+        print(f"[vip-serve] bucket {b:2d}: p50 request latency "
+              f"{np.median(req_t) * 1e3:.3f} ms (20 requests)")
+    device_profile("vip-serve", lambda: pred.predict(window[1]),
+                   f"{VIP_WINDOW_CROPS} crops in chunks of {big}")
+    del window
+
+
+def phase_vip_train(rng):
+    t0 = time.perf_counter()
+    trainer = Trainer(VIP_TRAIN, image_size=IMAGE)
+    state, model = trainer.state, trainer.model
+    assert isinstance(model, performer.ViP) and not model.remat
+    assert all(b.use_kernel for b in model.mains) and model.dropout == 0.1
+    assert all(p.dtype == torch.float32 for p in model.parameters())
+    assert model.compute_dtype == torch.bfloat16
+    print(f"[vip-train] trainer built in {time.perf_counter() - t0:.1f} s "
+          f"(ViP, bs {VIP_TRAIN.batch_size}, {IMAGE}x{IMAGE}, {VIP_T} tokens "
+          f"x {model.emb}, dropout 0.1, bf16 compute, float32 parameters)")
+    log = os.path.join(VIP_TRAIN.checkpoint_folder, "metrics.csv")
+    if os.path.exists(log):
+        os.remove(log)
+    n_steps = VIP_TRAIN.epoch * VIP_TRAIN.steps_per_epoch
+    reset_counts()
+    t0 = time.perf_counter()
+    trainer.train()
+    st, ap = favor_stats.launches, favor_apply.launches
+    print(f"[vip-train] {VIP_TRAIN.epoch} epochs x "
+          f"{VIP_TRAIN.steps_per_epoch} steps in "
+          f"{time.perf_counter() - t0:.1f} s (first steps and saves "
+          f"included); favor_stats launches {st}, favor_apply launches {ap}")
+    STATS.result["launches"] += st
+    APPLY.result["launches"] += ap
+    assert st == 3 * n_steps and ap == 3 * n_steps, (st, ap, n_steps)
+    assert flash_attention.launches == 0 and attention_bwd.launches == 0
+    with open(log) as f:
+        losses = [float(r["loss"]) for r in csv.DictReader(f)]
+    assert len(losses) == n_steps and np.isfinite(losses).all(), losses
+    quarter = n_steps // 4
+    first, last = np.mean(losses[:quarter]), np.mean(losses[-quarter:])
+    print(f"[vip-train] loss: mean of the first {quarter} steps {first:.1f}, "
+          f"of the last {quarter} {last:.1f}")
+    assert last < first, (first, last)
+
+    # one step's loss and gradients from the same weights, batch and
+    # dropout masks: kernels, the plain float32 FAVOR+, and remat
+    batches = list(trainer.train_loader)[:2]
+    batch = batches[0]
+    inputs = model.train_inputs(VIP_TRAIN.batch_size,
+                                torch.Generator("cuda").manual_seed(5))
+
+    def loss_and_grads():
+        model.zero_grad(set_to_none=True)
+        bd = steps.forward_loss(model, batch["image"], batch["label"],
+                                batch["valid"], VIP_TRAIN.l_weight_3d,
+                                VIP_TRAIN.l_weight_2d, **inputs)[0]
+        bd.total.backward()
+        grads = [p.grad.detach().clone() for p in model.parameters()]
+        norm = torch.sqrt(sum((g.float() ** 2).sum() for g in grads))
+        return bd.total.item(), norm.item(), grads
+
+    reset_counts()
+    loss_k, norm_k, grads_k = loss_and_grads()
+    assert (favor_stats.launches, favor_apply.launches) == (3, 3)
+    with plain_favor_inside():
+        loss_p, norm_p, _ = loss_and_grads()
+    assert (favor_stats.launches, favor_apply.launches) == (3, 3), \
+        "the plain substitution launched"
+    failed = []
+    for what, got, want in (("loss", loss_k, loss_p),
+                            ("global gradient norm", norm_k, norm_p)):
+        diff, bnd = abs(got - want), BF16_REL * abs(want)
+        print(f"[vip-train] bf16 kernels vs plain float32 FAVOR+, one step, "
+              f"{what}: {got:.6g} vs {want:.6g}, diff {diff:.4e} (bound "
+              f"{bnd:.4e})")
+        if not diff <= bnd:
+            failed.append(what)
+    assert not failed, failed
+    model.remat = True
+    reset_counts()
+    loss_r, norm_r, grads_r = loss_and_grads()
+    launches = (favor_stats.launches, favor_apply.launches)
+    model.remat = False
+    model.zero_grad(set_to_none=True)
+    rel = max(((a - b).abs().max() / b.abs().max().clamp(min=1e-30)).item()
+              for a, b in zip(grads_r, grads_k))
+    print(f"[vip-train] remat_blocks vs none, one step: loss {loss_r:.6g} vs "
+          f"{loss_k:.6g}, gradient norm {norm_r:.6g} vs {norm_k:.6g}, "
+          f"largest gradient difference {rel:.3e} of the tensor's largest "
+          f"entry (bound 1e-5); launches {launches}")
+    assert launches == (6, 6), launches
+    assert loss_r == loss_k and rel <= 1e-5, (loss_r, loss_k, rel)
+    del grads_k, grads_r
+
+    # the final checkpoint, served as it is
+    path = checkpoint.save_state(VIP_TRAIN.checkpoint_folder, state,
+                                 checkpoint.FINAL_NAME)
+    crops = rng.randint(0, 256, (8, IMAGE, IMAGE, 3)).astype(np.uint8)
+    served = HandPosePredictor.from_checkpoint(
+        dataclasses.replace(VIP_TRAIN, checkpoint_path_eval=path),
+        image_size=IMAGE)
+    got = served.predict(crops)
+    check_output(got, 8, root_centred=False)
+    mirror = HandPosePredictor(
+        model=copy.deepcopy(model).cast_compute(torch.bfloat16),
+        image_size=IMAGE)
+    for k, v in mirror.predict(crops).items():
+        np.testing.assert_array_equal(got[k], v, err_msg=k)
+    del served, mirror
+    got32 = HandPosePredictor.from_checkpoint(
+        dataclasses.replace(VIP_TRAIN, checkpoint_path_eval=path,
+                            compute_dtype="float32"),
+        image_size=IMAGE).predict(crops)
+    model.eval().set_compute_dtype(torch.float32)
+    with torch.no_grad():
+        x = torch.from_numpy(crops).cuda().float() / 127.5 - 1.0
+        want = model(x.permute(0, 3, 1, 2))[0][:, 3:].reshape(-1, 21, 3)
+    model.train().set_compute_dtype(torch.bfloat16)
+    diff = float(np.abs(got32["joints_3d"] - want.cpu().numpy()).max())
+    print(f"[vip-train] {path} served by HandPosePredictor: bf16 predict "
+          f"equals the trained model's; float32 predict vs the trained "
+          f"model's float32 eval forward, joints_3d max abs diff {diff:.4e} "
+          f"(bound {F32_ATOL})")
+    assert diff <= F32_ATOL, diff
+
+    step = trainer.train_step
+    for i in range(3):
+        step(state, batches[i % 2])
+    torch.cuda.synchronize()
+    window = 10
+    t0 = time.perf_counter()
+    for i in range(window):
+        step(state, batches[i % 2])
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    times = []
+    for i in range(10):
+        t1 = time.perf_counter()
+        step(state, batches[i % 2])
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t1)
+    p50 = float(np.median(times)) * 1e3
+    print(f"[vip-train] rate: {window} steps of {VIP_TRAIN.batch_size} crops "
+          f"in {dt * 1e3:.1f} ms: {window * VIP_TRAIN.batch_size / dt:.1f} "
+          f"crops/s; p50 step time {p50:.3f} ms (10 steps, each "
+          f"synchronised); peak memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.1f} GiB; card "
+          f"{card_line()}")
+
+    def three_steps():
+        for i in range(3):
+            step(state, batches[i % 2])
+        torch.cuda.synchronize()
+
+    busy = device_profile("vip-train", three_steps, f"3 train steps of "
+                          f"{VIP_TRAIN.batch_size} crops")
+    print(f"[vip-train] device busy {busy / 3:.3f} ms per step against the "
+          f"p50 step time {p50:.3f} ms: device idle "
+          f"{100 * (1 - busy / 3 / p50):.1f}% of an unprofiled step")
+
+
 def _post(port, arr):
     conn = http.client.HTTPConnection("127.0.0.1", port, timeout=300)
     conn.request("POST", "/predict", body=arr.tobytes(), headers={
@@ -702,6 +1183,13 @@ def main():
     t0 = time.perf_counter()
     phase_train(rng)
     print(f"[train] done in {time.perf_counter() - t0:.1f} s")
+    for name, fn in (("favor", phase_favor_kernels),
+                     ("vip-serve", lambda: phase_vip_serve(rng)),
+                     ("vip-train", lambda: phase_vip_train(rng))):
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        fn()
+        print(f"[{name}] done in {time.perf_counter() - t0:.1f} s")
     print(f"[total] {time.perf_counter() - t_start:.1f} s")
 
     print(card_line())

@@ -106,6 +106,8 @@ class Options:
     # flagship attention through the hand-written kernel
     # (ops/attention.py); False takes the plain PyTorch version
     use_pallas_attention: bool = True
+    # --net ViP's FAVOR+ through the hand-written kernels (ops/favor.py);
+    # False takes the plain PyTorch version, as in the JAX package
     use_pallas_favor: bool = False
     favor_precision: str = "highest"
     remat_blocks: bool = False

@@ -23,7 +23,7 @@ from typing import Iterable
 PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(PKG_DIR), "build", "scat_tpu_torch")
-SOURCES = ("attention_fwd", "attention_bwd")
+SOURCES = ("attention_fwd", "attention_bwd", "favor")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
 NVCC_DEFAULT = "/usr/local/cuda/bin/nvcc"

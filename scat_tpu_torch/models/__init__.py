@@ -1,4 +1,4 @@
-"""Models of the port: the ResNet backbone, the token-pyramid transformer
-and the flagship ``EncoderTransformer`` head."""
+"""Models of the port: the ResNet backbone, the token-pyramid transformer,
+the flagship ``EncoderTransformer`` head and the Performer ``ViP``."""
 
 from scat_tpu_torch.models.factory import build_model  # noqa: F401

@@ -1,7 +1,7 @@
 """Model factory keyed by the ``--net`` flag (port of
-``scat_tpu/models/factory.py:29-68``).  Only the flagship
-``reg_transformer`` is ported; every other net raises and names the
-ROADMAP.md queue 1 item that ports it."""
+``scat_tpu/models/factory.py:29-121``).  The flagship ``reg_transformer``
+and ``ViP`` are ported; every other net raises and names the ROADMAP.md
+queue 1 item that ports it."""
 
 from __future__ import annotations
 
@@ -9,10 +9,13 @@ from typing import Tuple
 
 import numpy as np
 import torch
+from torch import nn
 
 from scat_tpu_torch import assets
 from scat_tpu_torch.config import Options
 from scat_tpu_torch.models.hand_net import EncoderTransformer
+from scat_tpu_torch.models.performer import ViP
+from scat_tpu_torch.ops.favor import PRECISIONS
 
 _NOT_PORTED = {
     "reg_transformer_coarse": 9,
@@ -20,7 +23,6 @@ _NOT_PORTED = {
     "backbone_incepv3": 10,
     "frankmocap": 11,
     "ViT": 12,
-    "ViP": 13,
 }
 
 
@@ -33,16 +35,27 @@ def compute_dtype(opt: Options) -> torch.dtype:
 
 
 def build_model(opt: Options, image_size: int = 224
-                ) -> Tuple[EncoderTransformer, np.ndarray]:
+                ) -> Tuple[nn.Module, np.ndarray]:
     """``(float32 module with fresh parameters, mean_params ndarray)``
     for ``opt.net``."""
     if opt.net in _NOT_PORTED:
         raise NotImplementedError(
             f"--net {opt.net} is not ported to scat_tpu_torch yet "
             f"(ROADMAP.md queue 1 item {_NOT_PORTED[opt.net]})")
-    if opt.net != "reg_transformer":
+    if opt.net not in ("reg_transformer", "ViP"):
         raise ValueError(f"unknown --net {opt.net!r}")
     mean = assets.load_mean_params(outside=opt.outside)
+    if opt.net == "ViP":
+        if opt.favor_precision not in PRECISIONS:
+            raise ValueError(
+                f"--favor_precision {opt.favor_precision!r} is not one of "
+                f"{'/'.join(PRECISIONS)} (ops/favor.py favor_precisions)")
+        model = ViP(mean_params=torch.from_numpy(mean),
+                    image_pix=image_size, iteration=opt.iteration,
+                    use_kernel=opt.use_pallas_favor,
+                    remat=opt.remat_blocks,
+                    favor_precision=opt.favor_precision)
+        return model, mean
     # --pl_reg differentiates twice through the attention stack (the loss
     # takes the gradient of the path-length probe); the kernel's backward
     # is once_differentiable, so pl_reg takes the plain attention path,

@@ -110,6 +110,16 @@ class EncoderTransformer(nn.Module):
         return torch.autocast(device_type, dtype=self.compute_dtype,
                               enabled=on)
 
+    def train_inputs(self, batch_size: int,
+                     generator: Optional[torch.Generator] = None) -> dict:
+        """The random inputs of one training forward: the token mask's
+        flags, drawn from ``generator``, when 0.1 <= mask_rate <= 0.9;
+        nothing otherwise.  One mask serves the whole batch."""
+        if not 0.1 <= self.mask_rate <= 0.9:
+            return {}
+        return {"token_mask": random_token_mask(NUM_TOKENS, self.mask_rate,
+                                                generator)}
+
     def _head(self, feat_visual: torch.Tensor,
               token_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
         """21-channel map -> transformer offsets [B,63] float32 (the

@@ -38,11 +38,10 @@ from typing import Optional, Tuple
 import torch
 from torch.autograd.function import once_differentiable
 
-from scat_tpu_torch.kernels import build
+from scat_tpu_torch.kernels import abi, build
 
 HEAD_DIM = 64
 MAX_SEQ = 128
-_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 
 def attention_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -95,7 +94,7 @@ def _check(*ts: torch.Tensor) -> None:
     if q.dim() != 4 or any(t.shape != q.shape for t in ts):
         raise ValueError(f"attention operands must share one [B,H,N,D] "
                          f"shape, got {[tuple(t.shape) for t in ts]}")
-    if any(t.dtype != q.dtype for t in ts) or q.dtype not in _DTYPE_CODES:
+    if any(t.dtype != q.dtype for t in ts) or q.dtype not in abi.DTYPE_CODES:
         raise TypeError(f"the attention kernels take float32 or bfloat16 "
                         f"inputs of one dtype, got {[t.dtype for t in ts]}")
     if any(t.device != q.device for t in ts):
@@ -111,15 +110,7 @@ def _check(*ts: torch.Tensor) -> None:
 def _operands(*ts: torch.Tensor):
     """Pointers and the (batch, head, row) strides of [B,H,N,D] operands,
     as the kernels' C interfaces take them."""
-    strides = (ctypes.c_longlong * (3 * len(ts)))(
-        *(s for t in ts for s in t.stride()[:3]))
-    return [t.data_ptr() for t in ts], strides
-
-
-def _raise_on(rc: int, lib: ctypes.CDLL, name: str) -> None:
-    if rc != 0:
-        raise RuntimeError(f"{name} launch failed: "
-                           + lib.scat_cuda_error_string(rc).decode())
+    return [t.data_ptr() for t in ts], abi.strides(*ts)
 
 
 def _attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -134,9 +125,9 @@ def _attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     lib = _library("attention_fwd")
     with torch.cuda.device(q.device):
         rc = lib.scat_attention_fwd(
-            *ptrs, b, h, n, d, strides, float(scale), _DTYPE_CODES[q.dtype],
+            *ptrs, b, h, n, d, strides, float(scale), abi.DTYPE_CODES[q.dtype],
             torch.cuda.current_stream(q.device).cuda_stream)
-    _raise_on(rc, lib, "attention_fwd")
+    abi.raise_on(rc, lib, "attention_fwd")
     flash_attention.launches += 1
     return o
 
@@ -161,9 +152,9 @@ def attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     lib = _library("attention_bwd")
     with torch.cuda.device(q.device):
         rc = lib.scat_attention_bwd(
-            *ptrs, b, h, n, d, strides, float(scale), _DTYPE_CODES[q.dtype],
+            *ptrs, b, h, n, d, strides, float(scale), abi.DTYPE_CODES[q.dtype],
             torch.cuda.current_stream(q.device).cuda_stream)
-    _raise_on(rc, lib, "attention_bwd")
+    abi.raise_on(rc, lib, "attention_bwd")
     attention_bwd.launches += 1
     return grads
 

@@ -1,5 +1,6 @@
-"""Serving: crops in, root-centred 3D joints out (port of
-``scat_tpu/serving.py:38-256``).
+"""Serving: crops in, 3D joints out (port of
+``scat_tpu/serving.py:38-256``), for ``--net reg_transformer`` and
+``--net ViP``.
 
 Requests of any size are padded to a ladder of power-of-two batch
 buckets and streamed through the model in bucket-sized chunks, so the
@@ -124,10 +125,12 @@ class HandPosePredictor:
     def from_checkpoint(cls, opt: Options, image_size: int = 224,
                         device: Union[str, torch.device, None] = None
                         ) -> "HandPosePredictor":
-        """The predictor of ``opt`` on ``device`` (default ``cuda``; the
-        CPU only when asked for).  Weights come from
-        ``opt.checkpoint_path_eval``: a reference ``.pth``, or an empty
-        path for a fresh init seeded with ``opt.seed``."""
+        """The predictor of ``opt`` (``--net reg_transformer`` or
+        ``ViP``) on ``device`` (default ``cuda``; the CPU only when asked
+        for).  Weights come from ``opt.checkpoint_path_eval``: a reference
+        ``.pth`` (loaded strictly: a ViP file must carry its frozen
+        ``mains.{i}.w``), or an empty path for a fresh init seeded with
+        ``opt.seed``."""
         device = torch.device("cuda" if device is None else device)
         if device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError(
@@ -182,7 +185,8 @@ class HandPosePredictor:
                 ) -> Dict[str, np.ndarray]:
         """``images``: [N,H,W,3] uint8 [0,255] or float [-1,1] crops, N
         arbitrary.  Returns numpy ``camera [N,3]``, ``joints_3d [N,21,3]``
-        (root-centred) and ``joints_2d [N,21,2]`` (crop pixels).
+        (root-centred by ``reg_transformer``; ``ViP`` predicts joint 1
+        like the others) and ``joints_2d [N,21,2]`` (crop pixels).
 
         ``chunk_device_times``: measurement mode, see ``run_bucketed``."""
         x = np.asarray(images)

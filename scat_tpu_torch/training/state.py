@@ -1,9 +1,9 @@
 """Train state (port of ``scat_tpu/training/state.py``): the model (its
 parameters and BatchNorm statistics), the optimizer, the lr schedule,
 the step, the path-length EMA and the generator that draws the token
-masks, in one object, so a checkpoint captures everything.  The JAX
-package's ``constants`` (ViP's frozen FAVOR+ projection) arrive with
-ViP (ROADMAP.md queue 1 item 13).
+masks and ViP's dropout masks, in one object, so a checkpoint captures
+everything.  The JAX package's ``constants`` (ViP's frozen FAVOR+
+projection) are the model's persistent buffers ``mains.{i}.w`` here.
 
 Unlike the JAX package's immutable pytree, the state is updated in
 place by the train step, as PyTorch modules and optimizers are."""

@@ -18,8 +18,6 @@ import torch
 from torch import nn
 
 from scat_tpu_torch.models import losses as losses_lib
-from scat_tpu_torch.models.hand_net import NUM_TOKENS
-from scat_tpu_torch.models.transformer import random_token_mask
 from scat_tpu_torch.ops import metrics as metrics_lib
 from scat_tpu_torch.ops import procrustes
 from scat_tpu_torch.ops.geometry import batch_orth_proj_idrot, project_2d
@@ -38,16 +36,26 @@ def predictions_to_keypoints(pred_params: torch.Tensor
     return cam, j3d, project_2d(batch_orth_proj_idrot(j3d, cam))
 
 
+def train_inputs(model: nn.Module, batch_size: int,
+                 generator: torch.Generator) -> dict:
+    """The random inputs of one training forward of ``model``, drawn from
+    ``generator`` (the flagship's token mask, ViP's dropout masks), as
+    keyword arguments of its forward; none for a model without
+    ``train_inputs``."""
+    draw = getattr(model, "train_inputs", None)
+    return {} if draw is None else draw(batch_size, generator)
+
+
 def forward_loss(model: nn.Module, images: torch.Tensor,
                  labels: torch.Tensor, valid: Optional[torch.Tensor],
                  l_weight_3d: float, l_weight_2d: float,
                  pl_reg: bool = False,
                  pl_mean: Optional[torch.Tensor] = None,
-                 ema_reset_compat: bool = True,
-                 token_mask: Optional[torch.Tensor] = None):
-    """The model in its current mode on NHWC ``images``, and the SCAT
-    loss: ``(breakdown, new_pl_mean, joints3d, joints2d_px)``."""
-    outputs = model(images.permute(0, 3, 1, 2), token_mask=token_mask)
+                 ema_reset_compat: bool = True, **model_inputs):
+    """The model in its current mode on NHWC ``images`` (with
+    ``model_inputs``, e.g. ``token_mask=`` or ``dropout_masks=``), and
+    the SCAT loss: ``(breakdown, new_pl_mean, joints3d, joints2d_px)``."""
+    outputs = model(images.permute(0, 3, 1, 2), **model_inputs)
     _, j3d, j2d = predictions_to_keypoints(outputs[0])
     breakdown, new_pl = losses_lib.scat_loss(
         j3d.reshape(-1, 63), j2d.reshape(-1, 42), labels, l_weight_3d,
@@ -87,7 +95,6 @@ def make_train_step(l_weight_3d: float, l_weight_2d: float,
             raise ValueError(f"batch size {n} is not divisible by "
                              f"--grad_accum {grad_accum}")
         m = n // grad_accum
-        masking = 0.1 <= model.mask_rate <= 0.9
         sv_total = valid.sum().clamp(min=1.0)
         state.optimizer.zero_grad(set_to_none=True)
         sums = torch.zeros(4, device=labels.device)
@@ -95,11 +102,10 @@ def make_train_step(l_weight_3d: float, l_weight_2d: float,
         pred0 = None
         for i in range(grad_accum):
             sl = slice(i * m, (i + 1) * m)
-            flags = (random_token_mask(NUM_TOKENS, model.mask_rate,
-                                       state.generator) if masking else None)
             bd, pl_mean, j3d, j2d = forward_loss(
                 model, images[sl], labels[sl], valid[sl], l_weight_3d,
-                l_weight_2d, pl_reg, pl_mean, ema_reset_compat, flags)
+                l_weight_2d, pl_reg, pl_mean, ema_reset_compat,
+                **train_inputs(model, m, state.generator))
             if grad_accum == 1:
                 total, parts = bd.total, (bd.total, bd.l_3d, bd.l_2d,
                                           bd.l_pl)

@@ -6,14 +6,16 @@ Weights, ``load_weights(model, path, seed)``:
 
   * ``""`` (empty path): a fresh init drawn from a ``torch.Generator``
     seeded with ``seed``, with the distributions of the JAX package's
-    flax init (truncated lecun-normal kernels, zero biases, unit norms,
-    normal(1) mask token), so a fresh port model is scaled like a fresh
+    init (flagship: flax's truncated lecun-normal kernels, zero biases,
+    unit norms, normal(1) mask token; ViP: its own, see
+    ``ViP.init_weights``), so a fresh port model is scaled like a fresh
     JAX one.
   * ``*.pth``: a reference-keyed state_dict (or ``{"state_dict": ...}``)
     read with ``torch.load(weights_only=True)`` and loaded with
     ``strict=True``; only the reference's positional-encoding buffer,
     which the port recomputes, is dropped.  A missing file raises, as
-    in the JAX package: a typo must not serve random weights.
+    in the JAX package: a typo must not serve random weights, and a ViP
+    file without its frozen projections ``mains.{i}.w`` must not load.
 
 Train state, ``save_state``/``restore_state``: one ``torch.save`` of
 ``TrainState.state_dict()`` (model, optimizer, schedule, generator,
@@ -44,8 +46,14 @@ _TRUNC_STD = 0.87962566103423978
 
 
 def init_weights(model: nn.Module, seed: int = 0) -> None:
-    """Seeded fresh init in place (flax's default distributions)."""
+    """Seeded fresh init in place: the model's own ``init_weights`` where
+    it has one (ViP: the JAX package's torch-style init), else flax's
+    default distributions."""
     gen = torch.Generator().manual_seed(seed)
+    own = getattr(model, "init_weights", None)
+    if own is not None:
+        own(gen)
+        return
     with torch.no_grad():
         for m in model.modules():
             if isinstance(m, (nn.Conv2d, nn.Linear)):

@@ -3,12 +3,14 @@
 ``state_dict_from_flax(params, batch_stats)`` renders the numpy (or any
 array-like) trees of a ``scat_tpu`` ``EncoderTransformer`` as a state_dict
 in the reference SCAT key layout, which the port's ``EncoderTransformer``
-loads with ``load_state_dict(strict=True)``.  It is the port's own copy of
-the mapping in ``scat_tpu/utils/torch_import.py`` (``_Exporter`` :100-165,
-``_walk_resnet``/``_walk_pyramid``/``_walk_encoder`` :191-256,
-``export_torch_encoder_transformer`` :551-567), for the plain (not
-coarse) head.  Layout conversions: conv kernels HWIO -> OIHW, dense
-kernels [in,out] -> [out,in].
+loads with ``load_state_dict(strict=True)``; ``vip_state_dict_from_flax
+(params, constants)`` does the same for ``ViP``.  They are the port's own
+copy of the mapping in ``scat_tpu/utils/torch_import.py`` (``_Exporter``
+:100-165, ``_walk_resnet``/``_walk_pyramid``/``_walk_encoder`` :191-256,
+``_walk_vip`` :343-358, ``export_torch_encoder_transformer`` :551-567,
+``export_torch_vip`` :472-480), for the plain (not coarse) head.  Layout
+conversions: conv kernels HWIO -> OIHW, dense kernels [in,out] ->
+[out,in].
 """
 
 from __future__ import annotations
@@ -125,6 +127,45 @@ def _walk_pyramid(v, depth: int) -> None:
         v.dense(("transformer", f"ff_{i}", "Dense_1"), net + ".net.2")
 
 
+def _walk_vip(v, depth: int) -> None:
+    """ViP (``_walk_vip`` :343-358): patch embedding, position embedding,
+    cls token, head and the blocks; the frozen ``w`` is walked from the
+    ``constants`` tree by the caller."""
+    v.raw(("pos_emb",), "pos_emb")
+    v.raw(("cls_token",), "cls_token")
+    v.dense(("patch_emb",), "patch_emb")
+    v.dense(("head",), "head")
+    for i in range(depth):
+        fb, tb = f"block_{i}", f"mains.{i}"
+        v.dense((fb, "kqv"), f"{tb}.kqv")
+        v.dense((fb, "proj"), f"{tb}.proj")
+        v.ln((fb, "ln1"), f"{tb}.ln1")
+        v.ln((fb, "ln2"), f"{tb}.ln2")
+        v.dense((fb, "mlp1"), f"{tb}.mlp.0")
+        v.dense((fb, "mlp2"), f"{tb}.mlp.2")
+
+
+def _tensors(out: Dict[str, np.ndarray]) -> Dict[str, torch.Tensor]:
+    return {k: torch.from_numpy(np.array(v, order="C"))
+            for k, v in out.items()}
+
+
+def vip_state_dict_from_flax(params: Dict, constants: Dict
+                             ) -> Dict[str, torch.Tensor]:
+    """The JAX package's ``ViP`` (params, constants) trees as a
+    reference-keyed state_dict of CPU tensors (the port's copy of
+    ``export_torch_vip`` :472-480): dense kernels transposed, each
+    block's frozen projection ``constants/block_{i}/w`` as
+    ``mains.{i}.w``.  The depth is read from the tree."""
+    depth = sum(1 for k in params if k.startswith("block_"))
+    e = _Exporter(params, None)
+    _walk_vip(e, depth)
+    c = _Exporter(constants, None)
+    for i in range(depth):
+        c.raw((f"block_{i}", "w"), f"mains.{i}.w")
+    return _tensors({**e.out, **c.out})
+
+
 def state_dict_from_flax(params: Dict, batch_stats: Optional[Dict] = None
                          ) -> Dict[str, torch.Tensor]:
     """The JAX package's ``EncoderTransformer`` (params, batch_stats)
@@ -143,5 +184,4 @@ def state_dict_from_flax(params: Dict, batch_stats: Optional[Dict] = None
     e.raw(("mask_token",), "mask_token")
     e.dense(("regressor",), "regressor")
     _walk_pyramid(e, depth)
-    return {k: torch.from_numpy(np.array(v, order="C"))
-            for k, v in e.out.items()}
+    return _tensors(e.out)

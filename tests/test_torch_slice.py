@@ -218,7 +218,8 @@ def test_bf16_compute_dtype():
 
 
 @pytest.mark.parametrize("net,item", [("reg_transformer_coarse", 9),
-                                      ("backbone_hrnet", 10), ("ViP", 13)])
+                                      ("backbone_hrnet", 10),
+                                      ("frankmocap", 11), ("ViT", 12)])
 def test_unported_nets_name_their_roadmap_item(net, item):
     with pytest.raises(NotImplementedError, match=f"item {item}"):
         build_model(Options(net=net))
