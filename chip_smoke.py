@@ -5,8 +5,9 @@
 
 Phases, in order; any failure raises and exits non-zero:
   1. build    compile every kernel source under scat_tpu_torch/csrc
-              (one nvcc each, in parallel) and print the card's name and
-              power limit;
+              (one nvcc each, in parallel), print what ptxas reports
+              (registers, shared memory, spills) for the two tensor-core
+              kernels, and the card's name and power limit;
   2. kernels  each kernel against its plain PyTorch version on the card
               at the serving and training paths' shapes: float32 (TF32
               off) at atol 2e-5, bfloat16 at atol = rtol = 1e-2 against
@@ -14,7 +15,8 @@ Phases, in order; any failure raises and exits non-zero:
               flash_attention's autograd against autograd through the
               plain forward; then each kernel timed beside its plain
               version and the library call (SDPA forward, and SDPA
-              forward+backward beside the two kernels' sum);
+              forward+backward beside the two kernels' sum, with SDPA's
+              backward alone as their difference);
   3. slice    the flagship --net reg_transformer predictor at full width
               (resnet50, 224x224 crops, 784-dim tokens, 8 heads,
               iteration 3, bfloat16, weights from seed 0) serves uint8
@@ -43,11 +45,17 @@ Phases, in order; any failure raises and exits non-zero:
               T = 3137, e = 128, m = 64; T at chunk and tile edges; e 64
               / m 32): float32 at rtol 1e-4 (atol 1e-5, times the largest
               magnitude for the stats' sums over T), bf16 operands
-              against the plain version fed their float32 values;
+              against the plain version fed their float32 values; the
+              stats and apply chain against the plain apply of the plain
+              stats (float32 operands) or of the exact, float64 stats
+              (bf16 operands: the bf16x3 tensor-core stats are closer to
+              them than float32 is);
               favor_attention_fused's autograd against autograd through
               favor_attention; then each kernel timed beside its plain
               version, and the plain three-einsum path (no single PyTorch
-              call computes FAVOR+, so no library time);
+              call computes FAVOR+, so no library time), the stats
+              kernel's bound both as its tensor-core design's (bytes) and
+              as the float32-operation figure;
   7. vip-serve  the --net ViP predictor at full width (224 px, 3137
               tokens x 512, 4 heads, depth 3, m 64, iteration 3, bf16,
               --use_pallas_favor True, weights from seed 0) serves uint8
@@ -147,9 +155,11 @@ VIP_TRAIN = dataclasses.replace(
     log_every=1, checkpoint_folder=os.path.join("build", "chip_smoke_vip"))
 VIP_HEADS, VIP_T, VIP_E, VIP_M = 4, 3137, 128, 64
 # [B, H, T, e, m]: BH 4, 28, 256 and 384 (serving buckets 1, 7, 64;
-# training at bs 96) at ViP's T, e, m; T at chunk and tile edges; e 64
+# training at bs 96) at ViP's T, e, m; T at chunk edges (32 rows for the
+# float32 kernels, 64 for the bf16 stats kernel) and tile edges; e 64
 FAVOR_SHAPES = [(b, VIP_HEADS, VIP_T, VIP_E, VIP_M) for b in (1, 7, 64, 96)]
-FAVOR_SHAPES += [(2, VIP_HEADS, t, VIP_E, VIP_M) for t in (1, 33, 1048, 1049)]
+FAVOR_SHAPES += [(2, VIP_HEADS, t, VIP_E, VIP_M)
+                 for t in (1, 33, 63, 64, 65, 1048, 1049)]
 FAVOR_SHAPES += [(2, 3, 257, 64, 32)]
 FAVOR_TRAIN = (TRAIN_BATCH, VIP_HEADS, VIP_T, VIP_E, VIP_M)
 # float32 against float32 (TF32 off): rtol 1e-4; atol 1e-5 for y, and
@@ -245,6 +255,25 @@ def qkv_views(b, h, n, d, dtype, seed):
     return qkv.permute(2, 0, 3, 1, 4)
 
 
+# the kernels redesigned for the tensor cores, by the source that holds
+# them: their registers, shared memory and spills are printed at build
+PTXAS_KERNELS = {"attention_bwd": "attention_bwd_bf16_kernel",
+                 "favor": "favor_stats_bf16_kernel"}
+
+
+def ptxas_lines(log, kernel):
+    """The lines of ``nvcc -Xptxas -v`` output about each instantiation
+    of ``kernel``: from its "Compiling entry function" line to the next
+    entry."""
+    out, keep = [], False
+    for line in log.splitlines():
+        if "Compiling entry function" in line:
+            keep = kernel in line
+        if keep and line.strip():
+            out.append(line.strip())
+    return out
+
+
 def phase_build():
     t0 = time.perf_counter()
     compiled = build.build_all()
@@ -252,6 +281,14 @@ def phase_build():
         print(f"[build] {name}: {build.library_path(name)}")
     print(f"[build] {compiled} source(s) compiled in "
           f"{time.perf_counter() - t0:.1f} s")
+    for name, kernel in PTXAS_KERNELS.items():
+        if name not in build.LOGS:
+            print(f"[build] {name}: loaded as built before, no ptxas output")
+            continue
+        lines = ptxas_lines(build.LOGS[name], kernel)
+        assert lines, f"no ptxas output for {kernel}"
+        for line in lines:
+            print(f"[build] ptxas {kernel}: {line}")
     print(f"[build] card: {card_line()}; torch {torch.__version__}, "
           f"CUDA {torch.version.cuda}")
 
@@ -363,14 +400,18 @@ def phase_kernels():
         "sdpa fwd+bwd": device_ms(lambda: torch.autograd.grad(
             F.scaled_dot_product_attention(*leaves, scale=SCALE), leaves,
             do))}
+    with torch.no_grad():
+        dev["sdpa fwd"] = device_ms(
+            lambda: F.scaled_dot_product_attention(q, k, v, scale=SCALE))
     n_bytes = 7 * b * HEADS * TOKENS * HEAD_DIM * 2
     flops = 10 * b * HEADS * TOKENS * TOKENS * HEAD_DIM
     ms, by = bound(n_bytes, flops)
     print(f"[kernels] attention_bwd b={b} [{b},8,21,64]: kernel "
           f"{dev['kernel']:.5f} plain {dev['plain']:.5f} | kernels "
           f"fwd+bwd {dev['kernels fwd+bwd']:.5f} sdpa fwd+bwd "
-          f"{dev['sdpa fwd+bwd']:.5f} | bound {ms:.6f} ({by}: {n_bytes} B, "
-          f"{flops} flop)")
+          f"{dev['sdpa fwd+bwd']:.5f}, sdpa fwd {dev['sdpa fwd']:.5f}, so "
+          f"sdpa bwd alone ~{dev['sdpa fwd+bwd'] - dev['sdpa fwd']:.5f} | "
+          f"bound {ms:.6f} ({by}: {n_bytes} B, {flops} flop)")
     BWD.result.update(ms=dev["kernel"], plain_ms=dev["plain"],
                       library_ms=dev["sdpa fwd+bwd"], bound_ms=ms,
                       bound_by=by)
@@ -722,6 +763,14 @@ def favor_operands(b, h, t, e, m, dtype, seed):
     return q, k, v, torch.randn(m, e, generator=g).cuda()
 
 
+def exact_stats(k, v, w):
+    """The stats' formula in float64, rounded to float32 once."""
+    k, v, w = k.double(), v.double(), w.double()
+    kp = torch.exp(k @ w.T - 0.5 * (k * k).sum(-1, keepdim=True))
+    kp = kp / w.shape[0] ** 0.5
+    return kp.sum(-2).float(), (kp.transpose(-1, -2) @ v).float()
+
+
 def favor_work(b, h, t, e, m, in_bytes):
     """{kernel: (bytes, flops)} of one stats and one apply launch: each
     input read once and each output written once (y in float32); the
@@ -749,16 +798,24 @@ def phase_favor_kernels():
             wks, wkv = favor_stats_reference(k.float(), v.float(), w)
             wy = favor_apply_reference(q.float(), ksum, kptv, w)
             chain = favor_apply_reference(q.float(), wks, wkv, w)
+            # the bf16x3 stats are closer to the exact stats than the
+            # float32 plain version's, so their chain is held against the
+            # plain apply of the exact stats; float32 operands share the
+            # float32 plain version's arithmetic and are held against its
+            exact = favor_apply_reference(q.float(), *exact_stats(k, v, w),
+                                          w)
+            held = chain if dtype == torch.float32 else exact
             scale = wkv.abs().max().item()
             s_err = max((ksum - wks).abs().max().item(),
                         (kptv - wkv).abs().max().item())
             y_err = (y - wy).abs().max().item()
             c_err = (y - chain).abs().max().item()
+            e_err = (y - exact).abs().max().item()
             for got, want in ((ksum, wks), (kptv, wkv)):
                 torch.testing.assert_close(
                     got, want, rtol=FAVOR_RTOL,
                     atol=FAVOR_ATOL * want.abs().max().item())
-            for want in (wy, chain):
+            for want in (wy, held):
                 torch.testing.assert_close(y, want, rtol=FAVOR_RTOL,
                                            atol=FAVOR_ATOL)
             assert torch.equal(favor_stats(k, v, w)[1], kptv), \
@@ -766,8 +823,10 @@ def phase_favor_kernels():
             print(f"[favor] {list(shape)} {str(dtype)[6:]}: favor_stats "
                   f"max_abs_err {s_err:.3e} (|kptv| max {scale:.4g}, "
                   f"relative {s_err / scale:.3e}), favor_apply max_abs_err "
-                  f"{y_err:.3e}, chain {c_err:.3e} (rtol {FAVOR_RTOL}, atol "
-                  f"{FAVOR_ATOL}); deterministic")
+                  f"{y_err:.3e}, chain {c_err:.3e} against the plain "
+                  f"stats, {e_err:.3e} against the exact stats (held: "
+                  f"{'plain' if dtype == torch.float32 else 'exact'}; "
+                  f"rtol {FAVOR_RTOL}, atol {FAVOR_ATOL}); deterministic")
             if shape == FAVOR_TRAIN and dtype == torch.bfloat16:
                 STATS.result["max_abs_err"] = s_err
                 APPLY.result["max_abs_err"] = y_err
@@ -817,11 +876,20 @@ def phase_favor_kernels():
         for kern in (STATS, APPLY):
             n_bytes, flops = work[kern.name]
             ms, by = bound(n_bytes, flops, torch.float32)
+            what = f"{n_bytes} B, {flops} flop at the float32 rate"
+            if kern is STATS:
+                # the bf16 stats kernel's design: the bf16x3 products (three
+                # for each of its 4 m e flops a row) on the tensor cores;
+                # its float32-operation figure beside it, as in PR 3
+                tc_flops = 3 * b * VIP_HEADS * VIP_T * 4 * VIP_M * VIP_E
+                f32_ms = ms
+                ms, by = bound(n_bytes, tc_flops, torch.bfloat16)
+                what = (f"{n_bytes} B, {tc_flops} bf16x3 tensor-core flop; "
+                        f"the float32-operation figure {f32_ms:.6f}")
             print(f"[favor] {kern.name} [{b},4,3137,128] m 64: kernel "
                   f"{dev[kern.name]:.5f} plain {dev[kern.name + ' plain']:.5f}"
-                  f" | bound {ms:.6f} ({by}: {n_bytes} B, {flops} flop at the "
-                  f"float32 rate) | {100 * ms / dev[kern.name]:.1f}% of the "
-                  f"bound")
+                  f" | bound {ms:.6f} ({by}: {what}) | "
+                  f"{100 * ms / dev[kern.name]:.1f}% of the bound")
             if b == TRAIN_BATCH:
                 kern.result.update(ms=dev[kern.name],
                                    plain_ms=dev[kern.name + " plain"],

@@ -6,69 +6,71 @@
 //   S = Q K^T * scale,  P = softmax(S)            (recomputed, f32)
 //   dV = P^T dO,  dP = dO V^T,  delta = rowsum(dP o P),  dS = P o (dP - delta)
 //   dQ = dS K * scale,  dK = dS^T Q * scale.
-// P, dP and dS never reach device memory.
+// P, dP and dS never reach device memory.  D = 64, 1 <= N <= 128; every
+// operand is addressed through (batch, head, row) strides, so the
+// projection's strided Q/K/V views and the dO that autograd delivers need
+// no copy.
 //
-// Design: one block of 4 warps per (batch, head), as the forward
-// (attention_fwd.cu).  Q, K, V and dO rows are read once from device memory,
-// converted to f32 and staged in shared memory, every row padded to D+1
-// floats so that lane j reading row j is free of bank conflicts.  Two
-// passes over that staged block:
-//   1. by query row i (warp i, i+4, ...): lane l holds keys l, l+32, l+64,
-//      l+96; it computes s_ij and dp_ij, the row max, sum and delta_i are
-//      warp shuffles, ds_ij goes to a per-warp row in shared memory and lane
-//      c accumulates dQ_i columns c and c+32.  The row's max, 1/sum and
-//      delta are kept in shared memory (3 floats a row);
-//   2. by key row j (warp j, j+4, ...): lane l holds queries l, l+32, ...;
-//      it recomputes s_ij and dp_ij by the dot products of pass 1, in the
-//      same order, forms p_ij and ds_ij from
-//      the stored row statistics, writes both columns to per-warp rows in
-//      shared memory, and lane c accumulates dV_j and dK_j columns c, c+32.
-// The recompute in pass 2 takes the place of an [N,N] P and dS in shared
-// memory: at N = 128 those would add 128 KB in f32 to the 130 KB of the
-// four staged operands, past the 227 KB a block can have.  As it is the
-// kernel needs (4*N*(D+1) + 8*N + 3*N) floats: 138,752 bytes at N = 128
-// (above 48 KB only after the cudaFuncSetAttribute opt-in), 22,764 at
-// N = 21.  dQ, dK and dV are written once, in the input type.  No padding
-// of N: rows and keys past N are never read.  Every operand is addressed
-// through (batch, head, row) strides, so the projection's strided Q/K/V
-// views and the dO that autograd delivers need no copy.
+// What bounds it on the H100: bytes, at the bound.  It reads Q, K, V, dO
+// and writes dQ, dK, dV: 14,450,688 bytes in bf16 at the flagship's train
+// shape [96,8,21,64], 4.31 us at 3.35 TB/s, against 10*N*N*D flops per
+// (batch, head).  What bounded the first design (one CUDA-core FMA per
+// 4-byte shared-memory load, and a second pass that recomputed S and dP)
+// was the count of shared-memory instructions.  So the bf16 kernel, the
+// one the canonical training path runs, does its five products on the
+// tensor cores, where one mma.sync does 2,048 multiply-adds from fragments
+// that one ldmatrix loads:
+//   * one block per (batch, head) of NT = ceil(N/16) warps (2 at N = 21, 8
+//     at N = 128): warp w owns query rows 16w..16w+15 in phase 1 and key
+//     rows 16w..16w+15 in phase 2, so every warp does tensor-core work and
+//     the 768 heads of the training batch (28 KB of shared memory each at
+//     N = 21) are resident in one wave;
+//   * Q, K, V and dO rows are copied into shared memory as bf16 in 16-byte
+//     cp.async copies, all issued before any math; rows past N are zero.
+//     Rows are padded by 16 bytes (144 B) so that the eight row addresses
+//     of an ldmatrix fall in distinct banks;
+//   * phase 1 (warp: 16 query rows against all keys): S and dP by
+//     mma.sync.m16n8k16 (bf16 in, f32 accumulate); keys >= N masked to
+//     -inf as the TPU kernel does; row max, row sum, delta and dS in the
+//     accumulator registers with quad shuffles.  P and dS are rounded to
+//     bf16 once and written to shared memory ([NP][NP] each, NP = 16 NT);
+//     dQ = dS K takes dS straight from the registers as A fragments;
+//   * phase 2 (warp: 16 keys): dV = P^T dO and dK = dS^T Q, the
+//     transposes by ldmatrix.trans.  P and dS in bf16 fit beside the
+//     operands (143 KB at N = 128), so there is no recompute pass;
+//   * each output tile goes through a per-warp staging tile in shared
+//     memory and leaves in 16-byte stores through the output strides.
+// The bf16 rounding of P and dS before the second products is what a bf16
+// tensor-core backward does; the bf16 tolerance (atol = rtol = 1e-2
+// against the float32 plain version) covers it.
 //
-// What bounds it on the H100: bytes.  It reads Q, K, V, dO and writes dQ,
-// dK, dV: 7*B*H*N*D elements, 14,450,688 bytes in bf16 at the flagship's
-// train shape [96,8,21,64], 4.31 us at 3.35 TB/s.  Its work is 10*N*N*D
-// flops per (batch, head) by the formulas above, ~30 per element moved at
-// N = 21 (pass 2's recompute adds 4*N*N*D that the bound does not count),
-// far below the ~295 flops per byte where the tensor cores become the
-// limit.  So, as the forward, it spends nothing on tensor cores and keeps
-// every [N,N] intermediate on chip.
+// The float32 instantiation keeps the CUDA-core design of the first port:
+// float32 is the parity type (atol 2e-5 against the plain version), which
+// a bf16 tensor-core product cannot meet.  One block of 4 warps per
+// (batch, head), operands staged as f32 rows padded to D+1 floats; pass 1
+// by query row (softmax statistics, delta, dQ), pass 2 by key row
+// (recomputing s and dp in the same order; dV, dK).
 
 #include <math.h>
+#include <stdint.h>
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 
+#include "mma.cuh"
+
 namespace {
+
+using bf16 = __nv_bfloat16;
+using namespace scat_mma;
 
 constexpr int kHeadDim = 64;
 constexpr int kMaxSeq = 128;
-constexpr int kWarps = 4;
-constexpr int kThreads = kWarps * 32;
-constexpr int kPerLane = kMaxSeq / 32;
-constexpr int kStride = kHeadDim + 1;
 
 // element strides of one operand; the head dimension is contiguous
 struct Strides {
   long long b, h, n;
 };
-
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-__device__ __forceinline__ void store(float* p, float x) { *p = x; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float x) {
-  *p = __float2bfloat16(x);
-}
 
 __device__ __forceinline__ float warp_max(float x) {
 #pragma unroll
@@ -84,6 +86,14 @@ __device__ __forceinline__ float warp_sum(float x) {
   return x;
 }
 
+// ---------------------------------------------------------------------------
+// float32: CUDA cores
+
+constexpr int kF32Warps = 4;
+constexpr int kF32Threads = kF32Warps * 32;
+constexpr int kPerLane = kMaxSeq / 32;
+constexpr int kStride = kHeadDim + 1;
+
 // a . b over the head dimension, in one fixed order
 __device__ __forceinline__ float dot(const float* a, const float* b) {
   float acc = 0.f;
@@ -92,48 +102,48 @@ __device__ __forceinline__ float dot(const float* a, const float* b) {
   return acc;
 }
 
-size_t smem_bytes(int n) {
+size_t f32_smem_bytes(int n) {
   // sQ, sK, sV, sDO [n][D+1]; per-warp rows [4][n] for p and ds;
   // per-row max, 1/sum and delta [n] each
-  return sizeof(float) *
-         (size_t(4) * n * kStride + size_t(2) * kWarps * n + size_t(3) * n);
+  return sizeof(float) * (size_t(4) * n * kStride +
+                          size_t(2) * kF32Warps * n + size_t(3) * n);
 }
 
-template <typename T>
-__device__ __forceinline__ void stage(float* dst, const T* src, long long row,
-                                      int n) {
-  for (int e = threadIdx.x; e < n * kHeadDim; e += kThreads) {
+__device__ __forceinline__ void stage_f32(float* dst, const float* src,
+                                          long long row, int n) {
+  for (int e = threadIdx.x; e < n * kHeadDim; e += kF32Threads) {
     const int r = e / kHeadDim;
     const int c = e % kHeadDim;
-    dst[r * kStride + c] = to_f32(src[r * row + c]);
+    dst[r * kStride + c] = src[r * row + c];
   }
 }
 
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-attention_bwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                     const T* __restrict__ v, const T* __restrict__ dout,
-                     T* __restrict__ dq, T* __restrict__ dk,
-                     T* __restrict__ dv, Strides sq, Strides sk, Strides sv,
-                     Strides sdo, Strides sdq, Strides sdk, Strides sdv,
-                     int heads, int n, float scale) {
+__global__ void __launch_bounds__(kF32Threads)
+attention_bwd_f32_kernel(const float* __restrict__ q,
+                         const float* __restrict__ k,
+                         const float* __restrict__ v,
+                         const float* __restrict__ dout,
+                         float* __restrict__ dq, float* __restrict__ dk,
+                         float* __restrict__ dv, Strides sq, Strides sk,
+                         Strides sv, Strides sdo, Strides sdq, Strides sdk,
+                         Strides sdv, int heads, int n, float scale) {
   extern __shared__ float smem[];
   float* sQ = smem;
   float* sK = sQ + n * kStride;
   float* sV = sK + n * kStride;
   float* sDO = sV + n * kStride;
-  float* sRowA = sDO + n * kStride;   // [kWarps][n]: p (pass 2)
-  float* sRowB = sRowA + kWarps * n;  // [kWarps][n]: ds (passes 1 and 2)
-  float* sMax = sRowB + kWarps * n;   // [n] row max of S
-  float* sInv = sMax + n;             // [n] 1 / row sum of exp(S - max)
-  float* sDelta = sInv + n;           // [n] rowsum(dP o P)
+  float* sRowA = sDO + n * kStride;      // [kF32Warps][n]: p (pass 2)
+  float* sRowB = sRowA + kF32Warps * n;  // [kF32Warps][n]: ds
+  float* sMax = sRowB + kF32Warps * n;   // [n] row max of S
+  float* sInv = sMax + n;                // [n] 1 / row sum of exp(S - max)
+  float* sDelta = sInv + n;              // [n] rowsum(dP o P)
 
   const long long b = blockIdx.x / heads;
   const long long h = blockIdx.x % heads;
-  stage(sQ, q + b * sq.b + h * sq.h, sq.n, n);
-  stage(sK, k + b * sk.b + h * sk.h, sk.n, n);
-  stage(sV, v + b * sv.b + h * sv.h, sv.n, n);
-  stage(sDO, dout + b * sdo.b + h * sdo.h, sdo.n, n);
+  stage_f32(sQ, q + b * sq.b + h * sq.h, sq.n, n);
+  stage_f32(sK, k + b * sk.b + h * sk.h, sk.n, n);
+  stage_f32(sV, v + b * sv.b + h * sv.h, sv.n, n);
+  stage_f32(sDO, dout + b * sdo.b + h * sdo.h, sdo.n, n);
   __syncthreads();
 
   const int warp = threadIdx.x / 32;
@@ -142,8 +152,8 @@ attention_bwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   float* row_b = sRowB + warp * n;
 
   // pass 1: query rows -> softmax statistics, delta, dQ
-  T* dqb = dq + b * sdq.b + h * sdq.h;
-  for (int i = warp; i < n; i += kWarps) {
+  float* dqb = dq + b * sdq.b + h * sdq.h;
+  for (int i = warp; i < n; i += kF32Warps) {
     const float* qi = sQ + i * kStride;
     const float* doi = sDO + i * kStride;
     float s[kPerLane], dp[kPerLane];
@@ -193,17 +203,17 @@ attention_bwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
       acc0 = fmaf(ds, sK[j * kStride + lane], acc0);
       acc1 = fmaf(ds, sK[j * kStride + lane + 32], acc1);
     }
-    T* dqi = dqb + i * sdq.n;
-    store(dqi + lane, acc0 * scale);
-    store(dqi + lane + 32, acc1 * scale);
+    float* dqi = dqb + i * sdq.n;
+    dqi[lane] = acc0 * scale;
+    dqi[lane + 32] = acc1 * scale;
     __syncwarp();  // row_b is rewritten for the warp's next row
   }
   __syncthreads();  // every row's statistics are in shared memory
 
   // pass 2: key rows -> dV, dK
-  T* dkb = dk + b * sdk.b + h * sdk.h;
-  T* dvb = dv + b * sdv.b + h * sdv.h;
-  for (int j = warp; j < n; j += kWarps) {
+  float* dkb = dk + b * sdk.b + h * sdk.h;
+  float* dvb = dv + b * sdv.b + h * sdv.h;
+  for (int j = warp; j < n; j += kF32Warps) {
     const float* kj = sK + j * kStride;
     const float* vj = sV + j * kStride;
 #pragma unroll
@@ -230,34 +240,322 @@ attention_bwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
       k0 = fmaf(ds, qi[lane], k0);
       k1 = fmaf(ds, qi[lane + 32], k1);
     }
-    T* dvj = dvb + j * sdv.n;
-    T* dkj = dkb + j * sdk.n;
-    store(dvj + lane, v0);
-    store(dvj + lane + 32, v1);
-    store(dkj + lane, k0 * scale);
-    store(dkj + lane + 32, k1 * scale);
+    float* dvj = dvb + j * sdv.n;
+    float* dkj = dkb + j * sdk.n;
+    dvj[lane] = v0;
+    dvj[lane + 32] = v1;
+    dkj[lane] = k0 * scale;
+    dkj[lane + 32] = k1 * scale;
     __syncwarp();  // row_a / row_b are rewritten for the warp's next key
   }
 }
 
-template <typename T>
-cudaError_t launch(const void* const* ptrs, int grid, int heads, int n,
-                   const Strides* st, float scale, cudaStream_t stream) {
-  const size_t smem = smem_bytes(n);
+// ---------------------------------------------------------------------------
+// bfloat16: tensor cores
+
+constexpr int kRowS = kHeadDim + 8;  // shared row stride of D-wide rows
+
+// sizes of the bf16 kernel with NT 16-row tiles (N <= 16 NT)
+template <int NT>
+struct Tiles {
+  static constexpr int kNP = 16 * NT;      // padded sequence length
+  static constexpr int kPS = kNP + 8;      // shared row stride of P, dS
+  static constexpr int kThreads = 32 * NT;
+  // Q, K, V, dO [NP][kRowS]; P, dS [NP][kPS]; per-warp staging [16][kRowS]
+  static constexpr size_t kSmem =
+      sizeof(bf16) * (size_t(4) * kNP * kRowS + size_t(2) * kNP * kPS +
+                      size_t(NT) * 16 * kRowS);
+};
+
+// rows [0, n) of one [n][D] operand into dst [np][kRowS] by 16-byte
+// cp.async copies; rows n..np-1 zero
+__device__ __forceinline__ void stage_async(bf16* dst, const bf16* src,
+                                            long long row_stride, int n,
+                                            int np, int nthreads) {
+  for (int i = threadIdx.x; i < np * (kHeadDim / 8); i += nthreads) {
+    const int r = i / (kHeadDim / 8), c = (i % (kHeadDim / 8)) * 8;
+    bf16* d = dst + r * kRowS + c;
+    if (r < n)
+      cp_async16(d, src + r * row_stride + c);
+    else
+      *reinterpret_cast<uint4*>(d) = make_uint4(0u, 0u, 0u, 0u);
+  }
+}
+
+// a warp's [16 x D] float32 accumulators (n-tile j: columns 8j..8j+7) as
+// bf16 rows row0..row0+15 (those < n) of dst, through the warp's staging
+// tile, in 16-byte stores
+__device__ __forceinline__ void store_rows(const float (&acc)[kHeadDim / 8][4],
+                                           float scale, bf16* stage,
+                                           bf16* dst, long long row_stride,
+                                           int row0, int n, int lane) {
+  const int g = lane / 4, t = lane % 4;
+#pragma unroll
+  for (int j = 0; j < kHeadDim / 8; ++j) {
+    *reinterpret_cast<uint32_t*>(stage + g * kRowS + 8 * j + 2 * t) =
+        pack_bf16(acc[j][0] * scale, acc[j][1] * scale);
+    *reinterpret_cast<uint32_t*>(stage + (g + 8) * kRowS + 8 * j + 2 * t) =
+        pack_bf16(acc[j][2] * scale, acc[j][3] * scale);
+  }
+  __syncwarp();
+#pragma unroll
+  for (int i = lane; i < 16 * (kHeadDim / 8); i += 32) {
+    const int r = i / (kHeadDim / 8), c = (i % (kHeadDim / 8)) * 8;
+    if (row0 + r < n)
+      *reinterpret_cast<uint4*>(dst + (row0 + r) * row_stride + c) =
+          *reinterpret_cast<const uint4*>(stage + r * kRowS + c);
+  }
+  __syncwarp();  // the staging tile is rewritten by the next store
+}
+
+template <int NT>
+__global__ void __launch_bounds__(Tiles<NT>::kThreads)
+attention_bwd_bf16_kernel(const bf16* __restrict__ q,
+                          const bf16* __restrict__ k,
+                          const bf16* __restrict__ v,
+                          const bf16* __restrict__ dout,
+                          bf16* __restrict__ dq, bf16* __restrict__ dk,
+                          bf16* __restrict__ dv, Strides sq, Strides sk,
+                          Strides sv, Strides sdo, Strides sdq, Strides sdk,
+                          Strides sdv, int heads, int n, float scale) {
+  using T = Tiles<NT>;
+  constexpr int NP = T::kNP, PS = T::kPS;
+  constexpr int NC = NP / 8;         // n-tiles of 8 keys
+  constexpr int DT = kHeadDim / 8;   // n-tiles of 8 head columns
+  constexpr int DK = kHeadDim / 16;  // k-steps over the head dimension
+  extern __shared__ uint4 smem_bwd[];
+  bf16* sQ = reinterpret_cast<bf16*>(smem_bwd);
+  bf16* sK = sQ + NP * kRowS;
+  bf16* sV = sK + NP * kRowS;
+  bf16* sDO = sV + NP * kRowS;
+  bf16* sP = sDO + NP * kRowS;
+  bf16* sDS = sP + NP * PS;
+  bf16* sOut = sDS + NP * PS;
+
+  const long long b = blockIdx.x / heads;
+  const long long h = blockIdx.x % heads;
+  stage_async(sQ, q + b * sq.b + h * sq.h, sq.n, n, NP, T::kThreads);
+  stage_async(sK, k + b * sk.b + h * sk.h, sk.n, n, NP, T::kThreads);
+  stage_async(sV, v + b * sv.b + h * sv.h, sv.n, n, NP, T::kThreads);
+  stage_async(sDO, dout + b * sdo.b + h * sdo.h, sdo.n, n, NP, T::kThreads);
+  cp_async_commit();
+  cp_async_wait<0>();
+  __syncthreads();
+
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane / 4, t = lane % 4;
+  const int row0 = 16 * warp;
+  bf16* stage = sOut + warp * 16 * kRowS;
+  const int2 la = lane_a_rowmajor(lane);
+  const int2 lnk = lane_b_nk(lane);
+  const int2 lkn = lane_b_kn(lane);
+  const int2 lkm = lane_a_km(lane);
+
+  // phase 1: query rows row0..row0+15 against every key
+  float s[NC][4], dp[NC][4];
+#pragma unroll
+  for (int c = 0; c < NC; ++c)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) s[c][e] = dp[c][e] = 0.f;
+#pragma unroll
+  for (int ks = 0; ks < DK; ++ks) {
+    uint32_t qa[4], da[4];
+    ldsm_x4(qa, sQ + (row0 + la.x) * kRowS + 16 * ks + la.y);
+    ldsm_x4(da, sDO + (row0 + la.x) * kRowS + 16 * ks + la.y);
+#pragma unroll
+    for (int c2 = 0; c2 < NC / 2; ++c2) {
+      uint32_t kb[4], vb[4];
+      ldsm_x4(kb, sK + (16 * c2 + lnk.x) * kRowS + 16 * ks + lnk.y);
+      ldsm_x4(vb, sV + (16 * c2 + lnk.x) * kRowS + 16 * ks + lnk.y);
+      mma_bf16(s[2 * c2], qa, kb[0], kb[1]);
+      mma_bf16(s[2 * c2 + 1], qa, kb[2], kb[3]);
+      mma_bf16(dp[2 * c2], da, vb[0], vb[1]);
+      mma_bf16(dp[2 * c2 + 1], da, vb[2], vb[3]);
+    }
+  }
+
+  // softmax, delta and dS for rows g (index 0) and g + 8 (index 1); a row
+  // is spread over the four lanes of a quad
+  float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+  for (int c = 0; c < NC; ++c)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int col = 8 * c + 2 * t + (e & 1);
+      s[c][e] = col < n ? s[c][e] * scale : -INFINITY;
+      mx[e >> 1] = fmaxf(mx[e >> 1], s[c][e]);
+    }
+  float sum[2] = {0.f, 0.f};
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int off = 1; off < 4; off <<= 1)
+      mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], off));
+#pragma unroll
+  for (int c = 0; c < NC; ++c)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      s[c][e] = expf(s[c][e] - mx[e >> 1]);
+      sum[e >> 1] += s[c][e];
+    }
+  float inv[2], delta[2] = {0.f, 0.f};
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+#pragma unroll
+    for (int off = 1; off < 4; off <<= 1)
+      sum[i] += __shfl_xor_sync(0xffffffffu, sum[i], off);
+    // padded query rows get P = 0, so they add nothing to dV and dK
+    inv[i] = row0 + g + 8 * i < n ? 1.f / sum[i] : 0.f;
+  }
+#pragma unroll
+  for (int c = 0; c < NC; ++c)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      s[c][e] *= inv[e >> 1];  // p_ij
+      delta[e >> 1] = fmaf(s[c][e], dp[c][e], delta[e >> 1]);
+    }
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int off = 1; off < 4; off <<= 1)
+      delta[i] += __shfl_xor_sync(0xffffffffu, delta[i], off);
+#pragma unroll
+  for (int c = 0; c < NC; ++c) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      dp[c][e] = s[c][e] * (dp[c][e] - delta[e >> 1]);  // ds_ij
+    const int col = 8 * c + 2 * t;
+    *reinterpret_cast<uint32_t*>(sP + (row0 + g) * PS + col) =
+        pack_bf16(s[c][0], s[c][1]);
+    *reinterpret_cast<uint32_t*>(sP + (row0 + g + 8) * PS + col) =
+        pack_bf16(s[c][2], s[c][3]);
+    *reinterpret_cast<uint32_t*>(sDS + (row0 + g) * PS + col) =
+        pack_bf16(dp[c][0], dp[c][1]);
+    *reinterpret_cast<uint32_t*>(sDS + (row0 + g + 8) * PS + col) =
+        pack_bf16(dp[c][2], dp[c][3]);
+  }
+
+  // dQ = dS K: the accumulators of key tiles 2kk, 2kk+1 are the A
+  // fragment of k-step kk
+  {
+    float acc[DT][4];
+#pragma unroll
+    for (int j = 0; j < DT; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < NT; ++kk) {
+      const uint32_t a[4] = {pack_bf16(dp[2 * kk][0], dp[2 * kk][1]),
+                             pack_bf16(dp[2 * kk][2], dp[2 * kk][3]),
+                             pack_bf16(dp[2 * kk + 1][0], dp[2 * kk + 1][1]),
+                             pack_bf16(dp[2 * kk + 1][2], dp[2 * kk + 1][3])};
+#pragma unroll
+      for (int np = 0; np < DT / 2; ++np) {
+        uint32_t kb[4];
+        ldsm_x4_trans(kb, sK + (16 * kk + lkn.x) * kRowS + 16 * np + lkn.y);
+        mma_bf16(acc[2 * np], a, kb[0], kb[1]);
+        mma_bf16(acc[2 * np + 1], a, kb[2], kb[3]);
+      }
+    }
+    store_rows(acc, scale, stage, dq + b * sdq.b + h * sdq.h, sdq.n, row0, n,
+               lane);
+  }
+  __syncthreads();  // every warp's P and dS rows are in shared memory
+
+  // phase 2: keys row0..row0+15; dV = P^T dO, dK = dS^T Q over all rows
+  float av[DT][4], ak[DT][4];
+#pragma unroll
+  for (int j = 0; j < DT; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) av[j][e] = ak[j][e] = 0.f;
+#pragma unroll
+  for (int kk = 0; kk < NT; ++kk) {
+    uint32_t pa[4], sa[4];
+    ldsm_x4_trans(pa, sP + (16 * kk + lkm.x) * PS + row0 + lkm.y);
+    ldsm_x4_trans(sa, sDS + (16 * kk + lkm.x) * PS + row0 + lkm.y);
+#pragma unroll
+    for (int np = 0; np < DT / 2; ++np) {
+      uint32_t ob[4], qb[4];
+      ldsm_x4_trans(ob, sDO + (16 * kk + lkn.x) * kRowS + 16 * np + lkn.y);
+      ldsm_x4_trans(qb, sQ + (16 * kk + lkn.x) * kRowS + 16 * np + lkn.y);
+      mma_bf16(av[2 * np], pa, ob[0], ob[1]);
+      mma_bf16(av[2 * np + 1], pa, ob[2], ob[3]);
+      mma_bf16(ak[2 * np], sa, qb[0], qb[1]);
+      mma_bf16(ak[2 * np + 1], sa, qb[2], qb[3]);
+    }
+  }
+  store_rows(av, 1.f, stage, dv + b * sdv.b + h * sdv.h, sdv.n, row0, n,
+             lane);
+  store_rows(ak, scale, stage, dk + b * sdk.b + h * sdk.h, sdk.n, row0, n,
+             lane);
+}
+
+// ---------------------------------------------------------------------------
+// launches
+
+cudaError_t launch_f32(const void* const* ptrs, int grid, int heads, int n,
+                       const Strides* st, float scale, cudaStream_t stream) {
+  const size_t smem = f32_smem_bytes(n);
   if (smem > 48 * 1024) {
     cudaError_t err = cudaFuncSetAttribute(
-        attention_bwd_kernel<T>,
+        attention_bwd_f32_kernel,
         cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
     if (err != cudaSuccess) return err;
   }
-  attention_bwd_kernel<T><<<grid, kThreads, smem, stream>>>(
-      static_cast<const T*>(ptrs[0]), static_cast<const T*>(ptrs[1]),
-      static_cast<const T*>(ptrs[2]), static_cast<const T*>(ptrs[3]),
-      static_cast<T*>(const_cast<void*>(ptrs[4])),
-      static_cast<T*>(const_cast<void*>(ptrs[5])),
-      static_cast<T*>(const_cast<void*>(ptrs[6])), st[0], st[1], st[2],
+  attention_bwd_f32_kernel<<<grid, kF32Threads, smem, stream>>>(
+      static_cast<const float*>(ptrs[0]), static_cast<const float*>(ptrs[1]),
+      static_cast<const float*>(ptrs[2]), static_cast<const float*>(ptrs[3]),
+      static_cast<float*>(const_cast<void*>(ptrs[4])),
+      static_cast<float*>(const_cast<void*>(ptrs[5])),
+      static_cast<float*>(const_cast<void*>(ptrs[6])), st[0], st[1], st[2],
       st[3], st[4], st[5], st[6], heads, n, scale);
   return cudaSuccess;
+}
+
+template <int NT>
+cudaError_t launch_bf16(const void* const* ptrs, int grid, int heads, int n,
+                        const Strides* st, float scale, cudaStream_t stream) {
+  using T = Tiles<NT>;
+  if (T::kSmem > 48 * 1024) {
+    cudaError_t err = cudaFuncSetAttribute(
+        attention_bwd_bf16_kernel<NT>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, int(T::kSmem));
+    if (err != cudaSuccess) return err;
+  }
+  attention_bwd_bf16_kernel<NT><<<grid, T::kThreads, T::kSmem, stream>>>(
+      static_cast<const bf16*>(ptrs[0]), static_cast<const bf16*>(ptrs[1]),
+      static_cast<const bf16*>(ptrs[2]), static_cast<const bf16*>(ptrs[3]),
+      static_cast<bf16*>(const_cast<void*>(ptrs[4])),
+      static_cast<bf16*>(const_cast<void*>(ptrs[5])),
+      static_cast<bf16*>(const_cast<void*>(ptrs[6])), st[0], st[1], st[2],
+      st[3], st[4], st[5], st[6], heads, n, scale);
+  return cudaSuccess;
+}
+
+// the bf16 kernel's 16-byte copies and stores need every row of every
+// operand 16-byte aligned
+bool rows_aligned(const void* const* ptrs, const Strides* st) {
+  for (int i = 0; i < 7; ++i)
+    if (reinterpret_cast<uintptr_t>(ptrs[i]) % 16 != 0 || st[i].b % 8 != 0 ||
+        st[i].h % 8 != 0 || st[i].n % 8 != 0)
+      return false;
+  return true;
+}
+
+cudaError_t launch_bf16_tiles(const void* const* ptrs, int grid, int heads,
+                              int n, const Strides* st, float scale,
+                              cudaStream_t stream) {
+  switch ((n + 15) / 16) {
+    case 1: return launch_bf16<1>(ptrs, grid, heads, n, st, scale, stream);
+    case 2: return launch_bf16<2>(ptrs, grid, heads, n, st, scale, stream);
+    case 3: return launch_bf16<3>(ptrs, grid, heads, n, st, scale, stream);
+    case 4: return launch_bf16<4>(ptrs, grid, heads, n, st, scale, stream);
+    case 5: return launch_bf16<5>(ptrs, grid, heads, n, st, scale, stream);
+    case 6: return launch_bf16<6>(ptrs, grid, heads, n, st, scale, stream);
+    case 7: return launch_bf16<7>(ptrs, grid, heads, n, st, scale, stream);
+    case 8: return launch_bf16<8>(ptrs, grid, heads, n, st, scale, stream);
+  }
+  return cudaErrorInvalidValue;
 }
 
 }  // namespace
@@ -267,7 +565,8 @@ extern "C" {
 // q, k, v, dout (read) and dq, dk, dv (written): [batch, heads, n, d]
 // addressed through `strides`, 21 element strides (batch, head, row) of
 // q, k, v, dout, dq, dk, dv in that order; the last dimension is
-// contiguous.  dtype 0 = float32, 1 = bfloat16.  Launches on `stream`
+// contiguous.  dtype 0 = float32, 1 = bfloat16 (then every pointer 16-byte
+// aligned and every stride a multiple of 8).  Launches on `stream`
 // without synchronising and returns cudaGetLastError().
 int scat_attention_bwd(const void* q, const void* k, const void* v,
                        const void* dout, void* dq, void* dk, void* dv,
@@ -284,12 +583,14 @@ int scat_attention_bwd(const void* q, const void* k, const void* v,
   const void* ptrs[7] = {q, k, v, dout, dq, dk, dv};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err;
-  if (dtype == 0)
-    err = launch<float>(ptrs, int(grid), heads, n, st, scale, s);
-  else if (dtype == 1)
-    err = launch<__nv_bfloat16>(ptrs, int(grid), heads, n, st, scale, s);
-  else
+  if (dtype == 0) {
+    err = launch_f32(ptrs, int(grid), heads, n, st, scale, s);
+  } else if (dtype == 1) {
+    if (!rows_aligned(ptrs, st)) return int(cudaErrorInvalidValue);
+    err = launch_bf16_tiles(ptrs, int(grid), heads, n, st, scale, s);
+  } else {
     return int(cudaErrorInvalidValue);
+  }
   if (err != cudaSuccess) return int(err);
   return int(cudaGetLastError());
 }

@@ -8,22 +8,70 @@
 //   apply  _favor_apply_kernel :90-102 (call :139): for each q row,
 //          y = phi(q) kptv / (phi(q) . ksum);
 // with phi(x) = exp(w x^T - |x|^2 / 2) * (1/sqrt(m)) (_prm :54-60) and w
-// [m, e] the frozen Gaussian projection.  IEEE float32 throughout (FMAs and
-// expf; no fast-math, no TF32: the exp amplifies input rounding, which is
-// why the JAX package runs these dots at Precision.HIGHEST) and no
-// max-subtraction stabiliser, so that overflow and underflow behave as in
-// the reference.
+// [m, e] the frozen Gaussian projection.  Float32 accuracy throughout (no
+// fast-math, no TF32: the exp amplifies input rounding, which is why the
+// JAX package runs these dots at Precision.HIGHEST) and no max-subtraction
+// stabiliser, so that overflow and underflow behave as in the reference.
 //
-// What bounds them on the H100: float32 operations.  A row costs 2*m*e FMAs
-// (m*e for its features, m*e for the outer product phi(k)^T v or for
-// phi(q) kptv) against e elements read: at e = 128, m = 64 that is 128 flops
-// per element, above the ~20 flops per byte of float32 where the 67 TFLOP/s
-// non-tensor-core rate, not the 3.35 TB/s memory, is the limit.  So the
-// design feeds the FMA pipes from registers and shared memory:
-//   * one block of 256 threads per (batch*head, T-tile); w [m][e] stays in
-//     shared memory for the block's life; rows are staged 32 at a time
-//     ([32][e] of k and v, or of q), converted to float32 on load (bf16
-//     operands convert exactly, as the caller's cast would);
+// Blocks run in parallel, so T cannot be accumulated across grid steps as
+// on the TPU: the host splits T into as many tiles as filling the SMs
+// needs (ops/favor.py t_tiles, from each kernel's chunk rows and
+// residency), the stats blocks write per-tile partials, and a second
+// launch (favor_reduce_kernel) sums them in tile order.  No float atomics,
+// so two runs agree bit for bit.  With one tile the stats kernel writes its
+// outputs directly.  Shapes: e <= 128, m <= 64 (ViP: 128 and 64); rows past
+// T and columns past e or m are zero in shared memory and never stored.
+//
+// The stats pass on bf16 operands (ViP's bf16 serving and training):
+// tensor cores.  Its work is 4*m*e flops a row against 2*e bf16 elements
+// read, which at IEEE float32 on CUDA cores (67 TFLOP/s) bounds it at
+// 0.597 ms for ViP training's [96,4,3137,128], three times its bytes
+// (0.188 ms at 3.35 TB/s).  The way past that floor is split precision:
+// k and v are bf16 and exact; w and phi are each split into three bf16
+// parts, x_0 + x_1 + x_2 with x_i = bf16(x - sum_{j<i} x_j), which carry
+// float32's 24 bits, and each product is a sum of three bf16 products
+// accumulated in float32 by mma.sync.m16n8k16 ("bf16x3").  That is
+// 3 * 4*m*e flops a row, 0.120 ms at 989 TFLOP/s, so the bytes bound the
+// design.  Layout (favor_stats_bf16_kernel):
+//   * one block of 16 warps per (batch*head, T-tile), one block an SM
+//     (208 KB of shared memory); the three bf16 parts of w [64][128] are
+//     split once per block and stay in shared memory (48 KB);
+//   * rows come in 64-row chunks through a ring of three shared-memory
+//     stages fed by 16-byte cp.async copies straight from the strided
+//     k and v views (bf16, not converted); chunk c+1 is in flight while
+//     chunk c is computed, and one __syncthreads a chunk orders the ring;
+//   * features (warp: 16 rows x 16 features): wx = sum_i X w_i^T, smallest
+//     part first, from A fragments of the staged rows; |x|^2 / 2 from the
+//     same fragments on CUDA cores; phi = exp(wx - |x|^2/2) / sqrt(m) in
+//     float32 registers; ksum += phi (float32, unsplit, in registers); phi
+//     split into three bf16 parts into one of two shared-memory buffers;
+//   * outer product (warp: 16 features x 32 columns), one chunk behind the
+//     features so that the two overlap between barriers: kptv += sum_i
+//     phi_i^T V with ldmatrix.trans for phi^T and V; the [64 x 128] f32
+//     accumulator stays in registers over all of the block's rows.
+// The tensor cores accumulate in float32 but truncate, so each chain of
+// mma.sync is kept short (one k-step of the features, one chunk of the
+// outer product) and its result is added on CUDA cores in IEEE float32.
+// Against float64 the result is closer than the float32 design's (an
+// H100 80GB HBM3 at 700 W, the stats alone, ViP-like operands): kptv
+// off by 2.8e-6 of its largest magnitude at [96,4,3137,128], against
+// 6.7e-6 for the float32 kernel and for the float32 plain version, whose
+// errors are shared (the same float32 roundings).
+// The stats pass on float32 operands keeps the CUDA-core design below
+// (favor_stats_kernel): all-float32 k and v would need the split on both
+// sides of every product, nine bf16 products for one.
+//
+// The apply pass, and the stats pass on float32 operands: IEEE float32
+// FMAs on CUDA cores.  A row costs 2*m*e FMAs (m*e for its features, m*e
+// for the outer product phi(k)^T v or for phi(q) kptv) against e elements
+// read: at e = 128, m = 64 that is 128 flops per element, above the ~20
+// flops per byte of float32 where the 67 TFLOP/s non-tensor-core rate,
+// not the 3.35 TB/s memory, is the limit.  So the design feeds the FMA
+// pipes from registers and shared memory:
+//   * one block of 256 threads per (batch*head, T-tile), two an SM; w
+//     [m][e] stays in shared memory for the block's life; rows are staged
+//     32 at a time ([32][e] of k and v, or of q), converted to float32 on
+//     load (bf16 operands convert exactly, as the caller's cast would);
 //   * the features of a 32-row chunk are a [32 x e] x [e x m] product,
 //     register-tiled 4 rows x 2 features a thread and laid out so that a
 //     warp's float4 loads of w (row stride e+4 floats) are free of bank
@@ -33,21 +81,19 @@
 //     in registers across all of the block's rows;
 //   * apply: each thread computes a 4-row x 4-column tile of phi(q) kptv,
 //     divides it by D and stores it.
-// phi never reaches device memory.  Blocks run in parallel, so T cannot be
-// accumulated across grid steps as on the TPU: the host splits T into as
-// many tiles as filling the SMs needs (ops/favor.py t_tiles), the stats
-// blocks write per-tile partials, and a second launch sums them in tile
-// order.  No float atomics, so two runs agree bit for bit.  With one tile
-// the stats kernel writes its outputs directly.  Shapes: e <= 128, m <= 64
-// (ViP: 128 and 64); rows past T and columns past e or m are zero in shared
-// memory and never stored.
+// phi never reaches device memory.
 
 #include <math.h>
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 
+#include "mma.cuh"
+
 namespace {
+
+using bf16 = __nv_bfloat16;
+using namespace scat_mma;
 
 constexpr int kE = 128;         // largest head dim, the padded column count
 constexpr int kM = 64;          // largest feature count
@@ -364,19 +410,332 @@ favor_apply_kernel(const T* __restrict__ q, const float* __restrict__ w,
   }
 }
 
-int tile_rows_of(int t, int tiles) {
-  const int per = (t + tiles - 1) / tiles;
-  return (per + kRows - 1) / kRows * kRows;
+// ---------------------------------------------------------------------------
+// The stats pass on bf16 operands: bf16x3 split products on the tensor
+// cores (see the head of this file)
+
+constexpr int kTcRows = 64;     // rows a chunk
+constexpr int kTcStages = 3;    // ring of staged chunks
+constexpr int kTcWarps = 16;
+constexpr int kTcThreads = 32 * kTcWarps;
+// warps that share one 16-row tile of a chunk in the features, and one
+// 16-feature tile of kptv in the outer product
+constexpr int kTcPerTile = kTcWarps / (kTcRows / 16);
+constexpr int kFeatN = kM / 8 / kTcPerTile;  // feature n-tiles a warp
+constexpr int kOutN = kE / 8 / kTcPerTile;   // kptv column n-tiles a warp
+constexpr int kParts = 3;       // bf16 parts of w and phi
+constexpr int kXS16 = kE + 8;   // bf16 row stride of w parts, k and v rows
+constexpr int kPS16 = kM + 8;   // bf16 row stride of phi parts
+
+size_t tc_stats_smem() {
+  // w parts [3][kM][kXS16]; ring [stages][k, v][kTcRows][kXS16]; phi parts
+  // [2 buffers][3][kTcRows][kPS16] (bf16); ksum partials [4][kM] (float)
+  return sizeof(bf16) * (size_t(kParts) * kM * kXS16 +
+                         size_t(kTcStages) * 2 * kTcRows * kXS16 +
+                         size_t(2) * kParts * kTcRows * kPS16) +
+         sizeof(float) * 4 * kM;
 }
 
-// the shapes both kernels take; tiles must be ops/favor.py t_tiles' count
-bool valid(int batch, int heads, int t, int e, int m, int tiles) {
+// lo, hi as three registers of bf16 pairs whose sum is (lo, hi) to
+// float32's precision: part i = bf16(x - parts 0..i-1); each difference is
+// exact in float32
+__device__ __forceinline__ void split3(float lo, float hi,
+                                       uint32_t (&part)[kParts]) {
+#pragma unroll
+  for (int i = 0; i < kParts; ++i) {
+    const __nv_bfloat162 p = __floats2bfloat162_rn(lo, hi);
+    part[i] = *reinterpret_cast<const uint32_t*>(&p);
+    lo -= __low2float(p);
+    hi -= __high2float(p);
+  }
+}
+
+// the two bf16 of a register as float32 (a bf16 is the top half of its
+// float32)
+__device__ __forceinline__ float lo_bf16(uint32_t r) {
+  return __uint_as_float(r << 16);
+}
+__device__ __forceinline__ float hi_bf16(uint32_t r) {
+  return __uint_as_float(r & 0xffff0000u);
+}
+
+// rows [row0, row0 + kTcRows) of k and v (those < row_end) into one ring
+// stage, sk and sv [kTcRows][kXS16]; other rows and columns >= e zero.
+// `vec`: every row 16-byte aligned and e % 8 == 0, so each 8-element group
+// is one cp.async; otherwise plain loads.
+__device__ __forceinline__ void stage_chunk(bf16* sk, bf16* sv,
+                                            const bf16* __restrict__ kb,
+                                            const bf16* __restrict__ vb,
+                                            long long k_row, long long v_row,
+                                            int row0, int row_end, int e,
+                                            bool vec) {
+  constexpr int kGroups = kE / 8;  // 16-byte groups a row
+  for (int i = threadIdx.x; i < 2 * kTcRows * kGroups; i += kTcThreads) {
+    const bool is_v = i >= kTcRows * kGroups;
+    const int r = (i / kGroups) % kTcRows, c = (i % kGroups) * 8;
+    bf16* dst = (is_v ? sv : sk) + r * kXS16 + c;
+    const int row = row0 + r;
+    if (row < row_end && c < e) {
+      const bf16* src = is_v ? vb + row * v_row + c : kb + row * k_row + c;
+      if (vec) {
+        cp_async16(dst, src);
+      } else {
+        uint32_t pair[4];
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const float lo = c + 2 * j < e ? __bfloat162float(src[2 * j]) : 0.f;
+          const float hi =
+              c + 2 * j + 1 < e ? __bfloat162float(src[2 * j + 1]) : 0.f;
+          pair[j] = pack_bf16(lo, hi);  // exact: bf16 values
+        }
+        *reinterpret_cast<uint4*>(dst) =
+            make_uint4(pair[0], pair[1], pair[2], pair[3]);
+      }
+    } else {
+      *reinterpret_cast<uint4*>(dst) = make_uint4(0u, 0u, 0u, 0u);
+    }
+  }
+}
+
+__global__ void __launch_bounds__(kTcThreads, 1)
+favor_stats_bf16_kernel(const bf16* __restrict__ k,
+                        const bf16* __restrict__ v,
+                        const float* __restrict__ w, float* __restrict__ ksum,
+                        float* __restrict__ kptv, float* __restrict__ work,
+                        Strides sk, Strides sv, int heads, int t, int e, int m,
+                        int tiles, int tile_rows, float inv_sqrt_m,
+                        bool vec) {
+  extern __shared__ uint4 smem_tc[];
+  bf16* sW = reinterpret_cast<bf16*>(smem_tc);
+  bf16* sRing = sW + kParts * kM * kXS16;
+  bf16* sPhi = sRing + kTcStages * 2 * kTcRows * kXS16;
+  float* sKs = reinterpret_cast<float*>(sPhi + 2 * kParts * kTcRows * kPS16);
+  constexpr int kStage = 2 * kTcRows * kXS16;      // one ring stage
+  constexpr int kPhiBuf = kParts * kTcRows * kPS16;  // one phi buffer
+
+  const int tile = blockIdx.x % tiles;
+  const long long bh = blockIdx.x / tiles;
+  const long long b = bh / heads, h = bh % heads;
+  const bf16* kb = k + b * sk.b + h * sk.h;
+  const bf16* vb = v + b * sv.b + h * sv.h;
+  const int row_begin = tile * tile_rows;
+  const int row_end = min(t, row_begin + tile_rows);
+  const int chunks = (row_end - row_begin + kTcRows - 1) / kTcRows;
+
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+
+  // chunk 0 is in flight while w is split
+  stage_chunk(sRing, sRing + kTcRows * kXS16, kb, vb, sk.n, sv.n, row_begin,
+              row_end, e, vec);
+  cp_async_commit();
+  for (int i = threadIdx.x; i < kM * kE / 2; i += kTcThreads) {
+    const int f = i / (kE / 2), c = (i % (kE / 2)) * 2;
+    const float lo = f < m && c < e ? w[f * e + c] : 0.f;
+    const float hi = f < m && c + 1 < e ? w[f * e + c + 1] : 0.f;
+    uint32_t part[kParts];
+    split3(lo, hi, part);
+#pragma unroll
+    for (int p = 0; p < kParts; ++p)
+      *reinterpret_cast<uint32_t*>(sW + (p * kM + f) * kXS16 + c) = part[p];
+  }
+
+  const int g = lane / 4, t4 = lane % 4;
+  const int2 la = lane_a_rowmajor(lane);
+  const int2 lnk = lane_b_nk(lane);
+  const int2 lkn = lane_b_kn(lane);
+  const int2 lkm = lane_a_km(lane);
+  // features: chunk rows fr..fr+15, features ff..ff+8*kFeatN-1
+  const int fr = 16 * (warp / kTcPerTile);
+  const int ff = 8 * kFeatN * (warp % kTcPerTile);
+  // outer product: features of..of+15, columns oc..oc+8*kOutN-1
+  const int of = 16 * (warp % (kM / 16));
+  const int oc = 8 * kOutN * (warp / (kM / 16));
+  float kv[kOutN][4];
+  float ks[kFeatN][2];
+#pragma unroll
+  for (int j = 0; j < kOutN; ++j)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) kv[j][i] = 0.f;
+#pragma unroll
+  for (int j = 0; j < kFeatN; ++j) ks[j][0] = ks[j][1] = 0.f;
+
+  for (int c = 0; c <= chunks; ++c) {
+    cp_async_wait<0>();  // this thread's copies of chunk c have landed
+    // ... and every thread's; chunk c-2's ring stage and phi buffer c%2
+    // (read by the outer product of chunk c-2) are free
+    __syncthreads();
+    if (c + 1 < chunks) {
+      bf16* st = sRing + ((c + 1) % kTcStages) * kStage;
+      stage_chunk(st, st + kTcRows * kXS16, kb, vb, sk.n, sv.n,
+                  row_begin + (c + 1) * kTcRows, row_end, e, vec);
+    }
+    cp_async_commit();
+
+    if (c < chunks) {
+      // features of chunk c: |x|^2 of rows g, g + 8 from the A fragments
+      // of the staged rows, then wx = sum_i X w_i^T
+      const bf16* sk_c = sRing + (c % kTcStages) * kStage;
+      uint32_t xa[kE / 16][4];
+      float sq[2] = {0.f, 0.f};
+#pragma unroll
+      for (int s = 0; s < kE / 16; ++s) {
+        ldsm_x4(xa[s], sk_c + (fr + la.x) * kXS16 + 16 * s + la.y);
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const float x0 = lo_bf16(xa[s][j]), x1 = hi_bf16(xa[s][j]);
+          sq[j & 1] = fmaf(x1, x1, fmaf(x0, x0, sq[j & 1]));
+        }
+      }
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+#pragma unroll
+        for (int off = 1; off < 4; off <<= 1)
+          sq[i] += __shfl_xor_sync(0xffffffffu, sq[i], off);
+      // each k-step's three products (smallest part first) in a fresh
+      // accumulator, added to wx on CUDA cores: the tensor cores' float32
+      // accumulation truncates, so its chains are kept short
+      float acc[kFeatN][4];
+#pragma unroll
+      for (int j = 0; j < kFeatN; ++j)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) acc[j][i] = 0.f;
+#pragma unroll
+      for (int s = 0; s < kE / 16; ++s) {
+        float step[kFeatN][4];
+#pragma unroll
+        for (int j = 0; j < kFeatN; ++j)
+#pragma unroll
+          for (int i = 0; i < 4; ++i) step[j][i] = 0.f;
+#pragma unroll
+        for (int p = kParts - 1; p >= 0; --p)
+#pragma unroll
+          for (int np = 0; np < kFeatN / 2; ++np) {
+            uint32_t wb[4];
+            ldsm_x4(wb, sW + (p * kM + ff + 16 * np + lnk.x) * kXS16 +
+                            16 * s + lnk.y);
+            mma_bf16(step[2 * np], xa[s], wb[0], wb[1]);
+            mma_bf16(step[2 * np + 1], xa[s], wb[2], wb[3]);
+          }
+#pragma unroll
+        for (int j = 0; j < kFeatN; ++j)
+#pragma unroll
+          for (int i = 0; i < 4; ++i) acc[j][i] += step[j][i];
+      }
+      const int row = row_begin + c * kTcRows + fr + g;
+      const bool row_ok[2] = {row < row_end, row + 8 < row_end};
+      bf16* phi = sPhi + (c % 2) * kPhiBuf;
+#pragma unroll
+      for (int j = 0; j < kFeatN; ++j) {
+        const int f = ff + 8 * j + 2 * t4;
+        float p[4];
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+          p[i] = row_ok[i >> 1] && f + (i & 1) < m
+                     ? expf(acc[j][i] - 0.5f * sq[i >> 1]) * inv_sqrt_m
+                     : 0.f;
+        ks[j][0] += p[0] + p[2];
+        ks[j][1] += p[1] + p[3];
+        uint32_t lo[kParts], hi[kParts];
+        split3(p[0], p[1], lo);
+        split3(p[2], p[3], hi);
+#pragma unroll
+        for (int q = 0; q < kParts; ++q) {
+          bf16* dst = phi + (q * kTcRows + fr + g) * kPS16 + f;
+          *reinterpret_cast<uint32_t*>(dst) = lo[q];
+          *reinterpret_cast<uint32_t*>(dst + 8 * kPS16) = hi[q];
+        }
+      }
+    }
+
+    if (c > 0) {
+      // outer product of chunk c-1: kptv += sum_i phi_i^T V, the chunk's
+      // sum in a fresh accumulator added to kptv on CUDA cores
+      const bf16* sv_c =
+          sRing + ((c - 1) % kTcStages) * kStage + kTcRows * kXS16;
+      const bf16* phi = sPhi + ((c - 1) % 2) * kPhiBuf;
+      float part[kOutN][4];
+#pragma unroll
+      for (int j = 0; j < kOutN; ++j)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) part[j][i] = 0.f;
+#pragma unroll
+      for (int s = 0; s < kTcRows / 16; ++s) {
+        uint32_t vfrag[kOutN / 2][4];
+#pragma unroll
+        for (int q = 0; q < kOutN / 2; ++q)
+          ldsm_x4_trans(vfrag[q], sv_c + (16 * s + lkn.x) * kXS16 + oc +
+                                      16 * q + lkn.y);
+#pragma unroll
+        for (int p = kParts - 1; p >= 0; --p) {
+          uint32_t pa[4];
+          ldsm_x4_trans(pa, phi + (p * kTcRows + 16 * s + lkm.x) * kPS16 +
+                                of + lkm.y);
+#pragma unroll
+          for (int q = 0; q < kOutN / 2; ++q) {
+            mma_bf16(part[2 * q], pa, vfrag[q][0], vfrag[q][1]);
+            mma_bf16(part[2 * q + 1], pa, vfrag[q][2], vfrag[q][3]);
+          }
+        }
+      }
+#pragma unroll
+      for (int j = 0; j < kOutN; ++j)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) kv[j][i] += part[j][i];
+    }
+  }
+
+  // ksum: over the warp's rows (lanes of one t4), then over the four row
+  // tiles in order
+#pragma unroll
+  for (int j = 0; j < kFeatN; ++j)
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+#pragma unroll
+      for (int off = 4; off < 32; off <<= 1)
+        ks[j][i] += __shfl_xor_sync(0xffffffffu, ks[j][i], off);
+      if (g == 0)
+        sKs[(warp / kTcPerTile) * kM + ff + 8 * j + 2 * t4 + i] = ks[j][i];
+    }
+  __syncthreads();
+
+  float* dst_kv;
+  float* dst_ks;
+  if (work != nullptr) {
+    dst_kv = work + (bh * tiles + tile) * (long long)(m * e + m);
+    dst_ks = dst_kv + m * e;
+  } else {
+    dst_kv = kptv + bh * (long long)(m * e);
+    dst_ks = ksum + bh * m;
+  }
+  for (int f = threadIdx.x; f < m; f += kTcThreads)
+    dst_ks[f] = ((sKs[f] + sKs[kM + f]) + sKs[2 * kM + f]) + sKs[3 * kM + f];
+#pragma unroll
+  for (int j = 0; j < kOutN; ++j)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int f = of + g + 8 * (i >> 1), col = oc + 8 * j + 2 * t4 + (i & 1);
+      if (f < m && col < e) dst_kv[f * e + col] = kv[j][i];
+    }
+}
+
+// ---------------------------------------------------------------------------
+// launches
+
+// rows of each T-tile: whole chunks of `chunk` rows
+int tile_rows_of(int t, int tiles, int chunk) {
+  const int per = (t + tiles - 1) / tiles;
+  return (per + chunk - 1) / chunk * chunk;
+}
+
+// the shapes the kernels take; tiles must be ops/favor.py t_tiles' count
+// for the kernel's chunk rows
+bool valid(int batch, int heads, int t, int e, int m, int tiles, int chunk) {
   if (batch < 1 || heads < 1 || t < 1 || e < 1 || e > kE || m < 1 ||
       m > kM || tiles < 1 || tiles > t)
     return false;
   const long long grid = (long long)batch * heads * tiles;
-  return grid <= 0x7fffffffLL &&
-         (t + tile_rows_of(t, tiles) - 1) / tile_rows_of(t, tiles) == tiles;
+  const int rows = tile_rows_of(t, tiles, chunk);
+  return grid <= 0x7fffffffLL && (t + rows - 1) / rows == tiles;
 }
 
 template <typename K>
@@ -386,27 +745,55 @@ cudaError_t set_smem(K kernel, size_t bytes) {
                               int(bytes));
 }
 
-template <typename T>
-cudaError_t launch_stats(const void* k, const void* v, const float* w,
-                         float* ksum, float* kptv, float* work, int batch,
-                         int heads, int t, int e, int m, const Strides* st,
-                         int tiles, float inv_sqrt_m, cudaStream_t stream) {
-  cudaError_t err = set_smem(favor_stats_kernel<T>, stats_smem());
-  if (err != cudaSuccess) return err;
-  const long long bhs = (long long)batch * heads;
-  favor_stats_kernel<T><<<int(bhs * tiles), kThreads, stats_smem(),
-                          stream>>>(
-      static_cast<const T*>(k), static_cast<const T*>(v), w, ksum, kptv,
-      tiles > 1 ? work : nullptr, st[0], st[1], heads, t, e, m, tiles,
-      tile_rows_of(t, tiles), inv_sqrt_m);
-  err = cudaGetLastError();
-  if (err != cudaSuccess || tiles == 1) return err;
+// the second launch of a split T: each (batch, head)'s tiles summed in
+// order
+cudaError_t reduce_tiles(const float* work, float* ksum, float* kptv,
+                         long long bhs, int tiles, int e, int m,
+                         cudaStream_t stream) {
   const long long n = bhs * ((long long)m * e + m);
   const long long blocks = (n + 255) / 256;
   if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
   favor_reduce_kernel<<<int(blocks), 256, 0, stream>>>(work, ksum, kptv,
                                                        bhs, tiles, e, m);
   return cudaGetLastError();
+}
+
+cudaError_t launch_stats_f32(const float* k, const float* v, const float* w,
+                             float* ksum, float* kptv, float* work,
+                             int batch, int heads, int t, int e, int m,
+                             const Strides* st, int tiles, float inv_sqrt_m,
+                             cudaStream_t stream) {
+  cudaError_t err = set_smem(favor_stats_kernel<float>, stats_smem());
+  if (err != cudaSuccess) return err;
+  const long long bhs = (long long)batch * heads;
+  favor_stats_kernel<float><<<int(bhs * tiles), kThreads, stats_smem(),
+                              stream>>>(
+      k, v, w, ksum, kptv, tiles > 1 ? work : nullptr, st[0], st[1], heads, t,
+      e, m, tiles, tile_rows_of(t, tiles, kRows), inv_sqrt_m);
+  err = cudaGetLastError();
+  if (err != cudaSuccess || tiles == 1) return err;
+  return reduce_tiles(work, ksum, kptv, bhs, tiles, e, m, stream);
+}
+
+cudaError_t launch_stats_bf16(const bf16* k, const bf16* v, const float* w,
+                              float* ksum, float* kptv, float* work,
+                              int batch, int heads, int t, int e, int m,
+                              const Strides* st, int tiles, float inv_sqrt_m,
+                              cudaStream_t stream) {
+  cudaError_t err = set_smem(favor_stats_bf16_kernel, tc_stats_smem());
+  if (err != cudaSuccess) return err;
+  bool vec = e % 8 == 0 && reinterpret_cast<uintptr_t>(k) % 16 == 0 &&
+             reinterpret_cast<uintptr_t>(v) % 16 == 0;
+  for (int i = 0; i < 2; ++i)
+    vec = vec && st[i].b % 8 == 0 && st[i].h % 8 == 0 && st[i].n % 8 == 0;
+  const long long bhs = (long long)batch * heads;
+  favor_stats_bf16_kernel<<<int(bhs * tiles), kTcThreads, tc_stats_smem(),
+                            stream>>>(
+      k, v, w, ksum, kptv, tiles > 1 ? work : nullptr, st[0], st[1], heads, t,
+      e, m, tiles, tile_rows_of(t, tiles, kTcRows), inv_sqrt_m, vec);
+  err = cudaGetLastError();
+  if (err != cudaSuccess || tiles == 1) return err;
+  return reduce_tiles(work, ksum, kptv, bhs, tiles, e, m, stream);
 }
 
 template <typename T>
@@ -419,7 +806,7 @@ cudaError_t launch_apply(const void* q, const float* w, const float* ksum,
   favor_apply_kernel<T><<<int((long long)batch * heads * tiles), kThreads,
                           apply_smem(), stream>>>(
       static_cast<const T*>(q), w, ksum, kptv, y, st[0], st[1], heads, t, e,
-      m, tiles, tile_rows_of(t, tiles), inv_sqrt_m);
+      m, tiles, tile_rows_of(t, tiles, kRows), inv_sqrt_m);
   return cudaGetLastError();
 }
 
@@ -437,13 +824,18 @@ extern "C" {
 // contiguous; ksum [batch*heads][m] and kptv [batch*heads][m][e]: float32
 // contiguous outputs; work: float32 [batch*heads][tiles][m*e + m] scratch
 // when tiles > 1 (then a second launch sums the tiles), unused otherwise.
-// dtype 0 = float32, 1 = bfloat16.  Launches on `stream` without
-// synchronising and returns cudaGetLastError().
+// dtype 0 = float32, 1 = bfloat16; tiles is t_tiles' count for the dtype's
+// kernel (32-row chunks, two blocks an SM for float32; 64-row chunks, one
+// block an SM for bfloat16).  Launches on `stream` without synchronising
+// and returns cudaGetLastError().
 int scat_favor_stats(const void* k, const void* v, const void* w, void* ksum,
                      void* kptv, void* work, int batch, int heads, int t,
                      int e, int m, const long long* strides, int tiles,
                      float inv_sqrt_m, int dtype, void* stream) {
-  if (!valid(batch, heads, t, e, m, tiles) || (tiles > 1 && work == nullptr))
+  // the bf16 operands' kernel takes 64-row chunks, the float32 one 32
+  const int chunk = dtype == 1 ? kTcRows : kRows;
+  if (!valid(batch, heads, t, e, m, tiles, chunk) ||
+      (tiles > 1 && work == nullptr))
     return int(cudaErrorInvalidValue);
   Strides st[2];
   read_strides(strides, st, 2);
@@ -454,11 +846,13 @@ int scat_favor_stats(const void* k, const void* v, const void* w, void* ksum,
   float* wk = static_cast<float*>(work);
   cudaError_t err;
   if (dtype == 0)
-    err = launch_stats<float>(k, v, wf, ks, kv, wk, batch, heads, t, e, m,
-                              st, tiles, inv_sqrt_m, s);
+    err = launch_stats_f32(static_cast<const float*>(k),
+                           static_cast<const float*>(v), wf, ks, kv, wk,
+                           batch, heads, t, e, m, st, tiles, inv_sqrt_m, s);
   else if (dtype == 1)
-    err = launch_stats<__nv_bfloat16>(k, v, wf, ks, kv, wk, batch, heads, t,
-                                      e, m, st, tiles, inv_sqrt_m, s);
+    err = launch_stats_bf16(static_cast<const bf16*>(k),
+                            static_cast<const bf16*>(v), wf, ks, kv, wk,
+                            batch, heads, t, e, m, st, tiles, inv_sqrt_m, s);
   else
     return int(cudaErrorInvalidValue);
   return int(err);
@@ -471,7 +865,8 @@ int scat_favor_apply(const void* q, const void* w, const void* ksum,
                      const void* kptv, void* y, int batch, int heads, int t,
                      int e, int m, const long long* strides, int tiles,
                      float inv_sqrt_m, int dtype, void* stream) {
-  if (!valid(batch, heads, t, e, m, tiles)) return int(cudaErrorInvalidValue);
+  if (!valid(batch, heads, t, e, m, tiles, kRows))
+    return int(cudaErrorInvalidValue);
   Strides st[2];
   read_strides(strides, st, 2);
   cudaStream_t s = static_cast<cudaStream_t>(stream);

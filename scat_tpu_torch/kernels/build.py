@@ -5,15 +5,19 @@ Each ``csrc/<name>.cu`` is compiled by ``nvcc`` for Hopper
 plain C interface, which ``ctypes`` loads: the source includes no
 PyTorch header, so a build takes seconds.  Libraries go to
 ``build/scat_tpu_torch/<name>-<hash>.so`` beside the package, keyed by a
-hash of the source and the flags, so an edited source is rebuilt and an
-unchanged one is loaded as it is.  ``build_all`` starts one ``nvcc`` per
-source, all at once.  Without ``nvcc`` the build raises.
+hash of the source, of every shared header ``csrc/*.cuh`` and of the
+flags, so an edited source or header is rebuilt and an unchanged one is
+loaded as it is.  ``build_all`` starts one ``nvcc`` per source, all at
+once, and keeps each compiler's output (``-Xptxas -v``: registers,
+shared memory and spills of every kernel) in ``LOGS``.  Without ``nvcc``
+the build raises.
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
+import glob
 import hashlib
 import os
 import shutil
@@ -25,7 +29,7 @@ CSRC_DIR = os.path.join(PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(PKG_DIR), "build", "scat_tpu_torch")
 SOURCES = ("attention_fwd", "attention_bwd", "favor")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC")
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 NVCC_DEFAULT = "/usr/local/cuda/bin/nvcc"
 
 
@@ -41,9 +45,16 @@ def nvcc_path() -> str:
         "CUDA toolkit")
 
 
+# the compiler's output of each library this process built
+LOGS: dict = {}
+
+
 def library_path(name: str) -> str:
-    with open(os.path.join(CSRC_DIR, f"{name}.cu"), "rb") as f:
-        digest = hashlib.sha256(f.read())
+    digest = hashlib.sha256()
+    headers = sorted(glob.glob(os.path.join(CSRC_DIR, "*.cuh")))
+    for path in [os.path.join(CSRC_DIR, f"{name}.cu"), *headers]:
+        with open(path, "rb") as f:
+            digest.update(f.read())
     digest.update(" ".join(NVCC_FLAGS).encode())
     return os.path.join(BUILD_DIR, f"{name}-{digest.hexdigest()[:16]}.so")
 
@@ -69,6 +80,7 @@ def build_all(names: Iterable[str] = SOURCES) -> int:
     failed = []
     for name, tmp, proc in procs:
         log = proc.communicate()[0]
+        LOGS[name] = log
         if proc.returncode:
             failed.append(f"{name}:\n{log}")
         else:

@@ -13,10 +13,20 @@ What bounds both on the H100 is bytes, not flops: the forward reads Q,
 K, V and writes O (4*B*H*N*D elements), the backward reads Q, K, V, dO
 and writes dQ, dK, dV (7*B*H*N*D), against 4 and 10 flops per element
 times N.  The kernels keep the [N,N] scores, probabilities and their
-gradients on chip (one block per batch*head, rows in shared memory,
-softmax by warp shuffles; the backward recomputes P instead of storing
-it) and read the projection's strided Q/K/V views in place, so the one
-device-memory round trip is all they move.
+gradients on chip (one block per batch*head, rows in shared memory) and
+read the projection's strided Q/K/V views in place, so the one
+device-memory round trip is all they move.  The forward, and the
+backward on float32 operands, compute on CUDA cores (softmax by warp
+shuffles; the float32 backward recomputes P in a second pass).  The
+backward on bf16 operands, the training path's, is limited by
+instruction count, not bytes, on CUDA cores, so it runs its five
+products on the tensor cores (``mma.sync``, bf16 in, float32
+accumulation), keeps softmax, delta and dS in the accumulator registers,
+and rounds P and dS to bf16 once, in shared memory, for the second
+products: no recompute pass.  That rounding is within the bf16
+tolerance against ``attention_bwd_reference`` (float32 P and dS); the
+design note is in ``csrc/attention_bwd.cu``.  Its 16-byte copies need
+16-byte aligned rows: an operand whose rows are not is copied first.
 
 ``flash_attention`` launches the kernels for CUDA tensors and raises if
 it cannot; it never falls back.  CPU tensors take ``attention_reference``
@@ -107,6 +117,14 @@ def _check(*ts: torch.Tensor) -> None:
         raise ValueError("the head dimension of q, k, v must be contiguous")
 
 
+def _rows_aligned(t: torch.Tensor) -> bool:
+    """Every row of a [B,H,N,D] operand starts on 16 bytes (the bf16
+    backward kernel's copies)."""
+    step = 16 // t.element_size()
+    return (t.data_ptr() % 16 == 0
+            and all(s % step == 0 for s in t.stride()[:3]))
+
+
 def _operands(*ts: torch.Tensor):
     """Pointers and the (batch, head, row) strides of [B,H,N,D] operands,
     as the kernels' C interfaces take them."""
@@ -145,6 +163,11 @@ def attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if do.stride(-1) != 1:
         do = do.contiguous()
     _check(q, k, v, do)
+    if q.dtype == torch.bfloat16:
+        q, k, v, do = (
+            t if _rows_aligned(t)
+            else t.clone(memory_format=torch.contiguous_format)
+            for t in (q, k, v, do))
     grads = tuple(torch.empty(q.shape, dtype=q.dtype, device=q.device)
                   for _ in range(3))
     b, h, n, d = q.shape

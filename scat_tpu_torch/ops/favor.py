@@ -10,15 +10,19 @@ kernels replace the two Pallas TPU kernels of
 the apply pass ``_favor_apply_kernel`` :90-102 (call :139), with the
 feature map ``_prm`` :54-60; the custom VJP :150-175 becomes
 ``_FavorAttention`` and ``favor_attention_fused`` :178-189 keeps its name.
-Both kernels are ``csrc/favor.cu``; what bounds them (float32
-operations) and how they are laid out is written there.
+Both kernels are ``csrc/favor.cu``; what bounds them and how they are
+laid out is written there.  The stats pass on bf16 operands (ViP's
+path) runs on the tensor cores with w and phi split into three bf16
+parts each ("bf16x3"), to float32's accuracy; on float32 operands, and
+the apply pass, run IEEE float32 FMAs on CUDA cores.
 
 The kernels' formula, which ``favor_stats_reference`` and
 ``favor_apply_reference`` repeat in plain PyTorch:
 ``phi(x) = exp(w x^T - |x|^2/2) * (1/sqrt(m))``, ``ksum = sum_t
 phi(k_t)``, ``kptv = phi(k)^T v``, ``y = phi(q) kptv / (phi(q) . ksum)``,
-all in IEEE float32 (bf16 operands are read as their exact float32
-values, as the JAX model casts them), no max-subtraction stabiliser.
+in float32 (bf16 operands are read as their exact float32 values, as
+the JAX model casts them; the plain versions are IEEE float32), no
+max-subtraction stabiliser.
 
 ``favor_attention_fused`` (and the wrappers ``favor_stats`` and
 ``favor_apply``) launch the kernels for CUDA tensors and raise if they
@@ -42,13 +46,18 @@ from torch.autograd.function import once_differentiable
 
 from scat_tpu_torch.kernels import abi, build
 
-# the kernels' limits (csrc/favor.cu kE, kM) and their row chunk (kRows)
+# the kernels' limits (csrc/favor.cu kE, kM)
 MAX_HEAD_DIM = 128
 MAX_FEATURES = 64
+# the apply kernel's and the float32 stats kernel's row chunk (kRows) and
+# blocks resident on one SM (__launch_bounds__; 76 KB and 94 KB of shared
+# memory a block)
 CHUNK_ROWS = 32
-# blocks of either kernel resident on one SM (__launch_bounds__ in
-# csrc/favor.cu; 76 KB and 94 KB of shared memory a block)
 BLOCKS_PER_SM = 2
+# the bf16 stats kernel's (favor_stats_bf16_kernel: kTcRows, one 208 KB
+# block an SM)
+TC_CHUNK_ROWS = 64
+TC_BLOCKS_PER_SM = 1
 MAX_TILES = 64
 
 # (feature-dot, contraction-dot) precision of each rung
@@ -155,23 +164,35 @@ def favor_apply_reference(q: torch.Tensor, ksum: torch.Tensor,
         return _dot("...tm,...me->...te", qp, kptv, "highest") / d
 
 
-def t_tiles(bh: int, t: int, sms: int) -> int:
-    """How many T-tiles of whole ``CHUNK_ROWS`` chunks each (batch, head)
-    is split into, for ``bh`` of them on a card of ``sms`` SMs: the
-    fewest whose waves of ``BLOCKS_PER_SM * sms`` blocks take within 5%
-    of the least time any count up to ``MAX_TILES`` (tiles of at least
-    two chunks) would, every tile non-empty.  Blocks run in parallel, so
-    T is split only as far as filling the SMs needs."""
-    slots = BLOCKS_PER_SM * sms
-    most = max(1, min(-(-t // (2 * CHUNK_ROWS)), MAX_TILES))
+def t_tiles(bh: int, t: int, sms: int, chunk_rows: int = CHUNK_ROWS,
+            blocks_per_sm: int = BLOCKS_PER_SM) -> int:
+    """How many T-tiles of whole ``chunk_rows`` chunks each (batch, head)
+    is split into, for ``bh`` of them on a card of ``sms`` SMs and a
+    kernel with ``blocks_per_sm`` blocks resident on an SM: the fewest
+    whose waves of ``blocks_per_sm * sms`` blocks take within 5% of the
+    least time any count up to ``MAX_TILES`` (tiles of at least two
+    chunks) would, every tile non-empty.  Blocks run in parallel, so T is
+    split only as far as filling the SMs needs.  The defaults are the
+    apply kernel's; ``stats_tiling`` gives the stats kernel's."""
+    slots = blocks_per_sm * sms
+    most = max(1, min(-(-t // (2 * chunk_rows)), MAX_TILES))
 
     def cost(n):  # time in units of one tile of t/n rows
         return -(-bh * n // slots) / n
 
     best = min(cost(n) for n in range(1, most + 1))
     n = next(n for n in range(1, most + 1) if cost(n) <= 1.05 * best)
-    rows = -(-(-(-t // n)) // CHUNK_ROWS) * CHUNK_ROWS
+    rows = -(-(-(-t // n)) // chunk_rows) * chunk_rows
     return -(-t // rows)
+
+
+def stats_tiling(dtype: torch.dtype) -> Tuple[int, int]:
+    """(chunk rows, blocks an SM) of the stats kernel that ``dtype``
+    operands launch: the tensor-core kernel for bf16, the CUDA-core one
+    for float32."""
+    if dtype == torch.bfloat16:
+        return TC_CHUNK_ROWS, TC_BLOCKS_PER_SM
+    return CHUNK_ROWS, BLOCKS_PER_SM
 
 
 @functools.lru_cache(maxsize=None)
@@ -236,7 +257,8 @@ def favor_stats(k: torch.Tensor, v: torch.Tensor, w: torch.Tensor
     _check((k, v), w)
     b, h, t, e = k.shape
     m = w.shape[0]
-    tiles = t_tiles(b * h, t, _sm_count(k.device.index))
+    tiles = t_tiles(b * h, t, _sm_count(k.device.index),
+                    *stats_tiling(k.dtype))
     ksum = torch.empty((b, h, m), dtype=torch.float32, device=k.device)
     kptv = torch.empty((b, h, m, e), dtype=torch.float32, device=k.device)
     # per-tile partials, summed in tile order by the kernel's second pass

@@ -7,6 +7,8 @@ the autograd.Function's wiring; the CUDA kernels themselves are held
 against the plain versions on the card (chip_smoke.py,
 tests/test_torch_cuda.py)."""
 
+import os
+
 import numpy as np
 import jax
 import jax.numpy as jnp
@@ -145,6 +147,44 @@ def test_strided_views_match_contiguous(rng):
     np.testing.assert_allclose(got.numpy(), want.numpy(), atol=1e-6)
 
 
+def _bf16(a):
+    """numpy float32 -> the nearest bf16 values, as float32 numpy."""
+    return torch.from_numpy(a).bfloat16().float().numpy()
+
+
+def _tensor_core_bwd(q, k, v, do, scale):
+    """The arithmetic of the bf16 backward kernel on the CPU: products of
+    bf16 values summed in float32, softmax, delta and dS in float32, and
+    P and dS rounded to bf16 once before the second products (dV, dQ,
+    dK); outputs rounded to bf16."""
+    q, k, v, do = (torch.from_numpy(a) for a in (q, k, v, do))
+    s = torch.einsum("bhid,bhjd->bhij", q, k) * scale
+    p = s.softmax(dim=-1)
+    dp = torch.einsum("bhid,bhjd->bhij", do, v)
+    ds = p * (dp - (dp * p).sum(dim=-1, keepdim=True))
+    p, ds = (t.bfloat16().float() for t in (p, ds))
+    dv = torch.einsum("bhij,bhid->bhjd", p, do)
+    dq = torch.einsum("bhij,bhjd->bhid", ds, k) * scale
+    dk = torch.einsum("bhij,bhid->bhjd", ds, q) * scale
+    return tuple(t.bfloat16().float().numpy() for t in (dq, dk, dv))
+
+
+@pytest.mark.parametrize("b,h,n,d", BWD_SHAPES)
+def test_tensor_core_rounding_matches_pallas_bwd(rng, b, h, n, d):
+    """bf16 operands through the bf16 kernel's rounding (P and dS in bf16
+    for the second products) against the Pallas backward in interpret
+    mode at the bf16 tolerance of the card's checks."""
+    q, k, v, do = (_bf16(rng.randn(b, h, n, d).astype(np.float32))
+                   for _ in range(4))
+    scale = d ** -0.5
+    want = pa._flash_bwd(scale, tuple(map(jnp.asarray, (q, k, v))),
+                         jnp.asarray(do))
+    got = _tensor_core_bwd(q, k, v, do, scale)
+    for name, a, w in zip(("dq", "dk", "dv"), got, want):
+        np.testing.assert_allclose(a, np.asarray(w), atol=1e-2, rtol=1e-2,
+                                   err_msg=name)
+
+
 def test_other_devices_raise():
     q = torch.empty(1, 8, 21, 64, device="meta")
     with pytest.raises(ValueError, match="cuda or cpu"):
@@ -162,13 +202,29 @@ def test_build_raises_without_nvcc(monkeypatch, tmp_path):
 
 
 def test_library_path_keyed_by_source(monkeypatch, tmp_path):
-    """An edited source gets a new library path (a rebuild), an
-    unchanged one the same path."""
+    """An edited source or shared header (csrc/*.cuh) gets a new library
+    path (a rebuild), an unchanged one the same path."""
     src = tmp_path / "k.cu"
     src.write_text("// one")
+    header = tmp_path / "shared.cuh"
+    header.write_text("// helpers")
     monkeypatch.setattr(build, "CSRC_DIR", str(tmp_path))
     first = build.library_path("k")
     assert build.library_path("k") == first
     src.write_text("// two")
-    assert build.library_path("k") != first
+    second = build.library_path("k")
+    assert second != first
+    header.write_text("// helpers, edited")
+    assert build.library_path("k") not in (first, second)
     assert first.startswith(build.BUILD_DIR) and first.endswith(".so")
+
+
+def test_sources_have_their_headers():
+    """Every source the build compiles exists, and the shared header the
+    tensor-core kernels include is one that the library path hashes."""
+    for name in build.SOURCES:
+        assert os.path.exists(os.path.join(build.CSRC_DIR, f"{name}.cu"))
+    for name in ("attention_bwd", "favor"):
+        with open(os.path.join(build.CSRC_DIR, f"{name}.cu")) as f:
+            assert '#include "mma.cuh"' in f.read(), name
+    assert os.path.exists(os.path.join(build.CSRC_DIR, "mma.cuh"))

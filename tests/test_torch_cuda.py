@@ -80,6 +80,44 @@ def test_backward_kernel_matches_plain(cuda, shape, dtype, atol):
             rtol=atol if dtype == torch.bfloat16 else 0, msg=name)
 
 
+@pytest.mark.parametrize("n", [1, 16, 17, 21, 32, 33, 64, 128])
+@pytest.mark.parametrize("dtype,atol", [(torch.float32, 2e-5),
+                                        (torch.bfloat16, 1e-2)])
+def test_backward_kernel_sequence_lengths(cuda, n, dtype, atol):
+    """N at and around the bf16 kernel's 16-row tiles (one to eight warps
+    a head), against the plain version on the float32 values."""
+    shape = (3, 2, n, 64)
+    q, k, v = _qkv(shape, dtype, cuda, seed=n)
+    g = np.random.RandomState(100 + n)
+    do = torch.from_numpy(g.randn(3, n, 2, 64).astype(np.float32))
+    do = do.to(cuda, dtype).permute(0, 2, 1, 3)
+    got = attention_bwd(q, k, v, do, 0.125)
+    torch.cuda.synchronize()
+    want = attention_bwd_reference(q.float(), k.float(), v.float(),
+                                   do.float(), 0.125)
+    for name, a, b in zip(("dq", "dk", "dv"), got, want):
+        assert a.dtype == dtype and a.shape == shape, name
+        torch.testing.assert_close(
+            a.float(), b, atol=atol,
+            rtol=atol if dtype == torch.bfloat16 else 0, msg=name)
+
+
+def test_backward_kernel_copies_unaligned_rows(cuda):
+    """bf16 rows that do not start on 16 bytes are copied before the
+    kernel's 16-byte loads; the result is the aligned operands'."""
+    q, k, v = _qkv((2, 2, 21, 64), torch.bfloat16, cuda)
+    flat = torch.zeros(2 * 2 * 21 * 64 + 3, device=cuda,
+                       dtype=torch.bfloat16)
+    odd = flat[3:].view(2, 2, 21, 64)
+    odd.copy_(q)
+    assert odd.data_ptr() % 16 != 0
+    do = torch.randn(2, 2, 21, 64, device=cuda).bfloat16()
+    got = attention_bwd(odd, k, v, do, 0.125)
+    want = attention_bwd(q.contiguous(), k, v, do, 0.125)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+
+
 def test_autograd_through_kernels(cuda):
     """flash_attention's gradients against autograd through the plain
     version (float32, TF32 off); a second backward raises."""
@@ -135,9 +173,26 @@ FAVOR_SHAPES = [(1, 4, 3137, 128, 64), (7, 4, 3137, 128, 64),
                 (2, 2, 1, 128, 64), (1, 4, 33, 128, 64),
                 (3, 1, 1048, 128, 64), (1, 3, 1049, 128, 64),
                 (2, 3, 257, 64, 32)]
+# the bf16 stats kernel's 64-row chunk (T = chunk - 1, chunk, chunk + 1),
+# its tile edges at BH 4 (T = 1280: ten tiles of 128 rows; 1281: an
+# eleventh tile of one row), and e = 36 (rows not 16-byte aligned: plain
+# loads in place of cp.async)
+FAVOR_SHAPES += [(1, 4, 63, 128, 64), (1, 4, 64, 128, 64),
+                 (1, 4, 65, 128, 64), (1, 4, 1280, 128, 64),
+                 (1, 4, 1281, 128, 64), (2, 2, 100, 36, 16)]
 # float32 on both sides (TF32 off): rtol 1e-4; the stats' atol scales with
 # their largest magnitude (sums over T of exp features), y's is 1e-5
 FAVOR_RTOL, FAVOR_ATOL = 1e-4, 1e-5
+
+
+def _exact_stats(k, v, w):
+    """The stats' formula in float64, rounded to float32 once: the
+    reference of the bf16x3 stats kernel's chain, which is closer to it
+    than the float32 plain version is."""
+    k, v, w = k.double(), v.double(), w.double()
+    kp = torch.exp(k @ w.T - 0.5 * (k * k).sum(-1, keepdim=True))
+    kp = kp / w.shape[0] ** 0.5
+    return kp.sum(-2).float(), (kp.transpose(-1, -2) @ v).float()
 
 
 @pytest.mark.parametrize("shape", FAVOR_SHAPES)
@@ -157,13 +212,38 @@ def test_favor_kernels_match_plain(cuda, shape, dtype):
         torch.testing.assert_close(
             got, want, rtol=FAVOR_RTOL,
             atol=FAVOR_ATOL * want.abs().max().item())
-    want = favor.favor_apply_reference(q.float(), wks, wkv, w)
+    # the apply kernel on the kernel's stats against its plain version on
+    # the same stats; the chain against the plain apply of the stats at
+    # the kernel's precision: the float32 plain version's for float32
+    # operands (the same float32 arithmetic), the exact stats for the bf16
+    # tensor-core kernel (bf16x3, closer to them than float32 is)
     assert y.shape == (b, h, t, e) and y.dtype == torch.float32
+    torch.testing.assert_close(
+        y, favor.favor_apply_reference(q.float(), ksum, kptv, w),
+        rtol=FAVOR_RTOL, atol=FAVOR_ATOL)
+    stats = (wks, wkv) if dtype == torch.float32 else _exact_stats(k, v, w)
+    want = favor.favor_apply_reference(q.float(), *stats, w)
     torch.testing.assert_close(y, want, rtol=FAVOR_RTOL, atol=FAVOR_ATOL)
     # no float atomics: a second run agrees bit for bit
     again = favor.favor_stats(k, v, w)
     assert torch.equal(again[1], kptv) and torch.equal(again[0], ksum)
     assert torch.equal(favor.favor_apply(q, ksum, kptv, w), y)
+
+
+@pytest.mark.parametrize("shape", [(96, 4, 3137, 128, 64),
+                                   (1, 4, 1281, 128, 64)])
+def test_favor_stats_bit_deterministic(cuda, shape):
+    """No float atomics and a fixed order of every sum: three runs of the
+    bf16 stats kernel, one T-tile (the training shape) and eleven, agree
+    bit for bit."""
+    b, h, t, e, m = shape
+    _, k, v, w = _favor_operands(b, h, t, e, m, torch.bfloat16, cuda,
+                                 seed=7)
+    first = favor.favor_stats(k, v, w)
+    for _ in range(2):
+        again = favor.favor_stats(k, v, w)
+        assert torch.equal(again[0], first[0])
+        assert torch.equal(again[1], first[1])
 
 
 def test_favor_autograd_and_no_plain_on_cuda(cuda, monkeypatch):

@@ -141,6 +141,71 @@ def test_kernel_references_match_pallas_kernels(rng, monkeypatch):
                                rtol=0, atol=0)
 
 
+def _split3(x):
+    """The bf16x3 split of the stats kernel: three bf16 values (as
+    float32) whose sum is x, part i = bf16(x - parts before it)."""
+    parts, rest = [], x
+    for _ in range(3):
+        part = rest.bfloat16().float()
+        parts.append(part)
+        rest = rest - part
+    return parts
+
+
+def _tensor_core_stats(k, v, w):
+    """The bf16 stats kernel's arithmetic on the CPU, for bf16-valued k
+    and v [BH, T, e] and float32 w [m, e]: wx as the sum of the products
+    with w's three bf16 parts (smallest first), phi in float32, ksum its
+    float32 sum, kptv the sum of phi's three bf16 parts times v."""
+    wx = sum(torch.einsum("bte,me->btm", k, part)
+             for part in reversed(_split3(w)))
+    xd = 0.5 * (k * k).sum(dim=-1, keepdim=True)
+    phi = torch.exp(wx - xd) / w.shape[0] ** 0.5
+    kptv = sum(torch.einsum("btm,bte->bme", part, v)
+               for part in reversed(_split3(phi)))
+    return phi.sum(dim=-2), kptv
+
+
+def test_split_parts_sum_back(rng):
+    """The three bf16 parts of a float32 value sum back to it within 2^-24
+    of its magnitude, over a wide range of exponents."""
+    x = (rng.randn(20000) * 2.0 ** rng.uniform(-40, 40, 20000)).astype(
+        np.float32)
+    parts = _split3(torch.from_numpy(x))
+    for part in parts:
+        assert torch.equal(part, part.bfloat16().float())
+    total = sum(part.double() for part in parts).numpy()
+    assert np.all(np.abs(total - x) <= 2.0 ** -24 * np.abs(x))
+
+
+def test_tensor_core_split_matches_pallas_stats(rng, monkeypatch):
+    """The bf16x3 split of w and phi against the stats pallas_call of
+    _favor_impl (captured as it returns) at T = 1100 with bf16-valued k
+    and v, at the card's tolerance: rtol 1e-4, atol 1e-5 of the largest
+    magnitude."""
+    calls = []
+    real = pf.pl.pallas_call
+
+    def spy(*args, **kwargs):
+        fn = real(*args, **kwargs)
+
+        def run(*operands):
+            calls.append(fn(*operands))
+            return calls[-1]
+        return run
+
+    monkeypatch.setattr(pf.pl, "pallas_call", spy)
+    bh, t, e, m = 2, 1100, 64, 32
+    q, k, v, w = _qkvw(rng, (bh, t, e), m, scale=0.5)
+    k, v = (torch.from_numpy(a).bfloat16().float().numpy() for a in (k, v))
+    pf._favor_impl(*map(jnp.asarray, (q, k, v, w)))
+    jksum, jkptv = (np.asarray(a) for a in calls[0])
+    ksum, kptv = _tensor_core_stats(*_t(k, v, w))
+    for got, want in ((ksum.numpy(), jksum[:, 0]), (kptv.numpy(), jkptv)):
+        np.testing.assert_allclose(got, want, rtol=1e-4,
+                                   atol=1e-5 * float(np.abs(want).max()))
+
+
 def test_gradients_match_jax_grad(rng):
     """favor_attention_fused's gradients (autograd through the
     recomputing backward) against jax.grad through favor_attention, and
@@ -210,6 +275,36 @@ def test_t_tiles(bh, t, sms):
     assert (n - 1) * rows < t <= n * rows
     if bh >= tf.BLOCKS_PER_SM * sms:
         assert n <= 2
+
+
+@pytest.mark.parametrize("bh,t,sms", [(384, 3137, 132), (256, 3137, 132),
+                                      (4, 3137, 132), (28, 3137, 132),
+                                      (1, 1, 132), (4, 65, 132),
+                                      (4, 1281, 132), (7, 1048, 8)])
+def test_t_tiles_stats_kernel(bh, t, sms):
+    """The bf16 stats kernel's tiling: whole 64-row chunks per tile, no
+    empty tile, at most MAX_TILES; one block an SM, so a batch of at
+    least one block per SM splits T at most in two."""
+    chunk, per_sm = tf.stats_tiling(torch.bfloat16)
+    assert (chunk, per_sm) == (tf.TC_CHUNK_ROWS, tf.TC_BLOCKS_PER_SM)
+    n = tf.t_tiles(bh, t, sms, chunk, per_sm)
+    rows = -(-(-(-t // n)) // chunk) * chunk
+    assert 1 <= n <= tf.MAX_TILES and -(-t // rows) == n
+    assert (n - 1) * rows < t <= n * rows
+    if bh >= per_sm * sms:
+        assert n <= 2
+
+
+def test_stats_tiling_at_vip_shapes():
+    assert tf.stats_tiling(torch.float32) == (tf.CHUNK_ROWS,
+                                              tf.BLOCKS_PER_SM)
+    tc = tf.stats_tiling(torch.bfloat16)
+    # train (bs 96 x 4 heads): 384 blocks, three waves of one an SM
+    assert tf.t_tiles(384, 3137, 132, *tc) == 1
+    # serving bucket 64: 256 blocks, no partials
+    assert tf.t_tiles(256, 3137, 132, *tc) == 1
+    # serving bucket 1 (4 heads): T split into tiles of three chunks
+    assert tf.t_tiles(4, 3137, 132, *tc) == 17
 
 
 def test_ops_tiling_at_vip_shapes():
