@@ -6,8 +6,8 @@
 Phases, in order; any failure raises and exits non-zero:
   1. build    compile every kernel source under scat_tpu_torch/csrc
               (one nvcc each, in parallel), print what ptxas reports
-              (registers, shared memory, spills) for the two tensor-core
-              kernels, and the card's name and power limit;
+              (registers, shared memory, spills) for the four bf16
+              tensor-core kernels, and the card's name and power limit;
   2. kernels  each kernel against its plain PyTorch version on the card
               at the serving and training paths' shapes: float32 (TF32
               off) at atol 2e-5, bfloat16 at atol = rtol = 1e-2 against
@@ -16,7 +16,8 @@ Phases, in order; any failure raises and exits non-zero:
               plain forward; then each kernel timed beside its plain
               version and the library call (SDPA forward, and SDPA
               forward+backward beside the two kernels' sum, with SDPA's
-              backward alone as their difference);
+              backward alone as their difference), each beside its
+              bound;
   3. slice    the flagship --net reg_transformer predictor at full width
               (resnet50, 224x224 crops, 784-dim tokens, 8 heads,
               iteration 3, bfloat16, weights from seed 0) serves uint8
@@ -43,19 +44,21 @@ Phases, in order; any failure raises and exits non-zero:
   6. favor    the FAVOR+ stats and apply kernels against their plain
               versions at --net ViP's shapes (BH 4, 28, 256, 384 at
               T = 3137, e = 128, m = 64; T at chunk and tile edges; e 64
-              / m 32): float32 at rtol 1e-4 (atol 1e-5, times the largest
-              magnitude for the stats' sums over T), bf16 operands
-              against the plain version fed their float32 values; the
-              stats and apply chain against the plain apply of the plain
-              stats (float32 operands) or of the exact, float64 stats
-              (bf16 operands: the bf16x3 tensor-core stats are closer to
-              them than float32 is);
+              / m 32) at rtol 1e-4 (atol 1e-5, times the largest
+              magnitude for the stats' sums over T): the stats against
+              the float32 plain version fed the operands' float32 values;
+              the apply on the kernel's stats, and the stats and apply
+              chain, against the plain versions in float32 (float32
+              operands, which share their arithmetic) or run in float64
+              (bf16 operands: the bf16x3 tensor-core kernels are closer
+              to float64 than the float32 plain versions are), the
+              float32 plain apply's distance printed beside;
               favor_attention_fused's autograd against autograd through
               favor_attention; then each kernel timed beside its plain
               version, and the plain three-einsum path (no single PyTorch
-              call computes FAVOR+, so no library time), the stats
-              kernel's bound both as its tensor-core design's (bytes) and
-              as the float32-operation figure;
+              call computes FAVOR+, so no library time), each kernel's
+              bound both as its tensor-core design's (bytes, and the
+              bf16x3 products) and as the float32-operation figure;
   7. vip-serve  the --net ViP predictor at full width (224 px, 3137
               tokens x 512, 4 heads, depth 3, m 64, iteration 3, bf16,
               --use_pallas_favor True, weights from seed 0) serves uint8
@@ -255,10 +258,12 @@ def qkv_views(b, h, n, d, dtype, seed):
     return qkv.permute(2, 0, 3, 1, 4)
 
 
-# the kernels redesigned for the tensor cores, by the source that holds
-# them: their registers, shared memory and spills are printed at build
-PTXAS_KERNELS = {"attention_bwd": "attention_bwd_bf16_kernel",
-                 "favor": "favor_stats_bf16_kernel"}
+# the kernels redesigned for the tensor cores, (source, kernel): their
+# registers, shared memory and spills are printed at build
+PTXAS_KERNELS = (("attention_fwd", "attention_fwd_bf16_kernel"),
+                 ("attention_bwd", "attention_bwd_bf16_kernel"),
+                 ("favor", "favor_stats_bf16_kernel"),
+                 ("favor", "favor_apply_bf16_kernel"))
 
 
 def ptxas_lines(log, kernel):
@@ -281,7 +286,7 @@ def phase_build():
         print(f"[build] {name}: {build.library_path(name)}")
     print(f"[build] {compiled} source(s) compiled in "
           f"{time.perf_counter() - t0:.1f} s")
-    for name, kernel in PTXAS_KERNELS.items():
+    for name, kernel in PTXAS_KERNELS:
         if name not in build.LOGS:
             print(f"[build] {name}: loaded as built before, no ptxas output")
             continue
@@ -379,7 +384,8 @@ def phase_kernels():
         print(f"[kernels] attention_fwd b={b:2d} [{b},8,21,64]: kernel "
               f"{dev['kernel']:.5f} plain {dev['plain']:.5f} sdpa "
               f"{dev['sdpa']:.5f} | bound {ms:.6f} ({by}: "
-              f"{n_bytes} B, {flops} flop)")
+              f"{n_bytes} B, {flops} flop) | "
+              f"{100 * ms / dev['kernel']:.1f}% of the bound")
         if b == TRAIN_BATCH:
             FWD.result.update(ms=dev["kernel"], plain_ms=dev["plain"],
                               library_ms=dev["sdpa"], bound_ms=ms,
@@ -411,7 +417,8 @@ def phase_kernels():
           f"fwd+bwd {dev['kernels fwd+bwd']:.5f} sdpa fwd+bwd "
           f"{dev['sdpa fwd+bwd']:.5f}, sdpa fwd {dev['sdpa fwd']:.5f}, so "
           f"sdpa bwd alone ~{dev['sdpa fwd+bwd'] - dev['sdpa fwd']:.5f} | "
-          f"bound {ms:.6f} ({by}: {n_bytes} B, {flops} flop)")
+          f"bound {ms:.6f} ({by}: {n_bytes} B, {flops} flop) | "
+          f"{100 * ms / dev['kernel']:.1f}% of the bound")
     BWD.result.update(ms=dev["kernel"], plain_ms=dev["plain"],
                       library_ms=dev["sdpa fwd+bwd"], bound_ms=ms,
                       bound_by=by)
@@ -763,12 +770,18 @@ def favor_operands(b, h, t, e, m, dtype, seed):
     return q, k, v, torch.randn(m, e, generator=g).cuda()
 
 
-def exact_stats(k, v, w):
-    """The stats' formula in float64, rounded to float32 once."""
-    k, v, w = k.double(), v.double(), w.double()
-    kp = torch.exp(k @ w.T - 0.5 * (k * k).sum(-1, keepdim=True))
-    kp = kp / w.shape[0] ** 0.5
-    return kp.sum(-2).float(), (kp.transpose(-1, -2) @ v).float()
+def outside(got, want):
+    """How many elements of ``got`` lie outside FAVOR_RTOL / FAVOR_ATOL
+    of ``want``."""
+    tol = FAVOR_ATOL + FAVOR_RTOL * want.abs()
+    return int(((got - want).abs() > tol).sum().item())
+
+
+# bf16x3 products of each bf16 kernel's design, per 2 m e flops of its
+# float32 formula (a row's features and its second product): the stats
+# kernel splits w (3 products) and phi (3); the apply kernel splits w (3)
+# and keeps six of the nine products of phi's and kptv's parts
+TC_PRODUCTS = {"favor_stats": 3 + 3, "favor_apply": 3 + 6}
 
 
 def favor_work(b, h, t, e, m, in_bytes):
@@ -793,40 +806,58 @@ def phase_favor_kernels():
             ksum, kptv = favor_stats(k, v, w)
             y = favor_apply(q, ksum, kptv, w)
             torch.cuda.synchronize()
-            # the plain versions on the float32 values of the operands;
-            # apply alone (the kernel's stats) and the chain
+            # the plain versions on the operands' values: the stats in
+            # float32, and the apply alone (on the kernel's stats) and the
+            # chain (plain stats, then plain apply) at the precision the
+            # kernel is held to.  float32 operands share the float32 plain
+            # versions' arithmetic and are held against them; the bf16
+            # kernels' bf16x3 split products are closer to float64 than
+            # the float32 plain versions are, whose own error reaches half
+            # the tolerance, so the bf16 apply and chain are held against
+            # the plain versions run in float64
             wks, wkv = favor_stats_reference(k.float(), v.float(), w)
-            wy = favor_apply_reference(q.float(), ksum, kptv, w)
-            chain = favor_apply_reference(q.float(), wks, wkv, w)
-            # the bf16x3 stats are closer to the exact stats than the
-            # float32 plain version's, so their chain is held against the
-            # plain apply of the exact stats; float32 operands share the
-            # float32 plain version's arithmetic and are held against its
-            exact = favor_apply_reference(q.float(), *exact_stats(k, v, w),
-                                          w)
-            held = chain if dtype == torch.float32 else exact
+            wide = torch.float32 if dtype == torch.float32 else torch.float64
+            qw, ww = q.to(wide), w.to(wide)
+            wy = favor_apply_reference(qw, ksum.to(wide), kptv.to(wide),
+                                       ww).float()
+            chain = favor_apply_reference(
+                qw, *favor_stats_reference(k.to(wide), v.to(wide), ww),
+                ww).float()
+            del qw
             scale = wkv.abs().max().item()
             s_err = max((ksum - wks).abs().max().item(),
                         (kptv - wkv).abs().max().item())
             y_err = (y - wy).abs().max().item()
             c_err = (y - chain).abs().max().item()
-            e_err = (y - exact).abs().max().item()
             for got, want in ((ksum, wks), (kptv, wkv)):
                 torch.testing.assert_close(
                     got, want, rtol=FAVOR_RTOL,
                     atol=FAVOR_ATOL * want.abs().max().item())
-            for want in (wy, held):
+            for want in (wy, chain):
                 torch.testing.assert_close(y, want, rtol=FAVOR_RTOL,
                                            atol=FAVOR_ATOL)
             assert torch.equal(favor_stats(k, v, w)[1], kptv), \
                 "favor_stats is not deterministic"
+            assert torch.equal(favor_apply(q, ksum, kptv, w), y), \
+                "favor_apply is not deterministic"
+            f32 = ""
+            if dtype == torch.bfloat16:
+                # beside it, the float32 plain apply on the same stats:
+                # its distance to the kernel and to float64
+                y32 = favor_apply_reference(q.float(), ksum, kptv, w)
+                f32 = (f"; the float32 plain apply is "
+                       f"{(y - y32).abs().max().item():.3e} from the kernel "
+                       f"({outside(y, y32)} outside the tolerance) and "
+                       f"{(y32 - wy).abs().max().item():.3e} from float64 "
+                       f"({outside(y32, wy)} outside)")
+                del y32
             print(f"[favor] {list(shape)} {str(dtype)[6:]}: favor_stats "
                   f"max_abs_err {s_err:.3e} (|kptv| max {scale:.4g}, "
-                  f"relative {s_err / scale:.3e}), favor_apply max_abs_err "
-                  f"{y_err:.3e}, chain {c_err:.3e} against the plain "
-                  f"stats, {e_err:.3e} against the exact stats (held: "
-                  f"{'plain' if dtype == torch.float32 else 'exact'}; "
-                  f"rtol {FAVOR_RTOL}, atol {FAVOR_ATOL}); deterministic")
+                  f"relative {s_err / scale:.3e}) against the float32 plain "
+                  f"stats; favor_apply max_abs_err {y_err:.3e} on the "
+                  f"kernel's stats, chain {c_err:.3e}, both against the "
+                  f"plain versions in {str(wide)[6:]} (rtol {FAVOR_RTOL}, "
+                  f"atol {FAVOR_ATOL}); deterministic{f32}")
             if shape == FAVOR_TRAIN and dtype == torch.bfloat16:
                 STATS.result["max_abs_err"] = s_err
                 APPLY.result["max_abs_err"] = y_err
@@ -874,18 +905,16 @@ def phase_favor_kernels():
             dev = {name: device_ms(fn, iters=20) for name, fn in calls.items()}
         work = favor_work(*shape, in_bytes=2)
         for kern in (STATS, APPLY):
+            # each bf16 kernel's design: its bf16x3 products on the tensor
+            # cores (TC_PRODUCTS for each 2 m e flops a row); the
+            # float32-operation figure beside it
             n_bytes, flops = work[kern.name]
-            ms, by = bound(n_bytes, flops, torch.float32)
-            what = f"{n_bytes} B, {flops} flop at the float32 rate"
-            if kern is STATS:
-                # the bf16 stats kernel's design: the bf16x3 products (three
-                # for each of its 4 m e flops a row) on the tensor cores;
-                # its float32-operation figure beside it, as in PR 3
-                tc_flops = 3 * b * VIP_HEADS * VIP_T * 4 * VIP_M * VIP_E
-                f32_ms = ms
-                ms, by = bound(n_bytes, tc_flops, torch.bfloat16)
-                what = (f"{n_bytes} B, {tc_flops} bf16x3 tensor-core flop; "
-                        f"the float32-operation figure {f32_ms:.6f}")
+            f32_ms, _ = bound(n_bytes, flops, torch.float32)
+            tc_flops = (TC_PRODUCTS[kern.name] * b * VIP_HEADS * VIP_T * 2
+                        * VIP_M * VIP_E)
+            ms, by = bound(n_bytes, tc_flops, torch.bfloat16)
+            what = (f"{n_bytes} B, {tc_flops} bf16x3 tensor-core flop; "
+                    f"the float32-operation figure {f32_ms:.6f}")
             print(f"[favor] {kern.name} [{b},4,3137,128] m 64: kernel "
                   f"{dev[kern.name]:.5f} plain {dev[kern.name + ' plain']:.5f}"
                   f" | bound {ms:.6f} ({by}: {what}) | "

@@ -57,20 +57,13 @@
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 
+#include "attention.cuh"
 #include "mma.cuh"
 
 namespace {
 
-using bf16 = __nv_bfloat16;
 using namespace scat_mma;
-
-constexpr int kHeadDim = 64;
-constexpr int kMaxSeq = 128;
-
-// element strides of one operand; the head dimension is contiguous
-struct Strides {
-  long long b, h, n;
-};
+using namespace scat_attention;
 
 __device__ __forceinline__ float warp_max(float x) {
 #pragma unroll
@@ -253,60 +246,17 @@ attention_bwd_f32_kernel(const float* __restrict__ q,
 // ---------------------------------------------------------------------------
 // bfloat16: tensor cores
 
-constexpr int kRowS = kHeadDim + 8;  // shared row stride of D-wide rows
-
-// sizes of the bf16 kernel with NT 16-row tiles (N <= 16 NT)
+// the bf16 kernel with NT 16-row tiles: the shared row stride of P and
+// dS, and its shared memory (Q, K, V, dO [NP][kRowS]; P, dS [NP][kPS];
+// per-warp staging [16][kRowS])
 template <int NT>
-struct Tiles {
-  static constexpr int kNP = 16 * NT;      // padded sequence length
-  static constexpr int kPS = kNP + 8;      // shared row stride of P, dS
-  static constexpr int kThreads = 32 * NT;
-  // Q, K, V, dO [NP][kRowS]; P, dS [NP][kPS]; per-warp staging [16][kRowS]
+struct BwdTiles : Tiles<NT> {
+  static constexpr int kPS = 16 * NT + 8;
   static constexpr size_t kSmem =
-      sizeof(bf16) * (size_t(4) * kNP * kRowS + size_t(2) * kNP * kPS +
-                      size_t(NT) * 16 * kRowS);
+      4 * Tiles<NT>::kOperandBytes +
+      sizeof(bf16) * size_t(2) * Tiles<NT>::kNP * kPS +
+      Tiles<NT>::kStageBytes;
 };
-
-// rows [0, n) of one [n][D] operand into dst [np][kRowS] by 16-byte
-// cp.async copies; rows n..np-1 zero
-__device__ __forceinline__ void stage_async(bf16* dst, const bf16* src,
-                                            long long row_stride, int n,
-                                            int np, int nthreads) {
-  for (int i = threadIdx.x; i < np * (kHeadDim / 8); i += nthreads) {
-    const int r = i / (kHeadDim / 8), c = (i % (kHeadDim / 8)) * 8;
-    bf16* d = dst + r * kRowS + c;
-    if (r < n)
-      cp_async16(d, src + r * row_stride + c);
-    else
-      *reinterpret_cast<uint4*>(d) = make_uint4(0u, 0u, 0u, 0u);
-  }
-}
-
-// a warp's [16 x D] float32 accumulators (n-tile j: columns 8j..8j+7) as
-// bf16 rows row0..row0+15 (those < n) of dst, through the warp's staging
-// tile, in 16-byte stores
-__device__ __forceinline__ void store_rows(const float (&acc)[kHeadDim / 8][4],
-                                           float scale, bf16* stage,
-                                           bf16* dst, long long row_stride,
-                                           int row0, int n, int lane) {
-  const int g = lane / 4, t = lane % 4;
-#pragma unroll
-  for (int j = 0; j < kHeadDim / 8; ++j) {
-    *reinterpret_cast<uint32_t*>(stage + g * kRowS + 8 * j + 2 * t) =
-        pack_bf16(acc[j][0] * scale, acc[j][1] * scale);
-    *reinterpret_cast<uint32_t*>(stage + (g + 8) * kRowS + 8 * j + 2 * t) =
-        pack_bf16(acc[j][2] * scale, acc[j][3] * scale);
-  }
-  __syncwarp();
-#pragma unroll
-  for (int i = lane; i < 16 * (kHeadDim / 8); i += 32) {
-    const int r = i / (kHeadDim / 8), c = (i % (kHeadDim / 8)) * 8;
-    if (row0 + r < n)
-      *reinterpret_cast<uint4*>(dst + (row0 + r) * row_stride + c) =
-          *reinterpret_cast<const uint4*>(stage + r * kRowS + c);
-  }
-  __syncwarp();  // the staging tile is rewritten by the next store
-}
 
 template <int NT>
 __global__ void __launch_bounds__(Tiles<NT>::kThreads)
@@ -318,7 +268,7 @@ attention_bwd_bf16_kernel(const bf16* __restrict__ q,
                           bf16* __restrict__ dv, Strides sq, Strides sk,
                           Strides sv, Strides sdo, Strides sdq, Strides sdk,
                           Strides sdv, int heads, int n, float scale) {
-  using T = Tiles<NT>;
+  using T = BwdTiles<NT>;
   constexpr int NP = T::kNP, PS = T::kPS;
   constexpr int NC = NP / 8;         // n-tiles of 8 keys
   constexpr int DT = kHeadDim / 8;   // n-tiles of 8 head columns
@@ -515,7 +465,7 @@ cudaError_t launch_f32(const void* const* ptrs, int grid, int heads, int n,
 template <int NT>
 cudaError_t launch_bf16(const void* const* ptrs, int grid, int heads, int n,
                         const Strides* st, float scale, cudaStream_t stream) {
-  using T = Tiles<NT>;
+  using T = BwdTiles<NT>;
   if (T::kSmem > 48 * 1024) {
     cudaError_t err = cudaFuncSetAttribute(
         attention_bwd_bf16_kernel<NT>,
@@ -530,32 +480,6 @@ cudaError_t launch_bf16(const void* const* ptrs, int grid, int heads, int n,
       static_cast<bf16*>(const_cast<void*>(ptrs[6])), st[0], st[1], st[2],
       st[3], st[4], st[5], st[6], heads, n, scale);
   return cudaSuccess;
-}
-
-// the bf16 kernel's 16-byte copies and stores need every row of every
-// operand 16-byte aligned
-bool rows_aligned(const void* const* ptrs, const Strides* st) {
-  for (int i = 0; i < 7; ++i)
-    if (reinterpret_cast<uintptr_t>(ptrs[i]) % 16 != 0 || st[i].b % 8 != 0 ||
-        st[i].h % 8 != 0 || st[i].n % 8 != 0)
-      return false;
-  return true;
-}
-
-cudaError_t launch_bf16_tiles(const void* const* ptrs, int grid, int heads,
-                              int n, const Strides* st, float scale,
-                              cudaStream_t stream) {
-  switch ((n + 15) / 16) {
-    case 1: return launch_bf16<1>(ptrs, grid, heads, n, st, scale, stream);
-    case 2: return launch_bf16<2>(ptrs, grid, heads, n, st, scale, stream);
-    case 3: return launch_bf16<3>(ptrs, grid, heads, n, st, scale, stream);
-    case 4: return launch_bf16<4>(ptrs, grid, heads, n, st, scale, stream);
-    case 5: return launch_bf16<5>(ptrs, grid, heads, n, st, scale, stream);
-    case 6: return launch_bf16<6>(ptrs, grid, heads, n, st, scale, stream);
-    case 7: return launch_bf16<7>(ptrs, grid, heads, n, st, scale, stream);
-    case 8: return launch_bf16<8>(ptrs, grid, heads, n, st, scale, stream);
-  }
-  return cudaErrorInvalidValue;
 }
 
 }  // namespace
@@ -586,8 +510,11 @@ int scat_attention_bwd(const void* q, const void* k, const void* v,
   if (dtype == 0) {
     err = launch_f32(ptrs, int(grid), heads, n, st, scale, s);
   } else if (dtype == 1) {
-    if (!rows_aligned(ptrs, st)) return int(cudaErrorInvalidValue);
-    err = launch_bf16_tiles(ptrs, int(grid), heads, n, st, scale, s);
+    if (!rows_aligned(ptrs, st, 7)) return int(cudaErrorInvalidValue);
+    err = with_tiles(n, [&](auto nt) {
+      return launch_bf16<decltype(nt)::value>(ptrs, int(grid), heads, n, st,
+                                              scale, s);
+    });
   } else {
     return int(cudaErrorInvalidValue);
   }

@@ -61,8 +61,58 @@
 // (favor_stats_kernel): all-float32 k and v would need the split on both
 // sides of every product, nine bf16 products for one.
 //
-// The apply pass, and the stats pass on float32 operands: IEEE float32
-// FMAs on CUDA cores.  A row costs 2*m*e FMAs (m*e for its features, m*e
+// The apply pass on bf16 q (ViP's bf16 serving and training): tensor cores
+// by wgmma.  A row costs 4*m*e flops against e bf16 elements read and e
+// float32 written: at IEEE float32 on CUDA cores that bounds ViP
+// training's [96,4,3137,128] at 0.601 ms, twice its bytes (937,852,928 B:
+// 0.280 ms at 3.35 TB/s).  The split, as in the stats pass:
+//   * features: q is bf16 and exact; w in three bf16 parts, three products
+//     a k-step.  Two parts would not do: the exp turns an absolute error
+//     in w.q into a relative error in phi, and at ViP's scale sum |w_i q_i|
+//     is ~41 over e = 128, so 16-bit parts leave w.q off by up to ~3e-4,
+//     above the 1e-4 rtol y is held to.  |q|^2/2, the exp and D = phi .
+//     ksum are IEEE float32 on CUDA cores, D from the unsplit phi;
+//   * contraction phi kptv: phi and kptv in three bf16 parts each, and of
+//     the nine cross products phi_i kptv_j the six with i + j <= 2.  On the
+//     CPU (bf16-valued ViP-like q, k, v at [8,3137,128], against float64)
+//     six products are off by up to 5.6e-6, 0.35 of the tolerance; three
+//     (two parts each, ~16 bits) by 6.2e-5, 1.6 times it; the float32
+//     plain version by 1.0e-5, 0.6 of it.
+// That is 9 * 2*m*e flops a row, 177.6 GFLOP at the training shape, 0.180
+// ms at 989 TFLOP/s, so the bytes bound the design.  Both B operands, w's
+// parts and kptv's, are the same for every row of a (batch, head).  A
+// first design on mma.sync (a warp per 32 rows, each w and kptv fragment
+// that ldmatrix loads serving two 16-row tiles) took 0.824 ms on an H100
+// 80GB HBM3 at 700 W: the fragments, phi's parts and the accumulators held
+// it at 255 registers with spills and two warps a scheduler.  wgmma reads B
+// from shared memory itself, so a warp holds no B fragment and issues one
+// instruction per 64 x 64 x 16 tile: 0.457 ms on the same card, 61% of the
+// byte bound, off float64 by 4.3e-6.  Layout (favor_apply_bf16_kernel):
+//   * one block of three warpgroups per (batch*head, T-tile), one block an
+//     SM (177 KB of shared memory, 168 registers, no spills); w's parts
+//     [3][64 features][128] and kptv's parts transposed [3][128 columns][64
+//     features] are split once per block into shared memory (96 KB) in
+//     wgmma's K-major no-swizzle layout of 8 x 8 core matrices;
+//   * each warpgroup takes 64-row slabs of q: 16-byte cp.async copies from
+//     the strided view into its own slab buffer (plain loads where rows are
+//     not 16-byte aligned or e % 8 != 0), the next slab in flight while one
+//     is computed; after the set-up the warpgroups never wait for each
+//     other;
+//   * warp w of a group owns rows 16w..16w+15.  Features: the rows' A
+//     fragments by ldmatrix (|q|^2 from the same registers), and per k-step
+//     a chain of three wgmma.m64n64k16 against w's parts, smallest first,
+//     into a fresh accumulator; two accumulators alternate, so one chain
+//     runs while the other is added to wq in IEEE float32;
+//   * phi's three bf16 parts go from the accumulator registers straight
+//     into A fragments (feature n-tiles 2kk and 2kk+1 are k-step kk);
+//   * contraction, 64 columns a pass: per k-step a chain of the six
+//     products, smallest first, the two accumulators alternating as above;
+//     y = acc / D through a per-warp staging tile and out in 16-byte
+//     stores, 128 contiguous bytes a row, into y's [B,T,H,e] layout.
+//
+// The apply pass on float32 q, and the stats pass on float32 operands
+// (float32 is the parity type): IEEE float32 FMAs on CUDA cores.  A row
+// costs 2*m*e FMAs (m*e for its features, m*e
 // for the outer product phi(k)^T v or for phi(q) kptv) against e elements
 // read: at e = 128, m = 64 that is 128 flops per element, above the ~20
 // flops per byte of float32 where the 67 TFLOP/s non-tensor-core rate,
@@ -81,7 +131,7 @@
 //     in registers across all of the block's rows;
 //   * apply: each thread computes a 4-row x 4-column tile of phi(q) kptv,
 //     divides it by D and stores it.
-// phi never reaches device memory.
+// phi never reaches device memory in any of the kernels.
 
 #include <math.h>
 
@@ -107,11 +157,6 @@ struct Strides {
   long long b, h, n;
 };
 
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-
 __device__ __forceinline__ float4 ld4(const float* p) {
   return *reinterpret_cast<const float4*>(p);
 }
@@ -128,8 +173,7 @@ __device__ void load_matrix(float* dst, const float* __restrict__ src,
 
 // the chunk of rows [row0, row0 + kRows) of one (batch, head): dst
 // [kRows][kXS] float32; rows >= row_end and columns >= e are zero
-template <typename T>
-__device__ void stage_rows(float* dst, const T* __restrict__ src,
+__device__ void stage_rows(float* dst, const float* __restrict__ src,
                            long long row_stride, int row0, int row_end,
                            int e) {
 #pragma unroll 4
@@ -137,7 +181,7 @@ __device__ void stage_rows(float* dst, const T* __restrict__ src,
     const int r = i / kE, c = i % kE;
     const int row = row0 + r;
     float x = 0.f;
-    if (row < row_end && c < e) x = to_f32(src[row * row_stride + c]);
+    if (row < row_end && c < e) x = src[row * row_stride + c];
     dst[r * kXS + c] = x;
   }
 }
@@ -213,9 +257,8 @@ size_t apply_smem() {
                           kRows * kPS + 2 * kRows);
 }
 
-template <typename T>
 __global__ void __launch_bounds__(kThreads, 2)
-favor_stats_kernel(const T* __restrict__ k, const T* __restrict__ v,
+favor_stats_kernel(const float* __restrict__ k, const float* __restrict__ v,
                    const float* __restrict__ w, float* __restrict__ ksum,
                    float* __restrict__ kptv, float* __restrict__ work,
                    Strides sk, Strides sv, int heads, int t, int e, int m,
@@ -230,8 +273,8 @@ favor_stats_kernel(const T* __restrict__ k, const T* __restrict__ v,
   const int tile = blockIdx.x % tiles;
   const long long bh = blockIdx.x / tiles;
   const long long b = bh / heads, h = bh % heads;
-  const T* kb = k + b * sk.b + h * sk.h;
-  const T* vb = v + b * sv.b + h * sv.h;
+  const float* kb = k + b * sk.b + h * sk.h;
+  const float* vb = v + b * sv.b + h * sv.h;
   const int row_begin = tile * tile_rows;
   const int row_end = min(t, row_begin + tile_rows);
 
@@ -312,9 +355,8 @@ __global__ void favor_reduce_kernel(const float* __restrict__ work,
     ksum[bh * m + (j - (long long)m * e)] = s;
 }
 
-template <typename T>
 __global__ void __launch_bounds__(kThreads, 2)
-favor_apply_kernel(const T* __restrict__ q, const float* __restrict__ w,
+favor_apply_kernel(const float* __restrict__ q, const float* __restrict__ w,
                    const float* __restrict__ ksum,
                    const float* __restrict__ kptv, float* __restrict__ y,
                    Strides sq, Strides sy, int heads, int t, int e, int m,
@@ -331,7 +373,7 @@ favor_apply_kernel(const T* __restrict__ q, const float* __restrict__ w,
   const int tile = blockIdx.x % tiles;
   const long long bh = blockIdx.x / tiles;
   const long long b = bh / heads, h = bh % heads;
-  const T* qb = q + b * sq.b + h * sq.h;
+  const float* qb = q + b * sq.b + h * sq.h;
   float* yb = y + b * sy.b + h * sy.h;
   const int row_begin = tile * tile_rows;
   const int row_end = min(t, row_begin + tile_rows);
@@ -459,42 +501,56 @@ __device__ __forceinline__ float hi_bf16(uint32_t r) {
   return __uint_as_float(r & 0xffff0000u);
 }
 
-// rows [row0, row0 + kTcRows) of k and v (those < row_end) into one ring
-// stage, sk and sv [kTcRows][kXS16]; other rows and columns >= e zero.
-// `vec`: every row 16-byte aligned and e % 8 == 0, so each 8-element group
-// is one cp.async; otherwise plain loads.
+// rows [row0, row0 + rows) of one bf16 operand (those < row_end) into dst
+// [rows][kXS16], by thread `tid` of `nthreads`; other rows and columns >= e
+// zero.  `vec`: every row 16-byte aligned and e % 8 == 0, so each
+// 8-element group is one cp.async; otherwise plain loads.
+__device__ __forceinline__ void stage_bf16_rows(bf16* dst,
+                                                const bf16* __restrict__ src,
+                                                long long row_stride,
+                                                int row0, int rows,
+                                                int row_end, int e, bool vec,
+                                                int tid, int nthreads) {
+  constexpr int kGroups = kE / 8;  // 16-byte groups a row
+  for (int i = tid; i < rows * kGroups; i += nthreads) {
+    const int r = i / kGroups, c = (i % kGroups) * 8;
+    bf16* d = dst + r * kXS16 + c;
+    const int row = row0 + r;
+    if (row < row_end && c < e) {
+      const bf16* from = src + row * row_stride + c;
+      if (vec) {
+        cp_async16(d, from);
+      } else {
+        uint32_t pair[4];
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const float lo =
+              c + 2 * j < e ? __bfloat162float(from[2 * j]) : 0.f;
+          const float hi =
+              c + 2 * j + 1 < e ? __bfloat162float(from[2 * j + 1]) : 0.f;
+          pair[j] = pack_bf16(lo, hi);  // exact: bf16 values
+        }
+        *reinterpret_cast<uint4*>(d) =
+            make_uint4(pair[0], pair[1], pair[2], pair[3]);
+      }
+    } else {
+      *reinterpret_cast<uint4*>(d) = make_uint4(0u, 0u, 0u, 0u);
+    }
+  }
+}
+
+// rows [row0, row0 + kTcRows) of k and v into one ring stage, sk and sv
+// [kTcRows][kXS16]
 __device__ __forceinline__ void stage_chunk(bf16* sk, bf16* sv,
                                             const bf16* __restrict__ kb,
                                             const bf16* __restrict__ vb,
                                             long long k_row, long long v_row,
                                             int row0, int row_end, int e,
                                             bool vec) {
-  constexpr int kGroups = kE / 8;  // 16-byte groups a row
-  for (int i = threadIdx.x; i < 2 * kTcRows * kGroups; i += kTcThreads) {
-    const bool is_v = i >= kTcRows * kGroups;
-    const int r = (i / kGroups) % kTcRows, c = (i % kGroups) * 8;
-    bf16* dst = (is_v ? sv : sk) + r * kXS16 + c;
-    const int row = row0 + r;
-    if (row < row_end && c < e) {
-      const bf16* src = is_v ? vb + row * v_row + c : kb + row * k_row + c;
-      if (vec) {
-        cp_async16(dst, src);
-      } else {
-        uint32_t pair[4];
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          const float lo = c + 2 * j < e ? __bfloat162float(src[2 * j]) : 0.f;
-          const float hi =
-              c + 2 * j + 1 < e ? __bfloat162float(src[2 * j + 1]) : 0.f;
-          pair[j] = pack_bf16(lo, hi);  // exact: bf16 values
-        }
-        *reinterpret_cast<uint4*>(dst) =
-            make_uint4(pair[0], pair[1], pair[2], pair[3]);
-      }
-    } else {
-      *reinterpret_cast<uint4*>(dst) = make_uint4(0u, 0u, 0u, 0u);
-    }
-  }
+  stage_bf16_rows(sk, kb, k_row, row0, kTcRows, row_end, e, vec, threadIdx.x,
+                  kTcThreads);
+  stage_bf16_rows(sv, vb, v_row, row0, kTcRows, row_end, e, vec, threadIdx.x,
+                  kTcThreads);
 }
 
 __global__ void __launch_bounds__(kTcThreads, 1)
@@ -719,6 +775,279 @@ favor_stats_bf16_kernel(const bf16* __restrict__ k,
 }
 
 // ---------------------------------------------------------------------------
+// The apply pass on bf16 q: bf16x3 split products on the tensor cores by
+// wgmma (see the head of this file)
+
+constexpr int kApGroups = 3;                  // warpgroups a block
+constexpr int kApThreads = 128 * kApGroups;
+constexpr int kApSlab = 64;                   // rows a warpgroup takes
+constexpr int kApRows = kApGroups * kApSlab;  // rows a block takes at a time
+constexpr int kApCols = 32;                   // y columns a staging pass
+constexpr int kApYS = kApCols + 8;            // float row stride of staging
+constexpr uint32_t kCoreK = 128;              // LBO: bytes between k-cores
+constexpr uint32_t kSboW = (kE / 8) * 128;    // SBO of w's parts [kM][kE]
+constexpr uint32_t kSboKV = (kM / 8) * 128;   // SBO of kptv's parts [kE][kM]
+
+size_t tc_apply_smem() {
+  // w parts [3][kM n][kE k] and kptv parts [3][kE n][kM k] in the core
+  // layout, per-warpgroup q slabs [kApSlab][kXS16] (bf16); ksum [kM],
+  // per-warp y staging [16][kApYS] (float)
+  return sizeof(bf16) * (size_t(2) * kParts * kM * kE +
+                         size_t(kApGroups) * kApSlab * kXS16) +
+         sizeof(float) * (kM + size_t(kApGroups) * 4 * 16 * kApYS);
+}
+
+// rows row0..row0+15 (those < row_end) and columns col0..col0+31 (those <
+// e) of y: a warp's accumulators acc[4j + i] (n-tile j: columns col0 + 8j
+// ..+7) times the rows' 1/D, through the warp's staging tile, in 16-byte
+// stores where `vec` (every y row 16-byte aligned, e % 4 == 0)
+__device__ __forceinline__ void store_y(const float* acc,
+                                        const float (&inv_d)[2],
+                                        float* stage, float* yb,
+                                        long long row_stride, int row0,
+                                        int row_end, int col0, int e,
+                                        bool vec, int lane) {
+  const int g = lane / 4, t4 = lane % 4;
+#pragma unroll
+  for (int j = 0; j < kApCols / 8; ++j) {
+    *reinterpret_cast<float2*>(stage + g * kApYS + 8 * j + 2 * t4) =
+        make_float2(acc[4 * j] * inv_d[0], acc[4 * j + 1] * inv_d[0]);
+    *reinterpret_cast<float2*>(stage + (g + 8) * kApYS + 8 * j + 2 * t4) =
+        make_float2(acc[4 * j + 2] * inv_d[1], acc[4 * j + 3] * inv_d[1]);
+  }
+  __syncwarp();
+#pragma unroll
+  for (int i = lane; i < 16 * (kApCols / 4); i += 32) {
+    const int r = i / (kApCols / 4), c = (i % (kApCols / 4)) * 4;
+    const int row = row0 + r, col = col0 + c;
+    if (row >= row_end || col >= e) continue;
+    const float4 x = *reinterpret_cast<const float4*>(stage + r * kApYS + c);
+    float* out = yb + row * row_stride + col;
+    if (vec) {
+      *reinterpret_cast<float4*>(out) = x;
+    } else {
+      const float xs[4] = {x.x, x.y, x.z, x.w};
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        if (col + j < e) out[j] = xs[j];
+    }
+  }
+  __syncwarp();  // the staging tile is rewritten by the next store
+}
+
+__global__ void __launch_bounds__(kApThreads, 1)
+favor_apply_bf16_kernel(const bf16* __restrict__ q,
+                        const float* __restrict__ w,
+                        const float* __restrict__ ksum,
+                        const float* __restrict__ kptv, float* __restrict__ y,
+                        Strides sq, Strides sy, int heads, int t, int e, int m,
+                        int tiles, int tile_rows, float inv_sqrt_m,
+                        bool vec) {
+  extern __shared__ uint4 smem_ap[];
+  bf16* sW = reinterpret_cast<bf16*>(smem_ap);  // [3][kM][kE], core layout
+  bf16* sKV = sW + kParts * kM * kE;            // [3][kE][kM], core layout
+  bf16* sQ = sKV + kParts * kE * kM;
+  float* sKs = reinterpret_cast<float*>(sQ + kApGroups * kApSlab * kXS16);
+  float* sY = sKs + kM;
+
+  const int tile = blockIdx.x % tiles;
+  const long long bh = blockIdx.x / tiles;
+  const long long b = bh / heads, h = bh % heads;
+  const bf16* qb = q + b * sq.b + h * sq.h;
+  float* yb = y + b * sy.b + h * sy.h;
+  const float* kv = kptv + bh * (long long)(m * e);
+  const int row_begin = tile * tile_rows;
+  const int row_end = min(t, row_begin + tile_rows);
+  const int slabs = (row_end - row_begin + kApSlab - 1) / kApSlab;
+  const bool vec_y = e % 4 == 0 && sy.b % 4 == 0 && sy.h % 4 == 0 &&
+                     sy.n % 4 == 0 && reinterpret_cast<uintptr_t>(y) % 16 == 0;
+
+  const int group = threadIdx.x / 128, gtid = threadIdx.x % 128;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int wrow = 16 * (warp % 4);  // the warp's rows of its group's slab
+  const int t4 = lane % 4;
+  bf16* slab = sQ + group * kApSlab * kXS16;
+  float* stage = sY + warp * 16 * kApYS;
+
+  // the group's first slab is in flight while w and kptv are split
+  if (group < slabs)
+    stage_bf16_rows(slab, qb, sq.n, row_begin + group * kApSlab, kApSlab,
+                    row_end, e, vec, gtid, 128);
+  cp_async_commit();
+  for (int i = threadIdx.x; i < kM * kE / 2; i += kApThreads) {
+    // w [f][c]: pairs along c
+    const int f = i / (kE / 2), c = (i % (kE / 2)) * 2;
+    const float lo = f < m && c < e ? w[f * e + c] : 0.f;
+    const float hi = f < m && c + 1 < e ? w[f * e + c + 1] : 0.f;
+    uint32_t part[kParts];
+    split3(lo, hi, part);
+#pragma unroll
+    for (int p = 0; p < kParts; ++p)
+      *reinterpret_cast<uint32_t*>(sW + p * kM * kE + core_at(f, c, kE)) =
+          part[p];
+  }
+  for (int i = threadIdx.x; i < kM / 2 * kE; i += kApThreads) {
+    // kptv [f][c] as B [c][f]: pairs along f
+    const int c = i % kE, f = (i / kE) * 2;
+    const float lo = f < m && c < e ? kv[f * e + c] : 0.f;
+    const float hi = f + 1 < m && c < e ? kv[(f + 1) * e + c] : 0.f;
+    uint32_t part[kParts];
+    split3(lo, hi, part);
+#pragma unroll
+    for (int p = 0; p < kParts; ++p)
+      *reinterpret_cast<uint32_t*>(sKV + p * kE * kM + core_at(c, f, kM)) =
+          part[p];
+  }
+  for (int f = threadIdx.x; f < kM; f += kApThreads)
+    sKs[f] = f < m ? ksum[bh * m + f] : 0.f;
+  // the parts, written by the threads, are read by the tensor cores
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+  __syncthreads();  // the only block-wide barrier: the groups run apart
+
+  const int2 la = lane_a_rowmajor(lane);
+
+  for (int s = group; s < slabs; s += kApGroups) {
+    const int row0 = row_begin + s * kApSlab;
+    cp_async_wait<0>();
+    group_sync(1 + group);  // the group's rows of slab s have landed
+
+    // the warp's A fragments (k-step ks: columns 16ks..16ks+15) and |q|^2
+    // of its rows g, g + 8
+    uint32_t xa[kE / 16][4];
+    float sq2[2] = {0.f, 0.f};
+#pragma unroll
+    for (int ks = 0; ks < kE / 16; ++ks) {
+      ldsm_x4(xa[ks], slab + (wrow + la.x) * kXS16 + 16 * ks + la.y);
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const float x0 = lo_bf16(xa[ks][j]), x1 = hi_bf16(xa[ks][j]);
+        sq2[j & 1] = fmaf(x1, x1, fmaf(x0, x0, sq2[j & 1]));
+      }
+    }
+    group_sync(1 + group);  // the slab is read: the next may land in it
+    if (s + kApGroups < slabs)
+      stage_bf16_rows(slab, qb, sq.n, row0 + kApGroups * kApSlab, kApSlab,
+                      row_end, e, vec, gtid, 128);
+    cp_async_commit();
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+#pragma unroll
+      for (int off = 1; off < 4; off <<= 1)
+        sq2[i] += __shfl_xor_sync(0xffffffffu, sq2[i], off);
+
+    // features wq = sum_p Q w_p^T: each k-step's three products (smallest
+    // part first) a chain of its own, in one of two accumulators, added to
+    // wq on CUDA cores while the next chain runs
+    float wq[32], step[2][32];
+#pragma unroll
+    for (int i = 0; i < 32; ++i) wq[i] = step[0][i] = step[1][i] = 0.f;
+#pragma unroll
+    for (int ks = 0; ks < kE / 16; ++ks) {
+      wgmma_fence();
+#pragma unroll
+      for (int p = kParts - 1; p >= 0; --p)
+        wgmma_64x64x16(step[ks & 1], xa[ks],
+                       wgmma_desc(sW + p * kM * kE + 2 * ks * 64, kCoreK,
+                                  kSboW),
+                       p != kParts - 1);
+      wgmma_commit();
+      if (ks > 0) {
+        wgmma_wait<1>();
+        hold(step[(ks - 1) & 1]);
+#pragma unroll
+        for (int i = 0; i < 32; ++i) wq[i] += step[(ks - 1) & 1][i];
+      }
+    }
+    wgmma_wait<0>();
+    hold(step[1]);
+    hold(xa);
+#pragma unroll
+    for (int i = 0; i < 32; ++i) wq[i] += step[1][i];
+
+    // phi = exp(wq - |q|^2/2) / sqrt(m) and D = phi . ksum in IEEE float32;
+    // phi's three bf16 parts straight into A fragments: feature n-tiles
+    // 2kk and 2kk+1 are k-step kk of the contraction
+    uint32_t pa[kM / 16 * kParts][4];  // [k-step * kParts + part]
+    float inv_d[2];
+    {
+      float d[2] = {0.f, 0.f};
+#pragma unroll
+      for (int j = 0; j < kM / 8; ++j) {
+        const int f = 8 * j + 2 * t4;
+        float p[4];
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+          p[i] = f + (i & 1) < m
+                     ? expf(wq[4 * j + i] - 0.5f * sq2[i >> 1]) * inv_sqrt_m
+                     : 0.f;
+        const float2 kf = *reinterpret_cast<const float2*>(sKs + f);
+        d[0] = fmaf(p[1], kf.y, fmaf(p[0], kf.x, d[0]));
+        d[1] = fmaf(p[3], kf.y, fmaf(p[2], kf.x, d[1]));
+        uint32_t lo[kParts], hi[kParts];
+        split3(p[0], p[1], lo);
+        split3(p[2], p[3], hi);
+#pragma unroll
+        for (int pi = 0; pi < kParts; ++pi) {
+          pa[(j / 2) * kParts + pi][2 * (j & 1)] = lo[pi];
+          pa[(j / 2) * kParts + pi][2 * (j & 1) + 1] = hi[pi];
+        }
+      }
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+#pragma unroll
+        for (int off = 1; off < 4; off <<= 1)
+          d[i] += __shfl_xor_sync(0xffffffffu, d[i], off);
+        inv_d[i] = 1.f / d[i];
+      }
+    }
+
+    // y = phi kptv / D, 64 columns a pass: per k-step a chain of the six
+    // products phi_i kptv_j with i + j <= 2, smallest first, in one of two
+    // accumulators, added on CUDA cores while the next chain runs
+#pragma unroll
+    for (int half = 0; half < kE / 64; ++half) {
+      if (64 * half >= e) break;
+      float ya[32], part[2][32];
+#pragma unroll
+      for (int i = 0; i < 32; ++i) ya[i] = part[0][i] = part[1][i] = 0.f;
+#pragma unroll
+      for (int kk = 0; kk < kM / 16; ++kk) {
+        const bf16* base = sKV + half * 64 * kM + 2 * kk * 64;
+        wgmma_fence();
+        auto product = [&](int i, int j, int accumulate) {
+          wgmma_64x64x16(part[kk & 1], pa[kk * kParts + i],
+                         wgmma_desc(base + j * kE * kM, kCoreK, kSboKV),
+                         accumulate);
+        };
+        product(0, 2, 0);
+        product(1, 1, 1);
+        product(2, 0, 1);
+        product(0, 1, 1);
+        product(1, 0, 1);
+        product(0, 0, 1);
+        wgmma_commit();
+        if (kk > 0) {
+          wgmma_wait<1>();
+          hold(part[(kk - 1) & 1]);
+#pragma unroll
+          for (int i = 0; i < 32; ++i) ya[i] += part[(kk - 1) & 1][i];
+        }
+      }
+      wgmma_wait<0>();
+      hold(part[1]);
+      hold(pa);
+#pragma unroll
+      for (int i = 0; i < 32; ++i) ya[i] += part[1][i];
+#pragma unroll
+      for (int piece = 0; piece < 64 / kApCols; ++piece)
+        store_y(ya + kApCols / 2 * piece, inv_d, stage, yb, sy.n,
+                row0 + wrow, row_end, 64 * half + kApCols * piece, e,
+                vec_y, lane);
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
 // launches
 
 // rows of each T-tile: whole chunks of `chunk` rows
@@ -763,16 +1092,26 @@ cudaError_t launch_stats_f32(const float* k, const float* v, const float* w,
                              int batch, int heads, int t, int e, int m,
                              const Strides* st, int tiles, float inv_sqrt_m,
                              cudaStream_t stream) {
-  cudaError_t err = set_smem(favor_stats_kernel<float>, stats_smem());
+  cudaError_t err = set_smem(favor_stats_kernel, stats_smem());
   if (err != cudaSuccess) return err;
   const long long bhs = (long long)batch * heads;
-  favor_stats_kernel<float><<<int(bhs * tiles), kThreads, stats_smem(),
-                              stream>>>(
+  favor_stats_kernel<<<int(bhs * tiles), kThreads, stats_smem(), stream>>>(
       k, v, w, ksum, kptv, tiles > 1 ? work : nullptr, st[0], st[1], heads, t,
       e, m, tiles, tile_rows_of(t, tiles, kRows), inv_sqrt_m);
   err = cudaGetLastError();
   if (err != cudaSuccess || tiles == 1) return err;
   return reduce_tiles(work, ksum, kptv, bhs, tiles, e, m, stream);
+}
+
+// rows of `count` bf16 operands that the cp.async staging takes: e % 8 ==
+// 0 and every row 16-byte aligned (otherwise the kernels stage with plain
+// loads)
+bool rows_vec(const void* const* ptrs, const Strides* st, int count, int e) {
+  bool vec = e % 8 == 0;
+  for (int i = 0; i < count; ++i)
+    vec = vec && reinterpret_cast<uintptr_t>(ptrs[i]) % 16 == 0 &&
+          st[i].b % 8 == 0 && st[i].h % 8 == 0 && st[i].n % 8 == 0;
+  return vec;
 }
 
 cudaError_t launch_stats_bf16(const bf16* k, const bf16* v, const float* w,
@@ -782,10 +1121,8 @@ cudaError_t launch_stats_bf16(const bf16* k, const bf16* v, const float* w,
                               cudaStream_t stream) {
   cudaError_t err = set_smem(favor_stats_bf16_kernel, tc_stats_smem());
   if (err != cudaSuccess) return err;
-  bool vec = e % 8 == 0 && reinterpret_cast<uintptr_t>(k) % 16 == 0 &&
-             reinterpret_cast<uintptr_t>(v) % 16 == 0;
-  for (int i = 0; i < 2; ++i)
-    vec = vec && st[i].b % 8 == 0 && st[i].h % 8 == 0 && st[i].n % 8 == 0;
+  const void* ptrs[2] = {k, v};
+  const bool vec = rows_vec(ptrs, st, 2, e);
   const long long bhs = (long long)batch * heads;
   favor_stats_bf16_kernel<<<int(bhs * tiles), kTcThreads, tc_stats_smem(),
                             stream>>>(
@@ -796,17 +1133,32 @@ cudaError_t launch_stats_bf16(const bf16* k, const bf16* v, const float* w,
   return reduce_tiles(work, ksum, kptv, bhs, tiles, e, m, stream);
 }
 
-template <typename T>
-cudaError_t launch_apply(const void* q, const float* w, const float* ksum,
-                         const float* kptv, float* y, int batch, int heads,
-                         int t, int e, int m, const Strides* st, int tiles,
-                         float inv_sqrt_m, cudaStream_t stream) {
-  cudaError_t err = set_smem(favor_apply_kernel<T>, apply_smem());
+cudaError_t launch_apply_f32(const float* q, const float* w,
+                             const float* ksum, const float* kptv, float* y,
+                             int batch, int heads, int t, int e, int m,
+                             const Strides* st, int tiles, float inv_sqrt_m,
+                             cudaStream_t stream) {
+  cudaError_t err = set_smem(favor_apply_kernel, apply_smem());
   if (err != cudaSuccess) return err;
-  favor_apply_kernel<T><<<int((long long)batch * heads * tiles), kThreads,
-                          apply_smem(), stream>>>(
-      static_cast<const T*>(q), w, ksum, kptv, y, st[0], st[1], heads, t, e,
-      m, tiles, tile_rows_of(t, tiles, kRows), inv_sqrt_m);
+  favor_apply_kernel<<<int((long long)batch * heads * tiles), kThreads,
+                       apply_smem(), stream>>>(
+      q, w, ksum, kptv, y, st[0], st[1], heads, t, e, m, tiles,
+      tile_rows_of(t, tiles, kRows), inv_sqrt_m);
+  return cudaGetLastError();
+}
+
+cudaError_t launch_apply_bf16(const bf16* q, const float* w,
+                              const float* ksum, const float* kptv, float* y,
+                              int batch, int heads, int t, int e, int m,
+                              const Strides* st, int tiles, float inv_sqrt_m,
+                              cudaStream_t stream) {
+  cudaError_t err = set_smem(favor_apply_bf16_kernel, tc_apply_smem());
+  if (err != cudaSuccess) return err;
+  const void* ptrs[1] = {q};
+  favor_apply_bf16_kernel<<<int((long long)batch * heads * tiles),
+                            kApThreads, tc_apply_smem(), stream>>>(
+      q, w, ksum, kptv, y, st[0], st[1], heads, t, e, m, tiles,
+      tile_rows_of(t, tiles, kApRows), inv_sqrt_m, rows_vec(ptrs, st, 1, e));
   return cudaGetLastError();
 }
 
@@ -860,12 +1212,16 @@ int scat_favor_stats(const void* k, const void* v, const void* w, void* ksum,
 
 // q: [batch, heads, t, e] and y (float32, the output): addressed through
 // `strides` (6 element strides: batch, head, row of q, then of y); w, ksum,
-// kptv: float32 contiguous as scat_favor_stats leaves them.  dtype is q's.
+// kptv: float32 contiguous as scat_favor_stats leaves them.  dtype is q's;
+// tiles is t_tiles' count for its kernel (32-row chunks, two blocks an SM
+// for float32; 192-row rounds, one block an SM for bfloat16).
 int scat_favor_apply(const void* q, const void* w, const void* ksum,
                      const void* kptv, void* y, int batch, int heads, int t,
                      int e, int m, const long long* strides, int tiles,
                      float inv_sqrt_m, int dtype, void* stream) {
-  if (!valid(batch, heads, t, e, m, tiles, kRows))
+  // the bf16 q kernel takes rounds of kApRows rows, the float32 one 32
+  const int chunk = dtype == 1 ? kApRows : kRows;
+  if (!valid(batch, heads, t, e, m, tiles, chunk))
     return int(cudaErrorInvalidValue);
   Strides st[2];
   read_strides(strides, st, 2);
@@ -876,11 +1232,11 @@ int scat_favor_apply(const void* q, const void* w, const void* ksum,
   float* yf = static_cast<float*>(y);
   cudaError_t err;
   if (dtype == 0)
-    err = launch_apply<float>(q, wf, ks, kv, yf, batch, heads, t, e, m, st,
-                              tiles, inv_sqrt_m, s);
+    err = launch_apply_f32(static_cast<const float*>(q), wf, ks, kv, yf,
+                           batch, heads, t, e, m, st, tiles, inv_sqrt_m, s);
   else if (dtype == 1)
-    err = launch_apply<__nv_bfloat16>(q, wf, ks, kv, yf, batch, heads, t, e,
-                                      m, st, tiles, inv_sqrt_m, s);
+    err = launch_apply_bf16(static_cast<const bf16*>(q), wf, ks, kv, yf,
+                            batch, heads, t, e, m, st, tiles, inv_sqrt_m, s);
   else
     return int(cudaErrorInvalidValue);
   return int(err);

@@ -1,6 +1,7 @@
-// Warp-level tensor-core helpers shared by the kernels under csrc/:
-// 16-byte cp.async copies into shared memory, ldmatrix loads of 8x8 bf16
-// tiles, and the bf16 mma.sync.m16n8k16 with float32 accumulation.
+// Tensor-core helpers shared by the kernels under csrc/: 16-byte cp.async
+// copies into shared memory, ldmatrix loads of 8x8 bf16 tiles, the bf16
+// mma.sync.m16n8k16 with float32 accumulation, and the warpgroup's
+// wgmma.m64n64k16 with B read from shared memory (sm_90a).
 //
 // Fragment layouts of mma.m16n8k16.row.col (lane = 4 * g + t):
 //   A [16 x 16] row-major, 4 registers of two bf16 each:
@@ -101,6 +102,80 @@ __device__ __forceinline__ int2 lane_b_kn(int lane) {
 // (8,8); read transposed they are a0-a3)
 __device__ __forceinline__ int2 lane_a_km(int lane) {
   return lane_b_nk(lane);
+}
+
+// Warpgroup matrix multiply (sm_90a).  B is read by the tensor cores from
+// shared memory through a descriptor, in the no-swizzle K-major layout: 8 x
+// 8 core matrices of 128 contiguous bytes (8 rows of 16 bytes), the two
+// core matrices of a 16-deep k-step 128 bytes apart (LBO), 8-row groups
+// SBO bytes apart.  A comes from registers as the warps' mma A fragments
+// (warp w of the warpgroup: rows 16w..16w+15), and the float32
+// accumulator of a 64 x 64 tile is, per warp, 8 n-tiles of mma C
+// fragments (32 registers).
+__device__ __forceinline__ uint64_t wgmma_desc(const void* p, uint32_t lbo,
+                                               uint32_t sbo) {
+  return uint64_t((smem_addr(p) & 0x3FFFF) >> 4) |
+         (uint64_t(lbo >> 4) << 16) | (uint64_t(sbo >> 4) << 32);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+
+// wait until at most N of the warpgroup's committed wgmma groups are in
+// flight
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// registers an in-flight wgmma reads or writes: the compiler must neither
+// reuse them nor read them early, so each is redefined after the wait
+template <int N>
+__device__ __forceinline__ void hold(float (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+template <int N>
+__device__ __forceinline__ void hold(uint32_t (&r)[N][4]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) asm volatile("" : "+r"(r[i][j])::"memory");
+}
+
+// d = (accumulate ? d : 0) + a b over the warpgroup's 64 x 64 x 16 tile
+__device__ __forceinline__ void wgmma_64x64x16(float (&d)[32],
+                                               const uint32_t (&a)[4],
+                                               uint64_t b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
+      "%28, %29, %30, %31}, {%32, %33, %34, %35}, %36, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(accumulate));
+}
+
+// element (n, k) of an [n][kdim] operand in the core layout above
+__device__ __forceinline__ int core_at(int n, int k, int kdim) {
+  return ((n >> 3) * (kdim >> 3) + (k >> 3)) * 64 + (n & 7) * 8 + (k & 7);
+}
+
+// barrier `id` (1..15; 0 is __syncthreads') of one warpgroup's 128 threads
+__device__ __forceinline__ void group_sync(int id) {
+  asm volatile("bar.sync %0, 128;\n" ::"r"(id) : "memory");
 }
 
 }  // namespace scat_mma

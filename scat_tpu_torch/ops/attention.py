@@ -15,18 +15,22 @@ and writes dQ, dK, dV (7*B*H*N*D), against 4 and 10 flops per element
 times N.  The kernels keep the [N,N] scores, probabilities and their
 gradients on chip (one block per batch*head, rows in shared memory) and
 read the projection's strided Q/K/V views in place, so the one
-device-memory round trip is all they move.  The forward, and the
-backward on float32 operands, compute on CUDA cores (softmax by warp
-shuffles; the float32 backward recomputes P in a second pass).  The
-backward on bf16 operands, the training path's, is limited by
-instruction count, not bytes, on CUDA cores, so it runs its five
-products on the tensor cores (``mma.sync``, bf16 in, float32
-accumulation), keeps softmax, delta and dS in the accumulator registers,
-and rounds P and dS to bf16 once, in shared memory, for the second
-products: no recompute pass.  That rounding is within the bf16
-tolerance against ``attention_bwd_reference`` (float32 P and dS); the
-design note is in ``csrc/attention_bwd.cu``.  Its 16-byte copies need
-16-byte aligned rows: an operand whose rows are not is copied first.
+device-memory round trip is all they move.  On float32 operands, the
+parity type, both compute on CUDA cores (softmax by warp shuffles; the
+backward recomputes P in a second pass).  On bf16 operands, the
+flagship's serving and training paths, CUDA cores made both limited by
+instruction count, not bytes, so both run their products on the tensor
+cores (``mma.sync``, bf16 in, float32 accumulation), a warp per 16 query
+rows, with the softmax (and the backward's delta and dS) in the
+accumulator registers.  The forward rounds P to bf16 once and takes it
+straight from the registers as the A operand of P V; the backward rounds
+P and dS to bf16 once, in shared memory, for its second products: no
+recompute pass.  Those roundings are within the bf16 tolerance against
+``attention_reference`` and ``attention_bwd_reference`` (float32 P and
+dS); the design notes are in ``csrc/attention_fwd.cu`` and
+``csrc/attention_bwd.cu``, their shared tiles in ``csrc/attention.cuh``.
+Their 16-byte copies need 16-byte aligned rows: an operand whose rows
+are not is copied first.
 
 ``flash_attention`` launches the kernels for CUDA tensors and raises if
 it cannot; it never falls back.  CPU tensors take ``attention_reference``
@@ -119,7 +123,7 @@ def _check(*ts: torch.Tensor) -> None:
 
 def _rows_aligned(t: torch.Tensor) -> bool:
     """Every row of a [B,H,N,D] operand starts on 16 bytes (the bf16
-    backward kernel's copies)."""
+    kernels' copies)."""
     step = 16 // t.element_size()
     return (t.data_ptr() % 16 == 0
             and all(s % step == 0 for s in t.stride()[:3]))
@@ -131,9 +135,20 @@ def _operands(*ts: torch.Tensor):
     return [t.data_ptr() for t in ts], abi.strides(*ts)
 
 
+def _aligned(*ts: torch.Tensor):
+    """The operands as the bf16 kernels take them: bf16 ones whose rows
+    are not 16-byte aligned copied; float32 ones as they are."""
+    if ts[0].dtype != torch.bfloat16:
+        return ts
+    return tuple(t if _rows_aligned(t)
+                 else t.clone(memory_format=torch.contiguous_format)
+                 for t in ts)
+
+
 def _attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                    scale: float) -> torch.Tensor:
     """The forward kernel on CUDA tensors (counted)."""
+    q, k, v = _aligned(q, k, v)
     b, h, n, d = q.shape
     # O is stored [B,N,H,D] and returned as its [B,H,N,D] view, so that
     # the caller's merge of heads back to [B,N,H*D] needs no copy
@@ -163,11 +178,7 @@ def attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if do.stride(-1) != 1:
         do = do.contiguous()
     _check(q, k, v, do)
-    if q.dtype == torch.bfloat16:
-        q, k, v, do = (
-            t if _rows_aligned(t)
-            else t.clone(memory_format=torch.contiguous_format)
-            for t in (q, k, v, do))
+    q, k, v, do = _aligned(q, k, v, do)
     grads = tuple(torch.empty(q.shape, dtype=q.dtype, device=q.device)
                   for _ in range(3))
     b, h, n, d = q.shape

@@ -11,18 +11,25 @@ the apply pass ``_favor_apply_kernel`` :90-102 (call :139), with the
 feature map ``_prm`` :54-60; the custom VJP :150-175 becomes
 ``_FavorAttention`` and ``favor_attention_fused`` :178-189 keeps its name.
 Both kernels are ``csrc/favor.cu``; what bounds them and how they are
-laid out is written there.  The stats pass on bf16 operands (ViP's
-path) runs on the tensor cores with w and phi split into three bf16
-parts each ("bf16x3"), to float32's accuracy; on float32 operands, and
-the apply pass, run IEEE float32 FMAs on CUDA cores.
+laid out is written there.  On bf16 operands (ViP's path) both passes run
+on the tensor cores with the float32 factors split into three bf16 parts
+each ("bf16x3"), to float32's accuracy.  The stats pass (``mma.sync``)
+splits w and phi(k).  The apply pass (``wgmma``, w's and kptv's parts
+read by the tensor cores from shared memory) splits w for the features
+of its bf16 q, and phi(q) and kptv for the contraction, of whose nine
+cross products it keeps the six with part indices summing to at most 2;
+its ‖q‖², exp and D = phi(q) . ksum stay IEEE float32 on CUDA cores.  On
+float32 operands, the parity type, both passes run IEEE float32 FMAs on
+CUDA cores.
 
 The kernels' formula, which ``favor_stats_reference`` and
 ``favor_apply_reference`` repeat in plain PyTorch:
 ``phi(x) = exp(w x^T - |x|^2/2) * (1/sqrt(m))``, ``ksum = sum_t
 phi(k_t)``, ``kptv = phi(k)^T v``, ``y = phi(q) kptv / (phi(q) . ksum)``,
 in float32 (bf16 operands are read as their exact float32 values, as
-the JAX model casts them; the plain versions are IEEE float32), no
-max-subtraction stabiliser.
+the JAX model casts them; the plain versions are IEEE float32, or
+float64 for float64 operands, the precision the bf16 kernels' split
+products are held to on the card), no max-subtraction stabiliser.
 
 ``favor_attention_fused`` (and the wrappers ``favor_stats`` and
 ``favor_apply``) launch the kernels for CUDA tensors and raise if they
@@ -49,15 +56,18 @@ from scat_tpu_torch.kernels import abi, build
 # the kernels' limits (csrc/favor.cu kE, kM)
 MAX_HEAD_DIM = 128
 MAX_FEATURES = 64
-# the apply kernel's and the float32 stats kernel's row chunk (kRows) and
-# blocks resident on one SM (__launch_bounds__; 76 KB and 94 KB of shared
-# memory a block)
+# the float32 kernels' row chunk (kRows) and blocks resident on one SM
+# (__launch_bounds__; 76 KB and 94 KB of shared memory a block)
 CHUNK_ROWS = 32
 BLOCKS_PER_SM = 2
 # the bf16 stats kernel's (favor_stats_bf16_kernel: kTcRows, one 208 KB
 # block an SM)
 TC_CHUNK_ROWS = 64
 TC_BLOCKS_PER_SM = 1
+# the bf16 q apply kernel's (favor_apply_bf16_kernel: kApRows, the rows
+# its three warpgroups take at a time, 64 each; one 177 KB block an SM)
+TC_APPLY_CHUNK_ROWS = 192
+TC_APPLY_BLOCKS_PER_SM = 1
 MAX_TILES = 64
 
 # (feature-dot, contraction-dot) precision of each rung
@@ -134,9 +144,14 @@ def favor_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         return y / d
 
 
+def _wide(x: torch.Tensor) -> torch.Tensor:
+    """x in float32, or float64 if it is float64."""
+    return x.to(torch.promote_types(x.dtype, torch.float32))
+
+
 def _prm(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """The kernels' feature map in float32: exp(w x^T - 0.5 |x|^2) times
-    1/sqrt(m) (``_prm``)."""
+    """The kernels' feature map in x's dtype: exp(w x^T - 0.5 |x|^2)
+    times 1/sqrt(m) (``_prm``)."""
     wtx = _dot("...te,me->...tm", x, w, "highest")
     xd = 0.5 * (x * x).sum(dim=-1, keepdim=True)
     return torch.exp(wtx - xd) * (1.0 / math.sqrt(w.shape[0]))
@@ -146,10 +161,11 @@ def favor_stats_reference(k: torch.Tensor, v: torch.Tensor,
                           w: torch.Tensor
                           ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The stats kernel's plain version: (sum_t phi(k) [..., m], phi(k)^T
-    v [..., m, e]) in float32 for k, v [..., T, e]."""
+    v [..., m, e]) in float32 (float64 for float64 operands) for k, v
+    [..., T, e]."""
     with torch.autocast(k.device.type, enabled=False):
-        kp = _prm(k.float(), w.float())
-        return kp.sum(dim=-2), _dot("...tm,...te->...me", kp, v.float(),
+        kp = _prm(_wide(k), _wide(w))
+        return kp.sum(dim=-2), _dot("...tm,...te->...me", kp, _wide(v),
                                     "highest")
 
 
@@ -157,9 +173,9 @@ def favor_apply_reference(q: torch.Tensor, ksum: torch.Tensor,
                           kptv: torch.Tensor, w: torch.Tensor
                           ) -> torch.Tensor:
     """The apply kernel's plain version: phi(q) kptv / (phi(q) . ksum),
-    float32 [..., T, e]."""
+    float32 (float64 for float64 operands) [..., T, e]."""
     with torch.autocast(q.device.type, enabled=False):
-        qp = _prm(q.float(), w.float())
+        qp = _prm(_wide(q), _wide(w))
         d = _dot("...tm,...m->...t", qp, ksum, "highest")[..., None]
         return _dot("...tm,...me->...te", qp, kptv, "highest") / d
 
@@ -173,7 +189,8 @@ def t_tiles(bh: int, t: int, sms: int, chunk_rows: int = CHUNK_ROWS,
     least time any count up to ``MAX_TILES`` (tiles of at least two
     chunks) would, every tile non-empty.  Blocks run in parallel, so T is
     split only as far as filling the SMs needs.  The defaults are the
-    apply kernel's; ``stats_tiling`` gives the stats kernel's."""
+    float32 kernels'; ``stats_tiling`` and ``apply_tiling`` give each
+    kernel's for its operands' dtype."""
     slots = blocks_per_sm * sms
     most = max(1, min(-(-t // (2 * chunk_rows)), MAX_TILES))
 
@@ -192,6 +209,15 @@ def stats_tiling(dtype: torch.dtype) -> Tuple[int, int]:
     for float32."""
     if dtype == torch.bfloat16:
         return TC_CHUNK_ROWS, TC_BLOCKS_PER_SM
+    return CHUNK_ROWS, BLOCKS_PER_SM
+
+
+def apply_tiling(dtype: torch.dtype) -> Tuple[int, int]:
+    """(chunk rows, blocks an SM) of the apply kernel that a ``dtype`` q
+    launches: the tensor-core kernel for bf16, the CUDA-core one for
+    float32."""
+    if dtype == torch.bfloat16:
+        return TC_APPLY_CHUNK_ROWS, TC_APPLY_BLOCKS_PER_SM
     return CHUNK_ROWS, BLOCKS_PER_SM
 
 
@@ -301,7 +327,8 @@ def favor_apply(q: torch.Tensor, ksum: torch.Tensor, kptv: torch.Tensor,
         rc = _library().scat_favor_apply(
             q.data_ptr(), w.data_ptr(), ksum.data_ptr(), kptv.data_ptr(),
             y.data_ptr(), b, h, t, e, m, abi.strides(q, y),
-            t_tiles(b * h, t, _sm_count(q.device.index)),
+            t_tiles(b * h, t, _sm_count(q.device.index),
+                    *apply_tiling(q.dtype)),
             1.0 / math.sqrt(m), abi.DTYPE_CODES[q.dtype],
             torch.cuda.current_stream(q.device).cuda_stream)
     abi.raise_on(rc, _library(), "favor_apply")

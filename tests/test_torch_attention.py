@@ -185,6 +185,45 @@ def test_tensor_core_rounding_matches_pallas_bwd(rng, b, h, n, d):
                                    err_msg=name)
 
 
+def _tensor_core_fwd(q, k, v, scale):
+    """The arithmetic of the bf16 forward kernel on the CPU: products of
+    bf16 values summed in float32, softmax in float32, P rounded to bf16
+    once before P V, O rounded to bf16."""
+    q, k, v = (torch.from_numpy(a) for a in (q, k, v))
+    p = (torch.einsum("bhid,bhjd->bhij", q, k) * scale).softmax(dim=-1)
+    o = torch.einsum("bhij,bhjd->bhid", p.bfloat16().float(), v)
+    return o.bfloat16().float().numpy()
+
+
+@pytest.mark.parametrize("b,h,n,d", BWD_SHAPES)
+def test_tensor_core_rounding_matches_pallas_fwd(rng, b, h, n, d):
+    """bf16 operands through the bf16 forward kernel's rounding (P in
+    bf16 for P V) against the Pallas forward in interpret mode at the
+    bf16 tolerance of the card's checks."""
+    q, k, v = (_bf16(rng.randn(b, h, n, d).astype(np.float32))
+               for _ in range(3))
+    scale = d ** -0.5
+    want = pa._flash_fwd_impl(*map(jnp.asarray, (q, k, v)), scale)
+    got = _tensor_core_fwd(q, k, v, scale)
+    np.testing.assert_allclose(got, np.asarray(want), atol=1e-2, rtol=1e-2)
+
+
+def test_unaligned_bf16_rows_are_copied(rng):
+    """The bf16 kernels take 16-byte aligned rows: a bf16 operand whose
+    rows are not is copied (same values, contiguous), aligned ones and
+    float32 ones are passed as they are."""
+    even = torch.from_numpy(rng.randn(2, 3, 5, 64).astype(np.float32))
+    even = even.bfloat16()
+    odd = torch.zeros(even.numel() + 3, dtype=torch.bfloat16)[3:]
+    odd = odd.view(2, 3, 5, 64).copy_(even)
+    assert not ta._rows_aligned(odd) and ta._rows_aligned(even)
+    got = ta._aligned(odd, even)
+    assert ta._rows_aligned(got[0]) and torch.equal(got[0], odd)
+    assert got[1] is even
+    f32 = odd.float()
+    assert ta._aligned(f32)[0] is f32
+
+
 def test_other_devices_raise():
     q = torch.empty(1, 8, 21, 64, device="meta")
     with pytest.raises(ValueError, match="cuda or cpu"):
@@ -220,11 +259,15 @@ def test_library_path_keyed_by_source(monkeypatch, tmp_path):
 
 
 def test_sources_have_their_headers():
-    """Every source the build compiles exists, and the shared header the
-    tensor-core kernels include is one that the library path hashes."""
+    """Every source the build compiles exists, and the shared headers the
+    tensor-core kernels include (mma.cuh; attention.cuh for the two
+    attention kernels) are ones that the library path hashes."""
     for name in build.SOURCES:
         assert os.path.exists(os.path.join(build.CSRC_DIR, f"{name}.cu"))
-    for name in ("attention_bwd", "favor"):
+    for name in ("attention_fwd", "attention_bwd", "favor"):
         with open(os.path.join(build.CSRC_DIR, f"{name}.cu")) as f:
-            assert '#include "mma.cuh"' in f.read(), name
-    assert os.path.exists(os.path.join(build.CSRC_DIR, "mma.cuh"))
+            src = f.read()
+        assert '#include "mma.cuh"' in src, name
+        assert ('#include "attention.cuh"' in src) == (name != "favor"), name
+    for header in ("mma.cuh", "attention.cuh"):
+        assert os.path.exists(os.path.join(build.CSRC_DIR, header))

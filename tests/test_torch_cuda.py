@@ -102,6 +102,44 @@ def test_backward_kernel_sequence_lengths(cuda, n, dtype, atol):
             rtol=atol if dtype == torch.bfloat16 else 0, msg=name)
 
 
+@pytest.mark.parametrize("n", [1, 16, 17, 21, 32, 33, 64, 128])
+@pytest.mark.parametrize("dtype,atol", [(torch.float32, 2e-5),
+                                        (torch.bfloat16, 1e-2)])
+def test_forward_kernel_sequence_lengths(cuda, n, dtype, atol):
+    """N at and around the bf16 forward kernel's 16-row tiles (one to
+    eight warps a head), against the plain version on the float32
+    values."""
+    shape = (3, 2, n, 64)
+    q, k, v = _qkv(shape, dtype, cuda, seed=n)
+    with torch.no_grad():
+        got = flash_attention(q, k, v, 0.125)
+    torch.cuda.synchronize()
+    want = attention_reference(q.float(), k.float(), v.float(), 0.125)
+    assert got.dtype == dtype and got.shape == shape
+    torch.testing.assert_close(got.float(), want, atol=atol,
+                               rtol=atol if dtype == torch.bfloat16 else 0)
+
+
+def _unaligned(x):
+    """x's values in a [B,H,N,D] tensor whose rows start 6 bytes past
+    16-byte boundaries."""
+    flat = torch.zeros(x.numel() + 3, device=x.device, dtype=x.dtype)
+    odd = flat[3:].view(x.shape)
+    odd.copy_(x)
+    assert odd.data_ptr() % 16 != 0
+    return odd
+
+
+def test_forward_kernel_copies_unaligned_rows(cuda):
+    """bf16 rows that do not start on 16 bytes are copied before the
+    forward kernel's 16-byte loads; the result is the aligned operands'."""
+    q, k, v = _qkv((2, 2, 21, 64), torch.bfloat16, cuda)
+    with torch.no_grad():
+        got = flash_attention(_unaligned(q), k, _unaligned(v), 0.125)
+        want = flash_attention(q.contiguous(), k, v.contiguous(), 0.125)
+    assert torch.equal(got, want)
+
+
 def test_backward_kernel_copies_unaligned_rows(cuda):
     """bf16 rows that do not start on 16 bytes are copied before the
     kernel's 16-byte loads; the result is the aligned operands'."""
@@ -185,16 +223,6 @@ FAVOR_SHAPES += [(1, 4, 63, 128, 64), (1, 4, 64, 128, 64),
 FAVOR_RTOL, FAVOR_ATOL = 1e-4, 1e-5
 
 
-def _exact_stats(k, v, w):
-    """The stats' formula in float64, rounded to float32 once: the
-    reference of the bf16x3 stats kernel's chain, which is closer to it
-    than the float32 plain version is."""
-    k, v, w = k.double(), v.double(), w.double()
-    kp = torch.exp(k @ w.T - 0.5 * (k * k).sum(-1, keepdim=True))
-    kp = kp / w.shape[0] ** 0.5
-    return kp.sum(-2).float(), (kp.transpose(-1, -2) @ v).float()
-
-
 @pytest.mark.parametrize("shape", FAVOR_SHAPES)
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_favor_kernels_match_plain(cuda, shape, dtype):
@@ -206,44 +234,67 @@ def test_favor_kernels_match_plain(cuda, shape, dtype):
     torch.cuda.synchronize()
     assert (favor.favor_stats.launches, favor.favor_apply.launches) == (
         before[0] + 1, before[1] + 1)
-    # the plain versions on the float32 values of the same operands
+    # the stats against the plain version on the float32 values of the
+    # same operands
     wks, wkv = favor.favor_stats_reference(k.float(), v.float(), w)
     for got, want in ((ksum, wks), (kptv, wkv)):
         torch.testing.assert_close(
             got, want, rtol=FAVOR_RTOL,
             atol=FAVOR_ATOL * want.abs().max().item())
-    # the apply kernel on the kernel's stats against its plain version on
-    # the same stats; the chain against the plain apply of the stats at
-    # the kernel's precision: the float32 plain version's for float32
-    # operands (the same float32 arithmetic), the exact stats for the bf16
-    # tensor-core kernel (bf16x3, closer to them than float32 is)
+    # the apply on the kernel's stats, and the chain (plain stats, then
+    # plain apply), against the plain versions at the precision the
+    # kernels are held to: float32 for float32 operands (the same float32
+    # arithmetic), float64 for the bf16 tensor-core kernels (their bf16x3
+    # split products are closer to float64 than float32 is)
+    wide = torch.float32 if dtype == torch.float32 else torch.float64
+    qw, ww = q.to(wide), w.to(wide)
     assert y.shape == (b, h, t, e) and y.dtype == torch.float32
-    torch.testing.assert_close(
-        y, favor.favor_apply_reference(q.float(), ksum, kptv, w),
-        rtol=FAVOR_RTOL, atol=FAVOR_ATOL)
-    stats = (wks, wkv) if dtype == torch.float32 else _exact_stats(k, v, w)
-    want = favor.favor_apply_reference(q.float(), *stats, w)
-    torch.testing.assert_close(y, want, rtol=FAVOR_RTOL, atol=FAVOR_ATOL)
+    want = favor.favor_apply_reference(qw, ksum.to(wide), kptv.to(wide), ww)
+    torch.testing.assert_close(y, want.float(), rtol=FAVOR_RTOL,
+                               atol=FAVOR_ATOL)
+    chain = favor.favor_apply_reference(
+        qw, *favor.favor_stats_reference(k.to(wide), v.to(wide), ww), ww)
+    torch.testing.assert_close(y, chain.float(), rtol=FAVOR_RTOL,
+                               atol=FAVOR_ATOL)
     # no float atomics: a second run agrees bit for bit
     again = favor.favor_stats(k, v, w)
     assert torch.equal(again[1], kptv) and torch.equal(again[0], ksum)
     assert torch.equal(favor.favor_apply(q, ksum, kptv, w), y)
 
 
+@pytest.mark.parametrize("shape", [(1, 4, 300, 128, 64),
+                                   (2, 2, 100, 36, 16)])
+def test_favor_apply_unaligned_rows(cuda, shape):
+    """bf16 q rows that do not start on 16 bytes (and, at e = 36, rows of
+    e % 8 != 0) are staged by plain loads in place of cp.async: the same
+    result, bit for bit, as the aligned rows'."""
+    b, h, t, e, m = shape
+    q, k, v, w = _favor_operands(b, h, t, e, m, torch.bfloat16, cuda,
+                                 seed=4)
+    ksum, kptv = favor.favor_stats(k, v, w)
+    got = favor.favor_apply(_unaligned(q), ksum, kptv, w)
+    want = favor.favor_apply(q.contiguous(), ksum, kptv, w)
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("kernel", ["stats", "apply"])
 @pytest.mark.parametrize("shape", [(96, 4, 3137, 128, 64),
                                    (1, 4, 1281, 128, 64)])
-def test_favor_stats_bit_deterministic(cuda, shape):
-    """No float atomics and a fixed order of every sum: three runs of the
-    bf16 stats kernel, one T-tile (the training shape) and eleven, agree
-    bit for bit."""
+def test_favor_kernels_bit_deterministic(cuda, kernel, shape):
+    """No float atomics and a fixed order of every sum: three runs of a
+    bf16 kernel, at the training shape and at a T split into tiles,
+    agree bit for bit."""
     b, h, t, e, m = shape
-    _, k, v, w = _favor_operands(b, h, t, e, m, torch.bfloat16, cuda,
-                                 seed=7)
-    first = favor.favor_stats(k, v, w)
+    q, k, v, w = _favor_operands(b, h, t, e, m, torch.bfloat16, cuda,
+                                 seed=8)
+    stats = favor.favor_stats(k, v, w)
+    if kernel == "stats":
+        run = lambda: favor.favor_stats(k, v, w)  # noqa: E731
+    else:
+        run = lambda: (favor.favor_apply(q, *stats, w),)  # noqa: E731
+    first = run()
     for _ in range(2):
-        again = favor.favor_stats(k, v, w)
-        assert torch.equal(again[0], first[0])
-        assert torch.equal(again[1], first[1])
+        assert all(torch.equal(a, f) for a, f in zip(run(), first))
 
 
 def test_favor_autograd_and_no_plain_on_cuda(cuda, monkeypatch):

@@ -141,6 +141,27 @@ def test_kernel_references_match_pallas_kernels(rng, monkeypatch):
                                rtol=0, atol=0)
 
 
+def test_plain_versions_keep_float64(rng):
+    """The plain versions compute in float32 for float32 and bf16
+    operands and keep float64 ones in float64 (the precision the bf16
+    kernels are held to on the card), where they agree with the float32
+    results to float32's accuracy."""
+    q, k, v, w = _t(*_qkvw(rng, (2, 3, 40, 32), 16, scale=0.5))
+    ksum, kptv = tf.favor_stats_reference(k, v, w)
+    y = tf.favor_apply_reference(q, ksum, kptv, w)
+    assert ksum.dtype == kptv.dtype == y.dtype == torch.float32
+    half = tf.favor_apply_reference(q.bfloat16(), ksum, kptv, w)
+    assert half.dtype == torch.float32
+    ksum64, kptv64 = tf.favor_stats_reference(k.double(), v.double(),
+                                              w.double())
+    y64 = tf.favor_apply_reference(q.double(), ksum64, kptv64, w.double())
+    assert ksum64.dtype == kptv64.dtype == y64.dtype == torch.float64
+    torch.testing.assert_close(ksum64.float(), ksum, rtol=1e-5, atol=0)
+    torch.testing.assert_close(kptv64.float(), kptv, rtol=1e-5,
+                               atol=1e-6 * kptv.abs().max().item())
+    torch.testing.assert_close(y64.float(), y, rtol=1e-5, atol=1e-6)
+
+
 def _split3(x):
     """The bf16x3 split of the stats kernel: three bf16 values (as
     float32) whose sum is x, part i = bf16(x - parts before it)."""
@@ -204,6 +225,51 @@ def test_tensor_core_split_matches_pallas_stats(rng, monkeypatch):
     for got, want in ((ksum.numpy(), jksum[:, 0]), (kptv.numpy(), jkptv)):
         np.testing.assert_allclose(got, want, rtol=1e-4,
                                    atol=1e-5 * float(np.abs(want).max()))
+
+
+def _tensor_core_apply(q, ksum, kptv, w):
+    """The bf16 apply kernel's arithmetic on the CPU, for bf16-valued q
+    [BH, T, e], float32 stats and w: wq as the sum of the products with
+    w's three bf16 parts (smallest first), phi and D = phi . ksum in
+    float32, and phi kptv as the six products phi_i kptv_j of their
+    three bf16 parts with i + j <= 2, smallest first, over D."""
+    wq = sum(torch.einsum("bte,me->btm", q, part)
+             for part in reversed(_split3(w)))
+    xd = 0.5 * (q * q).sum(dim=-1, keepdim=True)
+    phi = torch.exp(wq - xd) / w.shape[0] ** 0.5
+    d = torch.einsum("btm,bm->bt", phi, ksum)[..., None]
+    pp, kp = _split3(phi), _split3(kptv)
+    y = sum(torch.einsum("btm,bme->bte", pp[i], kp[j])
+            for i, j in ((0, 2), (1, 1), (2, 0), (0, 1), (1, 0), (0, 0)))
+    return y / d
+
+
+def test_tensor_core_split_matches_pallas_apply(rng, monkeypatch):
+    """The bf16 apply's split arithmetic (w in three parts, phi and kptv
+    in three parts with six cross products) against the apply
+    pallas_call of _favor_impl (captured as it returns, on the Pallas
+    stats) at T = 1100 with bf16-valued q, at the card's tolerance: rtol
+    1e-4, atol 1e-5."""
+    calls = []
+    real = pf.pl.pallas_call
+
+    def spy(*args, **kwargs):
+        fn = real(*args, **kwargs)
+
+        def run(*operands):
+            calls.append(fn(*operands))
+            return calls[-1]
+        return run
+
+    monkeypatch.setattr(pf.pl, "pallas_call", spy)
+    bh, t, e, m = 2, 1100, 64, 32
+    q, k, v, w = _qkvw(rng, (bh, t, e), m, scale=0.5)
+    q = torch.from_numpy(q).bfloat16().float().numpy()
+    pf._favor_impl(*map(jnp.asarray, (q, k, v, w)))
+    (jksum, jkptv), jy = (tuple(np.array(a) for a in calls[0]),
+                          np.array(calls[1]))
+    got = _tensor_core_apply(*_t(q), *_t(jksum[:, 0], jkptv, w))
+    np.testing.assert_allclose(got.numpy(), jy[:, :t], rtol=1e-4, atol=1e-5)
 
 
 def test_gradients_match_jax_grad(rng):
@@ -295,6 +361,26 @@ def test_t_tiles_stats_kernel(bh, t, sms):
         assert n <= 2
 
 
+@pytest.mark.parametrize("bh,t,sms", [(384, 3137, 132), (256, 3137, 132),
+                                      (4, 3137, 132), (28, 3137, 132),
+                                      (1, 1, 132), (4, 257, 132),
+                                      (4, 1281, 132), (7, 1048, 8)])
+def test_t_tiles_apply_kernel(bh, t, sms):
+    """The bf16 apply kernel's tiling: whole 192-row rounds (three
+    warpgroups of 64 rows) per tile, no empty tile, at most MAX_TILES;
+    one block an SM, so a batch of at least one block per SM splits T at
+    most in two."""
+    chunk, per_sm = tf.apply_tiling(torch.bfloat16)
+    assert (chunk, per_sm) == (tf.TC_APPLY_CHUNK_ROWS,
+                               tf.TC_APPLY_BLOCKS_PER_SM)
+    n = tf.t_tiles(bh, t, sms, chunk, per_sm)
+    rows = -(-(-(-t // n)) // chunk) * chunk
+    assert 1 <= n <= tf.MAX_TILES and -(-t // rows) == n
+    assert (n - 1) * rows < t <= n * rows
+    if bh >= per_sm * sms:
+        assert n <= 2
+
+
 def test_stats_tiling_at_vip_shapes():
     assert tf.stats_tiling(torch.float32) == (tf.CHUNK_ROWS,
                                               tf.BLOCKS_PER_SM)
@@ -314,6 +400,17 @@ def test_ops_tiling_at_vip_shapes():
     assert tf.t_tiles(256, 3137, 132) == 1
     # serving bucket 1 (4 heads): T split so the 132 SMs have work
     assert tf.t_tiles(4, 3137, 132) * 4 >= 132
+    # the apply kernel float32 q launches takes these defaults; bf16 q
+    # launches the tensor-core kernel, one block of 192-row rounds an SM
+    assert tf.apply_tiling(torch.float32) == (tf.CHUNK_ROWS,
+                                              tf.BLOCKS_PER_SM)
+    ap = tf.apply_tiling(torch.bfloat16)
+    # train: 384 blocks, three waves; serving bucket 64: 256 blocks
+    assert tf.t_tiles(384, 3137, 132, *ap) == 1
+    assert tf.t_tiles(256, 3137, 132, *ap) == 1
+    # serving buckets 7 and 1: T split into tiles of two rounds
+    assert tf.t_tiles(28, 3137, 132, *ap) == 9
+    assert tf.t_tiles(4, 3137, 132, *ap) == 9
 
 
 def test_other_devices_raise():
