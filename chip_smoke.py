@@ -11,7 +11,11 @@ Phases, in order; any failure raises and exits non-zero:
   2. kernels  each kernel against its plain PyTorch version on the card
               at the serving and training paths' shapes: float32 (TF32
               off) at atol 2e-5, bfloat16 at atol = rtol = 1e-2 against
-              the plain version run in float32 on the same bf16 inputs;
+              the plain version run in float32 on the same bf16 inputs,
+              and within 2 bf16 ulps of it rounded to bf16 (P and dS
+              split into bf16 high and low parts; the forward's gap at
+              the training shape printed beside the 1.10e-2 of the
+              design that rounded P to bf16);
               flash_attention's autograd against autograd through the
               plain forward; then each kernel timed beside its plain
               version and the library call (SDPA forward, and SDPA
@@ -41,7 +45,21 @@ Phases, in order; any failure raises and exits non-zero:
               grad_accum 2 step; hand_net_final.pth served by
               HandPosePredictor; the eval step's PCK and MPJPE; then the
               training rate, p50 step time and a profile;
-  6. favor    the FAVOR+ stats and apply kernels against their plain
+  6. stb      an STB tree written under build/ (two training and two
+              evaluation sequences of 96 smooth 640x480 PNG frames and
+              their label pickles): which decoder serves (the native
+              library or PIL) and the loader's ms per batch of 96 by
+              stage; the canonical run at --stage 3 --synthetic_data
+              False for 2 epochs of 2 steps (3 + 3 attention launches a
+              step, finite losses, hand_net_final.pth), its rate, p50
+              step and device idle share through the loader beside the
+              synthetic task's; the Evaluator on STB_eval from that
+              checkpoint at bs 96 (3 launches a batch, finite MPJPE, AUC
+              and PCK, against the same batches on the plain attention
+              path: MPJPE within 1%, AUC within 1e-3 of its full scale)
+              and its crops/s; predict_from_frames on 7 frames against
+              frames_to_crops then predict;
+  7. favor    the FAVOR+ stats and apply kernels against their plain
               versions at --net ViP's shapes (BH 4, 28, 256, 384 at
               T = 3137, e = 128, m = 64; T at chunk and tile edges; e 64
               / m 32) at rtol 1e-4 (atol 1e-5, times the largest
@@ -59,7 +77,7 @@ Phases, in order; any failure raises and exits non-zero:
               call computes FAVOR+, so no library time), each kernel's
               bound both as its tensor-core design's (bytes, and the
               bf16x3 products) and as the float32-operation figure;
-  7. vip-serve  the --net ViP predictor at full width (224 px, 3137
+  8. vip-serve  the --net ViP predictor at full width (224 px, 3137
               tokens x 512, 4 heads, depth 3, m 64, iteration 3, bf16,
               --use_pallas_favor True, weights from seed 0) serves uint8
               requests of 1, 7, 64 and 150 crops: 3 stats + 3 apply
@@ -68,14 +86,17 @@ Phases, in order; any failure raises and exits non-zero:
               model with the plain float32 FAVOR+ substituted (2%); the
               end-to-end rate, p50 request latency at buckets 1 and 64
               and a profile;
-  8. vip-train  the Trainer on --net ViP (bs 96, lr 5e-4, weights 1e5 /
+  9. vip-train  the Trainer on --net ViP (bs 96, lr 5e-4, weights 1e5 /
               10, bf16, dropout 0.1) for 3 epochs of 8 steps: 3 + 3
               launches a step, a falling loss; one step's loss and
               gradient norm against the plain float32 FAVOR+; remat_blocks
               against none (6 + 6 launches, the same loss and
               gradients); hand_net_final.pth served; the training rate,
               p50 step time and a profile;
-  9. the card line, the kernels line, and the final
+  10. vip-eval  the Evaluator on vip-train's hand_net_final.pth
+              (synthetic batches): 3 + 3 FAVOR+ launches a batch and the
+              file's frozen mains.{i}.w;
+  11. the card line, the kernels line, and the final
      {"ok": true, "device": ...} line.
 
 TF32 is off for the whole run (torch.backends.cuda.matmul.allow_tf32 and
@@ -89,8 +110,10 @@ import dataclasses
 import http.client
 import json
 import os
+import pickle
 import subprocess
 import sys
+import tempfile
 import threading
 import time
 
@@ -99,20 +122,24 @@ import torch
 import torch.nn.functional as F
 
 from scat_tpu_torch.config import Options
+from scat_tpu_torch.data import native_loader, preprocess, stb
+from scat_tpu_torch.data.multi import ConcatDataset
+from scat_tpu_torch.data.prefetch import prefetch_to_device, to_device
+from scat_tpu_torch.evaluation.evaluator import Evaluator
 from scat_tpu_torch.kernels import build
 from scat_tpu_torch.models import performer
 from scat_tpu_torch.models.transformer import Attention
 from scat_tpu_torch.ops.attention import (attention_bwd,
                                           attention_bwd_reference,
-                                          attention_reference,
+                                          attention_reference, bf16_ulps,
                                           flash_attention)
 from scat_tpu_torch.ops.favor import (favor_apply, favor_apply_reference,
                                       favor_attention, favor_attention_fused,
                                       favor_stats, favor_stats_reference)
 from scat_tpu_torch.server import make_server
-from scat_tpu_torch.serving import HandPosePredictor
+from scat_tpu_torch.serving import HandPosePredictor, frames_to_crops
 from scat_tpu_torch.training import steps
-from scat_tpu_torch.training.trainer import Trainer
+from scat_tpu_torch.training.trainer import Trainer, make_dataset
 from scat_tpu_torch.utils import checkpoint
 
 # NVIDIA H100 SXM data sheet, dense rates
@@ -130,11 +157,24 @@ TRAIN = dataclasses.replace(
     pos_embed=True, mask_rate=0.2, synthetic_data=True, debug=False,
     epoch=3, steps_per_epoch=8, log_every=1,
     checkpoint_folder=os.path.join("build", "chip_smoke_train"))
+# the canonical run on an STB tree that the stb phase writes:
+# --stage 3 --synthetic_data False, 2 epochs of 2 steps
+STB_TRAIN = dataclasses.replace(
+    TRAIN, synthetic_data=False, stage=3, epoch=2,
+    checkpoint_folder=os.path.join("build", "chip_smoke_stb"))
+STB_TRAIN_SEQS = ("B2Counting", "B2Random")
+STB_EVAL_SEQS = ("B1Counting", "B1Random")
+STB_FRAMES = 96   # frames a sequence
 IMAGE = 224
 HEADS, TOKENS, HEAD_DIM = 8, 21, 64
 TRAIN_BATCH = 96
 SCALE = HEAD_DIM ** -0.5
 REQUESTS = (1, 7, 64, 150)
+# the bf16 attention kernels against the float32 plain version rounded to
+# bf16 (ops/attention.bf16_ulps), and the forward's gap at the training
+# shape when P was rounded to bf16 (an H100 80GB HBM3 at 700 W, PERF.md)
+ULPS = 2
+ROUNDED_P_FWD_GAP = 1.10e-2
 WINDOW_REQUESTS, WINDOW_CROPS = 6, 640
 # Bounds between two runs of the whole predictor that differ only in
 # rounding: the kernel vs the plain attention path, and a float32 request
@@ -342,12 +382,26 @@ def phase_kernels():
                 assert a.dtype == dtype, (name, a.dtype)
                 torch.testing.assert_close(a.float(), b, atol=tol,
                                            rtol=rtol, msg=name)
+            ulps = ""
+            if dtype == torch.bfloat16:
+                # P (and dS) split into bf16 high and low parts: within 2
+                # bf16 ulps of the float32 plain version rounded to bf16
+                u = [bf16_ulps(a, b).max().item()
+                     for a, b in zip((got, *dgot), (want, *dwant))]
+                assert max(u) <= ULPS, u
+                ulps = (f"; bf16 ulps from the float32 plain version "
+                        f"(o, dq, dk, dv) {', '.join(f'{x:g}' for x in u)} "
+                        f"(bound {ULPS})")
             print(f"[kernels] {list(shape)} {str(dtype)[6:]}: attention_fwd "
                   f"max_abs_err {err:.3e}, attention_bwd max_abs_err "
-                  f"{derr:.3e} (tol {tol})")
+                  f"{derr:.3e} (tol {tol}){ulps}")
             if shape == train_shape and dtype == torch.bfloat16:
                 FWD.result["max_abs_err"] = err
                 BWD.result["max_abs_err"] = derr
+                print(f"[kernels] bf16 attention_fwd gap to the plain path at "
+                      f"the training shape {err:.3e} (P rounded to bf16: "
+                      f"{ROUNDED_P_FWD_GAP:.2e})")
+                assert err < ROUNDED_P_FWD_GAP, err
 
     # the autograd.Function against autograd through the plain version,
     # float32, on the strided views the model passes
@@ -545,7 +599,8 @@ def device_profile(tag, fn, what):
     """torch.profiler over ``fn()`` (which ends in a synchronize): wall
     time, the device's busy and idle share of it, each hand-written
     kernel's share of device time, and the top device operations (one
-    stream, so kernel times add up).  Returns the busy time in ms."""
+    stream, so kernel times add up).  Returns the busy time in ms and its
+    share of the wall time in percent."""
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
@@ -584,7 +639,7 @@ def device_profile(tag, fn, what):
         print(f"[{tag}]   {e.self_device_time_total / 1e3:9.3f} ms "
               f"{100 * e.self_device_time_total / busy:5.1f}% "
               f"x{e.count:<5d} {key[:120]}")
-    return busy / 1e3
+    return busy / 1e3, busy_pct
 
 
 def phase_profile(pred, rng):
@@ -740,8 +795,9 @@ def phase_train(rng):
         step(state, batches[i % 2])
         torch.cuda.synchronize()
         times.append(time.perf_counter() - t1)
+    rate = window * TRAIN.batch_size / dt
     print(f"[train] rate: {window} steps of {TRAIN.batch_size} crops in "
-          f"{dt * 1e3:.1f} ms: {window * TRAIN.batch_size / dt:.1f} crops/s; "
+          f"{dt * 1e3:.1f} ms: {rate:.1f} crops/s; "
           f"p50 step time {np.median(times) * 1e3:.3f} ms (10 steps, each "
           f"synchronised); card {card_line()}")
 
@@ -750,13 +806,219 @@ def phase_train(rng):
             step(state, batches[i % 2])
         torch.cuda.synchronize()
 
-    busy = device_profile("train", three_steps, f"3 train steps of "
+    busy, _ = device_profile("train", three_steps, f"3 train steps of "
                           f"{TRAIN.batch_size} crops")
     # the profiler slows the host; against the unprofiled p50 step time
     p50 = float(np.median(times)) * 1e3
+    idle = 100 * (1 - busy / 3 / p50)
     print(f"[train] device busy {busy / 3:.3f} ms per step against the "
           f"p50 step time {p50:.3f} ms: device idle "
-          f"{100 * (1 - busy / 3 / p50):.1f}% of an unprofiled step")
+          f"{idle:.1f}% of an unprofiled step")
+    return {"rate": rate, "p50": p50, "idle": idle}
+
+
+def write_stb_tree(root, rng):
+    """An STB tree under ``root`` as the loader reads it (no STB file is
+    in the repository): the two training and the two evaluation
+    sequences of STB_FRAMES 640x480 frames, smooth images (as
+    tests/test_native.py makes them: fast to encode and decode), and
+    label pickles {"handPara": [3,21,N]} of hands 500-600 mm in front of
+    the camera, in mm."""
+    from PIL import Image
+    y, x = np.mgrid[0:stb.FRAME_H, 0:stb.FRAME_W]
+    os.makedirs(os.path.join(root, "labels"))
+    for s, seq in enumerate(STB_TRAIN_SEQS + STB_EVAL_SEQS):
+        os.makedirs(os.path.join(root, seq))
+        hand = (rng.rand(3, 21, STB_FRAMES) * 100
+                + np.array([0.0, 0.0, 500.0])[:, None, None])
+        with open(os.path.join(root, "labels", f"{seq}_SK.pkl"), "wb") as f:
+            pickle.dump({"handPara": hand}, f)
+        for i in range(STB_FRAMES):
+            k = s * STB_FRAMES + i
+            img = np.stack([(x * 3 + k) % 256, (y * 5 + 7 * k) % 256,
+                            (x + y + 3 * k) % 256], -1).astype(np.uint8)
+            Image.fromarray(img).save(
+                os.path.join(root, seq, f"SK_color_{i}.png"), compress_level=1)
+
+
+def loader_stages_ms(ds):
+    """The loader's cost of one batch of 96, by stage (median of 3): the
+    PIL decode and the label math on the host, the upload and the warp on
+    the card, and the whole batch as the dataset makes it; the native
+    library's batch is one host call."""
+    idxs = np.arange(TRAIN_BATCH)
+    rows = {}
+    for _ in range(3):
+        t = [time.perf_counter()]
+        if ds.use_native:
+            ds._native_batch(idxs, np.random.RandomState(0))
+            torch.cuda.synchronize()
+            t.append(time.perf_counter())
+            rows.setdefault("native batch", []).append(t[1] - t[0])
+            continue
+        frames = np.stack([ds._load_image(ds.image_paths[i]) for i in idxs])
+        t.append(time.perf_counter())
+        _, j2d = ds._labels(idxs)
+        t.append(time.perf_counter())
+        crops, _ = preprocess.fused_crop_pipeline(
+            to_device(frames, ds.device), to_device(j2d, ds.device))
+        torch.cuda.synchronize()
+        t.append(time.perf_counter())
+        ds._pil_batch(idxs, np.random.RandomState(0))
+        torch.cuda.synchronize()
+        t.append(time.perf_counter())
+        for name, a, b in (("PIL decode (host)", 0, 1),
+                           ("labels (host)", 1, 2),
+                           ("upload and warp (card)", 2, 3),
+                           ("whole batch", 3, 4)):
+            rows.setdefault(name, []).append(t[b] - t[a])
+    return {k: 1e3 * float(np.median(v)) for k, v in rows.items()}
+
+
+def phase_stb(rng, synth):
+    """The canonical run on an STB tree (--stage 3 --synthetic_data
+    False), the Evaluator on its checkpoint, and serving from frames."""
+    card = card_line()
+    os.makedirs("build", exist_ok=True)
+    with tempfile.TemporaryDirectory(prefix="stb_tree_", dir="build") as root:
+        t0 = time.perf_counter()
+        write_stb_tree(root, rng)
+        print(f"[stb] wrote {4 * STB_FRAMES} 640x480 PNG frames and 4 label "
+              f"pickles in {time.perf_counter() - t0:.1f} s")
+        opt = dataclasses.replace(STB_TRAIN, data_dir=root)
+        decoder = ("native library (native/scat_native.cpp)"
+                   if native_loader.available() else "PIL")
+        print(f"[stb] decoder serving: {decoder}; card {card}")
+        ds = stb.get_loader_STB_eval(opt)
+        stages = loader_stages_ms(ds)
+        print(f"[stb] loader ms per batch of {TRAIN_BATCH} (median of 3): "
+              + ", ".join(f"{k} {v:.3f}" for k, v in stages.items())
+              + f"; card {card}")
+
+        # the canonical run on STB: 2 epochs of 2 steps
+        t0 = time.perf_counter()
+        trainer = Trainer(opt, image_size=IMAGE)
+        loader = trainer.train_loader
+        assert isinstance(loader, ConcatDataset) and len(loader) == 2, loader
+        print(f"[stb] trainer built in {time.perf_counter() - t0:.1f} s "
+              f"(--stage 3 --synthetic_data False, {len(loader)} steps an "
+              f"epoch)")
+        log = os.path.join(opt.checkpoint_folder, "metrics.csv")
+        if os.path.exists(log):
+            os.remove(log)
+        n_steps = opt.epoch * len(loader)
+        reset_counts()
+        t0 = time.perf_counter()
+        trainer.train()
+        fwd, bwd = flash_attention.launches, attention_bwd.launches
+        print(f"[stb] {opt.epoch} epochs x {len(loader)} steps in "
+              f"{time.perf_counter() - t0:.1f} s; attention_fwd launches "
+              f"{fwd}, attention_bwd launches {bwd}")
+        assert fwd == 3 * n_steps and bwd == 3 * n_steps, (fwd, bwd, n_steps)
+        FWD.result["launches"] += fwd
+        BWD.result["launches"] += bwd
+        with open(log) as f:
+            losses = [float(r["loss"]) for r in csv.DictReader(f)]
+        assert len(losses) == n_steps and np.isfinite(losses).all(), losses
+        path = os.path.join(opt.checkpoint_folder, checkpoint.FINAL_NAME)
+        assert os.path.exists(path), path
+        print(f"[stb] losses {', '.join(f'{x:.1f}' for x in losses)}; {path}")
+
+        # the rate through the loader, as Trainer.train feeds the step: a
+        # window of 3 epochs; then each step synchronised (the time from
+        # one step's end to the next one's, the loader's wait included)
+        state, step = trainer.state, trainer.train_step
+
+        def epochs(k, sync):
+            ends = []
+            for _ in range(k):
+                for batches in prefetch_to_device(loader, trainer.device):
+                    for batch in batches:
+                        step(state, batch)
+                        if sync:
+                            torch.cuda.synchronize()
+                            ends.append(time.perf_counter())
+            torch.cuda.synchronize()
+            return ends
+
+        epochs(1, False)
+        t0 = time.perf_counter()
+        epochs(3, False)
+        dt = time.perf_counter() - t0
+        rate = 3 * len(loader) * TRAIN_BATCH / dt
+        t0 = time.perf_counter()
+        ends = epochs(3, True)
+        p50 = 1e3 * float(np.median(np.diff([t0] + ends)))
+        _, busy_pct = device_profile(
+            "stb", lambda: epochs(1, False),
+            f"1 epoch of {len(loader)} steps through the STB loader")
+        print(f"[stb] STB training: {rate:.1f} crops/s ({3 * len(loader)} "
+              f"steps of {TRAIN_BATCH}), p50 step {p50:.3f} ms, device idle "
+              f"{100 - busy_pct:.1f}% of a profiled epoch; the synthetic "
+              f"task's {synth['rate']:.1f} crops/s, p50 step "
+              f"{synth['p50']:.3f} ms, device idle {synth['idle']:.1f}%; card "
+              f"{card}")
+
+        # the Evaluator on the checkpoint, STB_eval at bs 96
+        ev_opt = dataclasses.replace(
+            opt, checkpoint_path_eval=path, eval_dataset="STB",
+            result_dir=os.path.join("build", "chip_smoke_eval"))
+        ev = Evaluator(ev_opt, image_size=IMAGE)
+        reset_counts()
+        t0 = time.perf_counter()
+        result = ev.eval()
+        dt = time.perf_counter() - t0
+        fwd = flash_attention.launches
+        n_batches = len(STB_EVAL_SEQS) * STB_FRAMES // TRAIN_BATCH
+        print(f"[stb] Evaluator on STB_eval ({n_batches} batches of "
+              f"{TRAIN_BATCH}) in {dt * 1e3:.1f} ms: "
+              f"{n_batches * TRAIN_BATCH / dt:.1f} crops/s (loader "
+              f"included); attention_fwd launches {fwd}; card {card}")
+        assert fwd == 3 * n_batches and attention_bwd.launches == 0, fwd
+        FWD.result["launches"] += fwd
+        assert np.isfinite(result["mpjpe_mm"]) and np.isfinite(result["auc"])
+        assert np.isfinite(result["pck"]).all()
+        assert ((result["pck"] >= 0) & (result["pck"] <= 100)).all()
+        # the same batches through make_eval_step on the plain attention
+        # path
+        batches = list(make_dataset(ev_opt, IMAGE, training=False))
+        before = flash_attention.launches
+        plain = Evaluator(dataclasses.replace(
+            ev_opt, use_pallas_attention=False, result_dir=os.path.join(
+                "build", "chip_smoke_eval_plain")), image_size=IMAGE,
+            dataset=batches).eval()
+        assert flash_attention.launches == before, "plain path launched"
+        d_auc = abs(result["auc"] - plain["auc"]) / 100
+        d_mpjpe = abs(result["mpjpe_mm"] - plain["mpjpe_mm"]) / plain[
+            "mpjpe_mm"]
+        print(f"[stb] kernel vs plain attention path, the same batches: "
+              f"MPJPE {result['mpjpe_mm']:.4f} vs {plain['mpjpe_mm']:.4f} mm "
+              f"(relative {d_mpjpe:.2e}, bound 1e-2), AUC {result['auc']:.4f} "
+              f"vs {plain['auc']:.4f} (percent; difference {d_auc:.2e} of the "
+              f"full scale, bound 1e-3), PCK@50 {result['pck'][-1, -1]:.3f}")
+        assert d_mpjpe <= 1e-2 and d_auc <= 1e-3, (d_mpjpe, d_auc)
+
+        # serving from whole frames with rough 2D joints
+        pred = HandPosePredictor.from_checkpoint(
+            dataclasses.replace(opt, checkpoint_path_eval=path),
+            image_size=IMAGE)
+        idxs = np.arange(7)
+        frames = np.stack([ds._load_image(ds.image_paths[i]) for i in idxs])
+        hints = np.stack([ds.sample_labels(i)[1] for i in idxs])
+        reset_counts()
+        got = pred.predict_from_frames(frames, hints)
+        fwd = flash_attention.launches
+        FWD.result["launches"] += fwd
+        assert fwd == 3, fwd
+        crops, M = frames_to_crops(frames, hints, IMAGE)
+        want = pred.predict(crops)
+        for k in want:
+            np.testing.assert_array_equal(got[k], want[k], err_msg=k)
+        np.testing.assert_array_equal(got["crop_affine"], M)
+        check_output(want, 7)
+        assert crops.shape == (7, IMAGE, IMAGE, 3) and M.shape == (7, 2, 3)
+        print(f"[stb] predict_from_frames on 7 640x480 frames equals "
+              f"frames_to_crops then predict; attention_fwd launches {fwd}")
 
 
 def favor_operands(b, h, t, e, m, dtype, seed):
@@ -1200,11 +1462,47 @@ def phase_vip_train(rng):
             step(state, batches[i % 2])
         torch.cuda.synchronize()
 
-    busy = device_profile("vip-train", three_steps, f"3 train steps of "
-                          f"{VIP_TRAIN.batch_size} crops")
+    busy, _ = device_profile("vip-train", three_steps, f"3 train steps of "
+                             f"{VIP_TRAIN.batch_size} crops")
     print(f"[vip-train] device busy {busy / 3:.3f} ms per step against the "
           f"p50 step time {p50:.3f} ms: device idle "
           f"{100 * (1 - busy / 3 / p50):.1f}% of an unprofiled step")
+    return model, path
+
+
+def phase_vip_eval(model, path):
+    """The Evaluator on vip-train's hand_net_final.pth, synthetic batches:
+    the FAVOR+ kernels 3 + 3 times a batch, and the file's frozen
+    projections mains.{i}.w (the options' seed differs from training's,
+    so a fresh draw would not be the trained model's)."""
+    opt = dataclasses.replace(
+        VIP_TRAIN, checkpoint_path_eval=path, synthetic_data=True,
+        steps_per_epoch=2, seed=1,
+        result_dir=os.path.join("build", "chip_smoke_vip_eval"))
+    ev = Evaluator(opt, image_size=IMAGE)
+    reset_counts()
+    t0 = time.perf_counter()
+    result = ev.eval()
+    dt = time.perf_counter() - t0
+    st, ap = favor_stats.launches, favor_apply.launches
+    print(f"[vip-eval] Evaluator on {path}, 2 synthetic batches of "
+          f"{opt.batch_size} in {dt * 1e3:.1f} ms: "
+          f"{2 * opt.batch_size / dt:.1f} crops/s; favor_stats launches "
+          f"{st}, favor_apply launches {ap}; MPJPE "
+          f"{result['mpjpe_mm']:.3f} mm, AUC {result['auc']:.4f}")
+    assert st == 3 * 2 and ap == 3 * 2, (st, ap)
+    assert flash_attention.launches == 0 and attention_bwd.launches == 0
+    STATS.result["launches"] += st
+    APPLY.result["launches"] += ap
+    assert np.isfinite(result["mpjpe_mm"]) and np.isfinite(result["auc"])
+    fresh = performer.ViP(mean_params=model.mean_params.cpu(),
+                          image_pix=IMAGE, iteration=3)
+    checkpoint.init_weights(fresh, seed=opt.seed)
+    for i, (mine, trained) in enumerate(zip(ev.model.mains, model.mains)):
+        assert torch.equal(mine.w, trained.w), i
+        assert not torch.equal(mine.w.cpu(), fresh.mains[i].w), i
+    print("[vip-eval] the loaded mains.{i}.w equal the trained model's (a "
+          "fresh draw of the options' seed does not)")
 
 
 def _post(port, arr):
@@ -1278,11 +1576,15 @@ def main():
     print(f"[serve] done in {time.perf_counter() - t0:.1f} s")
     del pred, crops
     t0 = time.perf_counter()
-    phase_train(rng)
+    synth = phase_train(rng)
     print(f"[train] done in {time.perf_counter() - t0:.1f} s")
-    for name, fn in (("favor", phase_favor_kernels),
+    vip = {}
+    for name, fn in (("stb", lambda: phase_stb(rng, synth)),
+                     ("favor", phase_favor_kernels),
                      ("vip-serve", lambda: phase_vip_serve(rng)),
-                     ("vip-train", lambda: phase_vip_train(rng))):
+                     ("vip-train",
+                      lambda: vip.update(trained=phase_vip_train(rng))),
+                     ("vip-eval", lambda: phase_vip_eval(*vip["trained"]))):
         torch.cuda.empty_cache()
         t0 = time.perf_counter()
         fn()

@@ -23,8 +23,8 @@
 //   * one block per (batch, head) of NT = ceil(N/16) warps (2 at N = 21, 8
 //     at N = 128): warp w owns query rows 16w..16w+15 in phase 1 and key
 //     rows 16w..16w+15 in phase 2, so every warp does tensor-core work and
-//     the 768 heads of the training batch (28 KB of shared memory each at
-//     N = 21) are resident in one wave;
+//     the 768 heads of the training batch (33 KB of shared memory each at
+//     N = 21, six blocks an SM) are resident in one wave;
 //   * Q, K, V and dO rows are copied into shared memory as bf16 in 16-byte
 //     cp.async copies, all issued before any math; rows past N are zero.
 //     Rows are padded by 16 bytes (144 B) so that the eight row addresses
@@ -32,17 +32,24 @@
 //   * phase 1 (warp: 16 query rows against all keys): S and dP by
 //     mma.sync.m16n8k16 (bf16 in, f32 accumulate); keys >= N masked to
 //     -inf as the TPU kernel does; row max, row sum, delta and dS in the
-//     accumulator registers with quad shuffles.  P and dS are rounded to
-//     bf16 once and written to shared memory ([NP][NP] each, NP = 16 NT);
-//     dQ = dS K takes dS straight from the registers as A fragments;
+//     accumulator registers with quad shuffles.  P and dS are each split
+//     into a bf16 high part and a bf16 low part, lo = bf16(x - float(hi))
+//     (mma.cuh split_bf16), and the four are written to shared memory
+//     ([NP][NP] each, NP = 16 NT); dQ = dS K takes dS's two parts straight
+//     from the registers as A fragments;
 //   * phase 2 (warp: 16 keys): dV = P^T dO and dK = dS^T Q, the
-//     transposes by ldmatrix.trans.  P and dS in bf16 fit beside the
-//     operands (143 KB at N = 128), so there is no recompute pass;
+//     transposes by ldmatrix.trans.  The four bf16 tiles fit beside the
+//     operands (226 KB of the 227 KB a block may have at N = 128, 33 KB at
+//     N = 21), so there is no recompute pass;
 //   * each output tile goes through a per-warp staging tile in shared
 //     memory and leaves in 16-byte stores through the output strides.
-// The bf16 rounding of P and dS before the second products is what a bf16
-// tensor-core backward does; the bf16 tolerance (atol = rtol = 1e-2
-// against the float32 plain version) covers it.
+// The Pallas backward keeps P and dS in float32 (pallas_attention.py:74-83).
+// Q, K, dO are bf16 inputs, so they are exact, and hi + lo carries P and dS
+// to about 2^-17 of their values: each of dV, dQ and dK runs the high
+// and the low part's products into the same float32 accumulator, the
+// Pallas kernel's float32 products at the cost of one more mma.sync per
+// split operand.  The bf16 results are held against the float32 plain
+// version rounded to bf16, within 2 bf16 ulps.
 //
 // The float32 instantiation keeps the CUDA-core design of the first port:
 // float32 is the parity type (atol 2e-5 against the plain version), which
@@ -247,16 +254,18 @@ attention_bwd_f32_kernel(const float* __restrict__ q,
 // bfloat16: tensor cores
 
 // the bf16 kernel with NT 16-row tiles: the shared row stride of P and
-// dS, and its shared memory (Q, K, V, dO [NP][kRowS]; P, dS [NP][kPS];
-// per-warp staging [16][kRowS])
+// dS, and its shared memory (Q, K, V, dO [NP][kRowS]; the high and low
+// parts of P and dS [NP][kPS]; per-warp staging [16][kRowS])
 template <int NT>
 struct BwdTiles : Tiles<NT> {
   static constexpr int kPS = 16 * NT + 8;
   static constexpr size_t kSmem =
       4 * Tiles<NT>::kOperandBytes +
-      sizeof(bf16) * size_t(2) * Tiles<NT>::kNP * kPS +
+      sizeof(bf16) * size_t(4) * Tiles<NT>::kNP * kPS +
       Tiles<NT>::kStageBytes;
 };
+static_assert(BwdTiles<8>::kSmem <= 232448,
+              "the N = 128 backward must fit a block's 227 KB");
 
 template <int NT>
 __global__ void __launch_bounds__(Tiles<NT>::kThreads)
@@ -278,9 +287,11 @@ attention_bwd_bf16_kernel(const bf16* __restrict__ q,
   bf16* sK = sQ + NP * kRowS;
   bf16* sV = sK + NP * kRowS;
   bf16* sDO = sV + NP * kRowS;
-  bf16* sP = sDO + NP * kRowS;
-  bf16* sDS = sP + NP * PS;
-  bf16* sOut = sDS + NP * PS;
+  bf16* sP = sDO + NP * kRowS;  // high parts
+  bf16* sPl = sP + NP * PS;     // low parts
+  bf16* sDS = sPl + NP * PS;
+  bf16* sDSl = sDS + NP * PS;
+  bf16* sOut = sDSl + NP * PS;
 
   const long long b = blockIdx.x / heads;
   const long long h = blockIdx.x % heads;
@@ -369,24 +380,32 @@ attention_bwd_bf16_kernel(const bf16* __restrict__ q,
 #pragma unroll
     for (int off = 1; off < 4; off <<= 1)
       delta[i] += __shfl_xor_sync(0xffffffffu, delta[i], off);
+  // dS, and the high and low parts of P and dS into shared memory; dS's
+  // parts of key tile c stay in registers for dQ
+  uint32_t dsh[NC][2], dsl[NC][2];
 #pragma unroll
   for (int c = 0; c < NC; ++c) {
 #pragma unroll
     for (int e = 0; e < 4; ++e)
       dp[c][e] = s[c][e] * (dp[c][e] - delta[e >> 1]);  // ds_ij
     const int col = 8 * c + 2 * t;
-    *reinterpret_cast<uint32_t*>(sP + (row0 + g) * PS + col) =
-        pack_bf16(s[c][0], s[c][1]);
-    *reinterpret_cast<uint32_t*>(sP + (row0 + g + 8) * PS + col) =
-        pack_bf16(s[c][2], s[c][3]);
-    *reinterpret_cast<uint32_t*>(sDS + (row0 + g) * PS + col) =
-        pack_bf16(dp[c][0], dp[c][1]);
-    *reinterpret_cast<uint32_t*>(sDS + (row0 + g + 8) * PS + col) =
-        pack_bf16(dp[c][2], dp[c][3]);
+    uint32_t ph[2], pl[2];
+    split_bf16(s[c][0], s[c][1], ph[0], pl[0]);
+    split_bf16(s[c][2], s[c][3], ph[1], pl[1]);
+    split_bf16(dp[c][0], dp[c][1], dsh[c][0], dsl[c][0]);
+    split_bf16(dp[c][2], dp[c][3], dsh[c][1], dsl[c][1]);
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int at = (row0 + g + 8 * i) * PS + col;
+      *reinterpret_cast<uint32_t*>(sP + at) = ph[i];
+      *reinterpret_cast<uint32_t*>(sPl + at) = pl[i];
+      *reinterpret_cast<uint32_t*>(sDS + at) = dsh[c][i];
+      *reinterpret_cast<uint32_t*>(sDSl + at) = dsl[c][i];
+    }
   }
 
-  // dQ = dS K: the accumulators of key tiles 2kk, 2kk+1 are the A
-  // fragment of k-step kk
+  // dQ = dS K: the parts of key tiles 2kk, 2kk+1 are the two A fragments
+  // of k-step kk
   {
     float acc[DT][4];
 #pragma unroll
@@ -395,16 +414,18 @@ attention_bwd_bf16_kernel(const bf16* __restrict__ q,
       for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
 #pragma unroll
     for (int kk = 0; kk < NT; ++kk) {
-      const uint32_t a[4] = {pack_bf16(dp[2 * kk][0], dp[2 * kk][1]),
-                             pack_bf16(dp[2 * kk][2], dp[2 * kk][3]),
-                             pack_bf16(dp[2 * kk + 1][0], dp[2 * kk + 1][1]),
-                             pack_bf16(dp[2 * kk + 1][2], dp[2 * kk + 1][3])};
+      const uint32_t hi[4] = {dsh[2 * kk][0], dsh[2 * kk][1],
+                              dsh[2 * kk + 1][0], dsh[2 * kk + 1][1]};
+      const uint32_t lo[4] = {dsl[2 * kk][0], dsl[2 * kk][1],
+                              dsl[2 * kk + 1][0], dsl[2 * kk + 1][1]};
 #pragma unroll
       for (int np = 0; np < DT / 2; ++np) {
         uint32_t kb[4];
         ldsm_x4_trans(kb, sK + (16 * kk + lkn.x) * kRowS + 16 * np + lkn.y);
-        mma_bf16(acc[2 * np], a, kb[0], kb[1]);
-        mma_bf16(acc[2 * np + 1], a, kb[2], kb[3]);
+        mma_bf16(acc[2 * np], hi, kb[0], kb[1]);
+        mma_bf16(acc[2 * np], lo, kb[0], kb[1]);
+        mma_bf16(acc[2 * np + 1], hi, kb[2], kb[3]);
+        mma_bf16(acc[2 * np + 1], lo, kb[2], kb[3]);
       }
     }
     store_rows(acc, scale, stage, dq + b * sdq.b + h * sdq.h, sdq.n, row0, n,
@@ -412,7 +433,8 @@ attention_bwd_bf16_kernel(const bf16* __restrict__ q,
   }
   __syncthreads();  // every warp's P and dS rows are in shared memory
 
-  // phase 2: keys row0..row0+15; dV = P^T dO, dK = dS^T Q over all rows
+  // phase 2: keys row0..row0+15; dV = P^T dO, dK = dS^T Q over all rows,
+  // each from the high and the low part
   float av[DT][4], ak[DT][4];
 #pragma unroll
   for (int j = 0; j < DT; ++j)
@@ -420,18 +442,25 @@ attention_bwd_bf16_kernel(const bf16* __restrict__ q,
     for (int e = 0; e < 4; ++e) av[j][e] = ak[j][e] = 0.f;
 #pragma unroll
   for (int kk = 0; kk < NT; ++kk) {
-    uint32_t pa[4], sa[4];
-    ldsm_x4_trans(pa, sP + (16 * kk + lkm.x) * PS + row0 + lkm.y);
-    ldsm_x4_trans(sa, sDS + (16 * kk + lkm.x) * PS + row0 + lkm.y);
+    const int at = (16 * kk + lkm.x) * PS + row0 + lkm.y;
+    uint32_t pa[4], pl[4], sa[4], sl[4];
+    ldsm_x4_trans(pa, sP + at);
+    ldsm_x4_trans(pl, sPl + at);
+    ldsm_x4_trans(sa, sDS + at);
+    ldsm_x4_trans(sl, sDSl + at);
 #pragma unroll
     for (int np = 0; np < DT / 2; ++np) {
       uint32_t ob[4], qb[4];
       ldsm_x4_trans(ob, sDO + (16 * kk + lkn.x) * kRowS + 16 * np + lkn.y);
       ldsm_x4_trans(qb, sQ + (16 * kk + lkn.x) * kRowS + 16 * np + lkn.y);
       mma_bf16(av[2 * np], pa, ob[0], ob[1]);
+      mma_bf16(av[2 * np], pl, ob[0], ob[1]);
       mma_bf16(av[2 * np + 1], pa, ob[2], ob[3]);
+      mma_bf16(av[2 * np + 1], pl, ob[2], ob[3]);
       mma_bf16(ak[2 * np], sa, qb[0], qb[1]);
+      mma_bf16(ak[2 * np], sl, qb[0], qb[1]);
       mma_bf16(ak[2 * np + 1], sa, qb[2], qb[3]);
+      mma_bf16(ak[2 * np + 1], sl, qb[2], qb[3]);
     }
   }
   store_rows(av, 1.f, stage, dv + b * sdv.b + h * sdv.h, sdv.n, row0, n,

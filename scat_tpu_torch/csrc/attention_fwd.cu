@@ -31,15 +31,19 @@
 //   * S = Q K^T by mma.sync.m16n8k16 (bf16 in, f32 accumulate); keys >= N
 //     masked to -inf as the TPU kernel masks its padding; row max and row
 //     sum in the accumulator registers with quad shuffles;
-//   * P is normalised in float32 and rounded to bf16 once: the accumulator
-//     tiles of keys 16kk..16kk+15 are the A fragment of k-step kk of
-//     O = P V, so P never leaves the registers; V's B fragments by
+//   * P is normalised in float32 and split into a bf16 high part and a
+//     bf16 low part, lo = bf16(p - float(hi)) (mma.cuh split_bf16): the
+//     accumulator tiles of keys 16kk..16kk+15 are the two A fragments of
+//     k-step kk of O = P V, so P never leaves the registers; both products
+//     go into the same float32 accumulator; V's B fragments by
 //     ldmatrix.trans;
 //   * O goes through a per-warp staging tile and leaves in 16-byte stores
 //     (attention.cuh store_rows).
-// Rounding P to bf16 before P V is what a bf16 tensor-core forward does;
-// the Pallas kernel keeps P in float32.  The bf16 tolerance (atol = rtol =
-// 1e-2 against the float32 plain version) covers it.
+// The Pallas kernel keeps P in float32 (pallas_attention.py:57-59).  V is a
+// bf16 input, so it is exact, and hi + lo carries P to about 2^-17 of its
+// value: the two products do the Pallas kernel's float32 P V at the cost
+// of one more mma.sync a k-step.  The bf16 result is held against the
+// float32 plain version rounded to bf16, within 2 bf16 ulps.
 //
 // The float32 instantiation keeps the CUDA-core design: float32 is the
 // parity type (atol 2e-5 against the plain version), which a bf16
@@ -258,8 +262,8 @@ attention_fwd_bf16_kernel(const bf16* __restrict__ q,
     inv[i] = 1.f / sum[i];
   }
 
-  // O = P V: P's accumulator tiles 2kk, 2kk+1, normalised and rounded to
-  // bf16, are the A fragment of k-step kk
+  // O = P V: P's accumulator tiles 2kk, 2kk+1, normalised and split into
+  // bf16 high and low parts, are the two A fragments of k-step kk
   float acc[DT][4];
 #pragma unroll
   for (int j = 0; j < DT; ++j)
@@ -267,17 +271,21 @@ attention_fwd_bf16_kernel(const bf16* __restrict__ q,
     for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
 #pragma unroll
   for (int kk = 0; kk < NT; ++kk) {
-    const uint32_t a[4] = {
-        pack_bf16(s[2 * kk][0] * inv[0], s[2 * kk][1] * inv[0]),
-        pack_bf16(s[2 * kk][2] * inv[1], s[2 * kk][3] * inv[1]),
-        pack_bf16(s[2 * kk + 1][0] * inv[0], s[2 * kk + 1][1] * inv[0]),
-        pack_bf16(s[2 * kk + 1][2] * inv[1], s[2 * kk + 1][3] * inv[1])};
+    uint32_t hi[4], lo[4];
+    split_bf16(s[2 * kk][0] * inv[0], s[2 * kk][1] * inv[0], hi[0], lo[0]);
+    split_bf16(s[2 * kk][2] * inv[1], s[2 * kk][3] * inv[1], hi[1], lo[1]);
+    split_bf16(s[2 * kk + 1][0] * inv[0], s[2 * kk + 1][1] * inv[0], hi[2],
+               lo[2]);
+    split_bf16(s[2 * kk + 1][2] * inv[1], s[2 * kk + 1][3] * inv[1], hi[3],
+               lo[3]);
 #pragma unroll
     for (int np = 0; np < DT / 2; ++np) {
       uint32_t vb[4];
       ldsm_x4_trans(vb, sV + (16 * kk + lkn.x) * kRowS + 16 * np + lkn.y);
-      mma_bf16(acc[2 * np], a, vb[0], vb[1]);
-      mma_bf16(acc[2 * np + 1], a, vb[2], vb[3]);
+      mma_bf16(acc[2 * np], hi, vb[0], vb[1]);
+      mma_bf16(acc[2 * np], lo, vb[0], vb[1]);
+      mma_bf16(acc[2 * np + 1], hi, vb[2], vb[3]);
+      mma_bf16(acc[2 * np + 1], lo, vb[2], vb[3]);
     }
   }
   store_rows(acc, 1.f, sOut + warp * 16 * kRowS, o + b * so.b + h * so.h,

@@ -78,6 +78,18 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
+// two floats (x0 the element of the lower column) as a high register of
+// bf16 (round to nearest even) and a low register holding what the high
+// part leaves, rounded to bf16: hi + lo carries each float to about 2^-17
+// of its magnitude, so two bf16 products into one float32 accumulator do
+// a float32 operand's product
+__device__ __forceinline__ void split_bf16(float x0, float x1, uint32_t& hi,
+                                           uint32_t& lo) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(x0, x1);
+  hi = *reinterpret_cast<const uint32_t*>(&h);
+  lo = pack_bf16(x0 - __low2float(h), x1 - __high2float(h));
+}
+
 // Row and column (in elements) that lane `lane` hands ldmatrix.x4 when a
 // 16 x 16 tile at (r0, c0) of a row-major array is read as
 //   a_rowmajor:  the A fragment of that tile (m = rows, k = columns);

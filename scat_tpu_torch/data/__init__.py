@@ -1,1 +1,2 @@
-"""Datasets of the port (synthetic batches; real datasets follow)."""
+"""Datasets of the port: the synthetic task, STB with its preprocessing,
+loader plumbing and native glue, the prefetcher and the stage mixes."""

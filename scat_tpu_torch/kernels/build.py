@@ -4,13 +4,14 @@ Each ``csrc/<name>.cu`` is compiled by ``nvcc`` for Hopper
 (``-gencode arch=compute_90a,code=sm_90a``) into a shared library with a
 plain C interface, which ``ctypes`` loads: the source includes no
 PyTorch header, so a build takes seconds.  Libraries go to
-``build/scat_tpu_torch/<name>-<hash>.so`` beside the package, keyed by a
-hash of the source, of every shared header ``csrc/*.cuh`` and of the
-flags, so an edited source or header is rebuilt and an unchanged one is
-loaded as it is.  ``build_all`` starts one ``nvcc`` per source, all at
-once, and keeps each compiler's output (``-Xptxas -v``: registers,
-shared memory and spills of every kernel) in ``LOGS``.  Without ``nvcc``
-the build raises.
+``build/scat_tpu_torch/<name>-<hash>.so`` beside the package, or, where
+that is not writable (a wheel in site-packages), to the per-user cache
+``~/.cache/scat_tpu_torch/``; the name is keyed by a hash of the source,
+of every shared header ``csrc/*.cuh`` and of the flags, so an edited
+source or header is rebuilt and an unchanged one is loaded as it is.
+``build_all`` starts one ``nvcc`` per source, all at once, and keeps
+each compiler's output (``-Xptxas -v``: registers, shared memory and
+spills of every kernel) in ``LOGS``.  Without ``nvcc`` the build raises.
 """
 
 from __future__ import annotations
@@ -27,6 +28,21 @@ from typing import Iterable
 PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(PKG_DIR), "build", "scat_tpu_torch")
+USER_CACHE_DIR = os.path.join("~", ".cache", "scat_tpu_torch")
+
+
+def build_dir() -> str:
+    """``BUILD_DIR`` where it can be written (or created), else the
+    per-user cache: a read-only install still builds."""
+    probe = BUILD_DIR
+    while not os.path.exists(probe):
+        parent = os.path.dirname(probe)
+        if parent == probe:
+            break
+        probe = parent
+    if os.access(probe, os.W_OK):
+        return BUILD_DIR
+    return os.path.expanduser(USER_CACHE_DIR)
 SOURCES = ("attention_fwd", "attention_bwd", "favor")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -49,14 +65,18 @@ def nvcc_path() -> str:
 LOGS: dict = {}
 
 
+def headers() -> list:
+    """The shared headers ``csrc/*.cuh`` every library's key hashes."""
+    return sorted(glob.glob(os.path.join(CSRC_DIR, "*.cuh")))
+
+
 def library_path(name: str) -> str:
     digest = hashlib.sha256()
-    headers = sorted(glob.glob(os.path.join(CSRC_DIR, "*.cuh")))
-    for path in [os.path.join(CSRC_DIR, f"{name}.cu"), *headers]:
+    for path in [os.path.join(CSRC_DIR, f"{name}.cu"), *headers()]:
         with open(path, "rb") as f:
             digest.update(f.read())
     digest.update(" ".join(NVCC_FLAGS).encode())
-    return os.path.join(BUILD_DIR, f"{name}-{digest.hexdigest()[:16]}.so")
+    return os.path.join(build_dir(), f"{name}-{digest.hexdigest()[:16]}.so")
 
 
 def build_all(names: Iterable[str] = SOURCES) -> int:
@@ -67,7 +87,7 @@ def build_all(names: Iterable[str] = SOURCES) -> int:
     if not todo:
         return 0
     nvcc = nvcc_path()
-    os.makedirs(BUILD_DIR, exist_ok=True)
+    os.makedirs(build_dir(), exist_ok=True)
     procs = []
     for name in todo:
         # unique temporary name, then an atomic rename: concurrent

@@ -22,15 +22,17 @@ flagship's serving and training paths, CUDA cores made both limited by
 instruction count, not bytes, so both run their products on the tensor
 cores (``mma.sync``, bf16 in, float32 accumulation), a warp per 16 query
 rows, with the softmax (and the backward's delta and dS) in the
-accumulator registers.  The forward rounds P to bf16 once and takes it
-straight from the registers as the A operand of P V; the backward rounds
-P and dS to bf16 once, in shared memory, for its second products: no
-recompute pass.  Those roundings are within the bf16 tolerance against
-``attention_reference`` and ``attention_bwd_reference`` (float32 P and
-dS); the design notes are in ``csrc/attention_fwd.cu`` and
-``csrc/attention_bwd.cu``, their shared tiles in ``csrc/attention.cuh``.
-Their 16-byte copies need 16-byte aligned rows: an operand whose rows
-are not is copied first.
+accumulator registers.  As the Pallas kernels keep P and dS in float32,
+the kernels split each into a bf16 high part and a bf16 low part and
+run both products into one float32 accumulator: the forward takes P's
+parts straight from the registers as the A operands of P V; the backward
+keeps P's and dS's parts in shared memory for its second products (no
+recompute pass).  Their bf16 results lie within 2 bf16 ulps
+(``bf16_ulps``) of ``attention_reference`` and ``attention_bwd_reference``
+in float32, rounded to bf16; the design notes are in
+``csrc/attention_fwd.cu`` and ``csrc/attention_bwd.cu``, their shared
+tiles in ``csrc/attention.cuh``.  Their 16-byte copies need 16-byte
+aligned rows: an operand whose rows are not is copied first.
 
 ``flash_attention`` launches the kernels for CUDA tensors and raises if
 it cannot; it never falls back.  CPU tensors take ``attention_reference``
@@ -56,6 +58,23 @@ from scat_tpu_torch.kernels import abi, build
 
 HEAD_DIM = 64
 MAX_SEQ = 128
+# below this share of a tensor's largest magnitude, bf16_ulps counts in
+# the ulps of that floor: float32 sums that cancel to near zero carry
+# rounding of the size of their terms, not of their result
+ULP_FLOOR = 2.0 ** -8
+
+
+def bf16_ulps(got: torch.Tensor, want: torch.Tensor,
+              floor: float = ULP_FLOOR) -> torch.Tensor:
+    """How far each element of the bf16 result ``got`` lies from
+    ``want`` (float32) rounded to bf16, in bf16 ulps (2^(e-7) for
+    |x| in [2^e, 2^(e+1))) of the larger of |want| and ``floor`` times
+    the largest |want|."""
+    w = want.float().bfloat16().float()
+    mag = torch.maximum(w.abs(), floor * w.abs().max()).clamp(
+        min=torch.finfo(torch.float32).tiny)
+    ulp = torch.exp2(torch.floor(torch.log2(mag)) - 7)
+    return (got.float() - w).abs() / ulp
 
 
 def attention_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

@@ -1,10 +1,18 @@
-"""Geometry (port of ``scat_tpu/ops/geometry.py:21-117,170-173``):
-Rodrigues rotations, weak-perspective projection (reference
-train.py:112-120) and root-centring.  Batched, branch-free and
-differentiable, like the JAX functions."""
+"""Geometry (port of ``scat_tpu/ops/geometry.py``): Rodrigues rotations,
+weak-perspective projection (reference train.py:112-120), root-centring,
+and the label math of the data loaders: pinhole projection, the 2D
+rotation affine and its action on joints, and STB's bone-normalised 3D
+rescale (reference dataset/rotation.py:7-55, load_STB.py:98-110,257-258).
+Batched, branch-free and differentiable, like the JAX functions.
+
+The loader functions take ``xp``, as the JAX ones do: ``torch`` (the
+default) for tensors on the device, ``numpy`` for the loaders'
+per-sample host work.
+"""
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 
@@ -81,6 +89,59 @@ def project_2d(joints_2d: torch.Tensor, half: float = 112.0
     return joints_2d * half + half
 
 
+def project_points_pinhole(joints_3d, K, xp=torch):
+    """Pinhole projection ``[.,N,3] @ K.T``, then the perspective divide
+    (reference dataset/load_STB.py:257-258)."""
+    uvw = joints_3d @ xp.swapaxes(K, -1, -2)
+    return uvw[..., :2] / uvw[..., 2:]
+
+
+def rotation_matrix_2d(angle_deg, center, xp=torch):
+    """cv2.getRotationMatrix2D: the ``[...,2,3]`` affine of a CCW rotation
+    by ``angle_deg`` about ``center`` (reference rotation.py:17)."""
+    a = xp.deg2rad(angle_deg)
+    cos, sin = xp.cos(a), xp.sin(a)
+    cx, cy = center[..., 0], center[..., 1]
+    # OpenCV: x' = cos*x + sin*y + (1-cos)cx - sin*cy
+    r0 = xp.stack([cos, sin, (1 - cos) * cx - sin * cy], -1)
+    r1 = xp.stack([-sin, cos, sin * cx + (1 - cos) * cy], -1)
+    return xp.stack([r0, r1], -2)
+
+
+def rotate_joints_2d(joints_2d, M, xp=torch):
+    """A 2x3 affine applied to ``[...,N,2]`` joints (reference
+    rotation.py:33-34)."""
+    ones = xp.ones_like(joints_2d[..., :1])
+    homo = xp.concatenate([joints_2d, ones], -1)
+    return homo @ xp.swapaxes(M, -1, -2)
+
+
+def rotate_joints_3d(joints_3d, M, xp=torch):
+    """The in-plane 3D rotation of an image affine (reference
+    rotation.py:36-45): the 2x2 block with the transposed sign pattern,
+    z unchanged; a batched ``[B,2,3]`` M broadcasts over the joints."""
+    c = M[..., 0, 0][..., None]
+    s = M[..., 0, 1][..., None]
+    x, y, z = joints_3d[..., 0], joints_3d[..., 1], joints_3d[..., 2]
+    return xp.stack([c * x + s * y, -s * x + c * y, z], -1)
+
+
 def root_center(joints: torch.Tensor, root_index: int = 1) -> torch.Tensor:
     """Subtract the root joint (index 1, reference hand_net.py:389-393)."""
     return joints - joints[..., root_index:root_index + 1, :]
+
+
+def rescale_3d_joints_flip(joints_3d, ref_bone_len: float = 0.03058954,
+                           xp=torch):
+    """STB's label normalisation (reference load_STB.py:98-110): bone 4-5
+    pinned to ``ref_bone_len`` meters, x mirrored, root-centred on joint
+    1."""
+    bone = joints_3d[..., 4, :] - joints_3d[..., 5, :]
+    length = xp.linalg.norm(bone, axis=-1, keepdims=True) if xp is np \
+        else torch.linalg.norm(bone, dim=-1, keepdim=True)
+    scaled = joints_3d * (ref_bone_len / length)[..., None]
+    mirror = xp.asarray([-1.0, 1.0, 1.0], dtype=scaled.dtype)
+    if xp is torch:
+        mirror = mirror.to(scaled.device)
+    flipped = scaled * mirror
+    return flipped - flipped[..., 1:2, :]

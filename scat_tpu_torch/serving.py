@@ -12,8 +12,10 @@ Example:
     out = predictor.predict(crops_uint8)                 # [N,224,224,3]
     out["joints_3d"], out["joints_2d"], out["camera"]
 
-Not ported yet: ``mesh=`` data-parallel serving and
-``predict_from_frames`` (ROADMAP.md queue 1 items 16-17).
+From whole frames: ``predict_from_frames(frames, joints_2d_hint)`` crops
+each hand about its rough 2D joints with one warp on the device, then
+predicts.  Not ported yet: ``mesh=`` data-parallel serving (ROADMAP.md
+queue 1 item 17).
 """
 
 from __future__ import annotations
@@ -27,6 +29,8 @@ import torch
 from torch import nn
 
 from scat_tpu_torch.config import Options
+from scat_tpu_torch.data import preprocess
+from scat_tpu_torch.devices import resolve_device
 from scat_tpu_torch.models import build_model
 from scat_tpu_torch.models.factory import compute_dtype
 from scat_tpu_torch.ops.geometry import batch_orth_proj_idrot, project_2d
@@ -131,11 +135,7 @@ class HandPosePredictor:
         ``.pth`` (loaded strictly: a ViP file must carry its frozen
         ``mains.{i}.w``), or an empty path for a fresh init seeded with
         ``opt.seed``."""
-        device = torch.device("cuda" if device is None else device)
-        if device.type == "cuda" and not torch.cuda.is_available():
-            raise RuntimeError(
-                "HandPosePredictor runs on a CUDA device and none is "
-                "available; pass device='cpu' to run on the CPU")
+        device = resolve_device(device, "HandPosePredictor")
         model, _ = build_model(opt, image_size)
         load_weights(model, opt.checkpoint_path_eval, seed=opt.seed)
         model.cast_compute(compute_dtype(opt))
@@ -195,3 +195,39 @@ class HandPosePredictor:
             x = x.astype(np.float32, copy=False)
         return run_bucketed(self._forward, x, self._buckets, self._put,
                             chunk_device_times=chunk_device_times)
+
+    def predict_from_frames(self, frames: np.ndarray,
+                            joints_2d_hint: np.ndarray
+                            ) -> Dict[str, np.ndarray]:
+        """Whole frames and rough 2D joints -> crops (one warp on the
+        predictor's device) -> ``predict``.  ``frames`` [N,H,W,3] uint8;
+        ``joints_2d_hint`` [N,21,2] frame pixels (a detector's output, or
+        the previous frame's prediction, as the demo tracks).  Adds
+        ``crop_affine`` [N,2,3], frame px -> crop px."""
+        crops, M = frames_to_crops(frames, joints_2d_hint, self.image_size,
+                                   self.device)
+        out = self.predict(crops)
+        out["crop_affine"] = M
+        return out
+
+
+def frames_to_crops(frames: np.ndarray, joints_2d_hint: np.ndarray,
+                    image_size: int, device=None) -> tuple:
+    """The detection-to-crop stage (port of
+    ``scat_tpu/serving.py:272-286``): the crop affine of each frame from
+    its 2D hints (expand 1.5, min_size 20: the reference's crop_hand_ref,
+    eval.py:89-108), then one bilinear warp of the batch on ``device``
+    (default ``cuda``).  Returns numpy (crops [N,S,S,3] float32 in
+    [-1, 1], crop_affine [N,2,3])."""
+    device = resolve_device(device, "frames_to_crops")
+    frames = np.asarray(frames)
+    check_image_dtype(frames)
+    _, H, W, _ = frames.shape
+    hints = torch.as_tensor(np.asarray(joints_2d_hint, np.float32),
+                            device=device)
+    M, _ = preprocess.crop_hand_affine(hints, W, H, image_size, expand=1.5,
+                                       min_size=20.0)
+    crops = preprocess.affine_sample(
+        preprocess.normalize_to_unit(torch.as_tensor(frames, device=device)),
+        M, image_size, image_size, fill=-1.0)
+    return crops.cpu().numpy(), M.cpu().numpy()

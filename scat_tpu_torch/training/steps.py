@@ -5,9 +5,9 @@ weak-perspective projection -> 3D MSE + 2D L1 (+ PL reg) -> backward ->
 Adam step.  As in the JAX package the filter is a per-sample ``valid``
 mask.  Batches are dicts of device tensors: ``image`` NHWC [B,S,S,3] in
 [-1,1] (seen by the model as an NCHW channels_last view), ``label``
-[B,105] or [B,166], optional ``valid`` [B].  The JAX package's
-``make_fused_preprocess_train_step`` waits for ``data/preprocess.py``
-(ROADMAP.md queue 1 item 7).
+[B,105] or [B,166], optional ``valid`` [B].
+``make_fused_preprocess_train_step`` takes raw uint8 frames and their
+crop affines and warps them inside the step.
 """
 
 from __future__ import annotations
@@ -131,6 +131,36 @@ def make_train_step(l_weight_3d: float, l_weight_2d: float,
                 "valid_frac": valid.float().mean(),
                 "pred0_3d": pred0[0],
                 "pred0_2d": pred0[1]}
+
+    return train_step
+
+
+def make_fused_preprocess_train_step(
+        l_weight_3d: float, l_weight_2d: float, out_size: int = 224,
+        pl_reg: bool = False, ema_reset_compat: bool = True
+        ) -> Callable[[TrainState, Batch], Dict[str, torch.Tensor]]:
+    """The train step with the image preprocessing inside it (port of
+    ``scat_tpu/training/steps.py:227-258``).  Batch contract:
+    ``raw_image`` uint8 [B,H,W,3] frames, ``affine`` [B,2,3] (input px ->
+    crop px, from ``preprocess.crop_hand_affine`` and friends),
+    ``label`` and an optional ``valid``; the warp and the normalisation
+    run on the frames' device, then the step of ``make_train_step``."""
+    from scat_tpu_torch.data import preprocess
+
+    inner = make_train_step(l_weight_3d, l_weight_2d, pl_reg=pl_reg,
+                            ema_reset_compat=ema_reset_compat)
+
+    def train_step(state: TrainState, batch: Batch
+                   ) -> Dict[str, torch.Tensor]:
+        raw = batch["raw_image"]
+        images = preprocess.affine_sample(
+            preprocess.normalize_to_unit(raw), batch["affine"], out_size,
+            out_size, fill=-1.0)
+        valid = batch.get("valid")
+        if valid is None:
+            valid = torch.ones(raw.shape[0], device=raw.device)
+        return inner(state, {"image": images, "label": batch["label"],
+                             "valid": valid})
 
     return train_step
 

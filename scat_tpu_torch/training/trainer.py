@@ -11,22 +11,29 @@ conv and transformer compute in ``--compute_dtype`` under autocast.  The
 step stays asynchronous: losses accumulate on the device and reach the
 host only at the log boundary.
 
-This slice trains on the synthetic task (``--synthetic_data True``, the
-JAX package's ``data/synthetic.py``).  Flags whose feature is not ported
-raise and name their ROADMAP.md item (``UNPORTED_FLAGS``); none is
-ignored.  ``--donate_state`` has nothing to do: the state is updated in
-place.
+It trains on the synthetic task (``--synthetic_data True``, the JAX
+package's ``data/synthetic.py``) or on STB (``--synthetic_data False
+--stage 3 --data_dir <tree>``), whose loader runs behind
+``data/prefetch.prefetch_to_device``.  Flags whose feature is not ported
+raise and name their ROADMAP.md item (``UNPORTED_FLAGS``; the other
+stages and the FreiHAND and HO-3D evaluation sets in ``make_dataset``);
+none is ignored.  ``--donate_state`` has nothing to do: the state is
+updated in place.
 """
 
 from __future__ import annotations
 
 import time
-from typing import Iterable, Optional, Union
+from typing import Iterable, Optional
 
 import torch
 
+from scat_tpu_torch import assets
 from scat_tpu_torch.config import BaseOptions, Options
+from scat_tpu_torch.data.common import local_batch_size
+from scat_tpu_torch.data.prefetch import prefetch_to_device
 from scat_tpu_torch.data.synthetic import SyntheticDataset
+from scat_tpu_torch.devices import resolve_device
 from scat_tpu_torch.models import build_model
 from scat_tpu_torch.models.factory import compute_dtype
 from scat_tpu_torch.training import schedule, steps
@@ -36,8 +43,6 @@ from scat_tpu_torch.utils.logging import MetricsLogger
 
 # (flag, test on the options, ROADMAP.md queue 1 item that ports it)
 UNPORTED_FLAGS = (
-    ("--synthetic_data False (the STB/FreiHAND/... loaders)",
-     lambda o: not o.synthetic_data, 7),
     ("--debug True (the debug grid of viz/)", lambda o: o.debug, 18),
     ("--param_sharding fsdp", lambda o: o.param_sharding == "fsdp", 17),
     ("a multi-device --mesh_shape",
@@ -72,13 +77,28 @@ def check_flags(opt: Options) -> None:
             f"--batch_size {opt.batch_size}")
 
 
-def resolve_device(device: Union[str, torch.device, None]) -> torch.device:
-    """``device``, or ``cuda`` when None; raises if that is absent."""
-    device = torch.device("cuda" if device is None else device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("the trainer runs on a CUDA device and none is "
-                           "available; pass device='cpu' to run on the CPU")
-    return device
+def make_dataset(opt: Options, image_size: int, training: bool = True,
+                 device=None):
+    """The batches of ``opt`` on ``device``: the synthetic task, the
+    training mix of ``--stage`` (stage 3: STB), or the evaluation set of
+    ``--eval_dataset`` (STB), each at this process's share of
+    ``--batch_size``."""
+    lbs = local_batch_size(opt.batch_size)
+    if opt.synthetic_data:
+        return SyntheticDataset(
+            lbs, num_batches=opt.steps_per_epoch or 16, seed=opt.seed,
+            image_size=image_size,
+            mean_params=assets.load_mean_params(outside=opt.outside),
+            layout=opt.synthetic_layout, device=resolve_device(device))
+    if training:
+        from scat_tpu_torch.data.multi import concat_dataset
+        return concat_dataset(lbs, opt, device=device)
+    if opt.eval_dataset in ("frei", "ho3d"):
+        raise NotImplementedError(
+            f"--eval_dataset {opt.eval_dataset}: the loader is not ported to "
+            "scat_tpu_torch yet (ROADMAP.md queue 1 item 15); STB is")
+    from scat_tpu_torch.data.stb import get_loader_STB_eval
+    return get_loader_STB_eval(opt, device=device)
 
 
 def _sync(device: torch.device) -> None:
@@ -93,7 +113,7 @@ class Trainer:
                  dataset: Optional[Iterable] = None):
         check_flags(opt)
         self.opt = opt
-        self.device = resolve_device(device)
+        self.device = resolve_device(device, "the trainer")
         self.batch_size = opt.batch_size
         self.epoches = opt.epoch
         self.pl = opt.pl_reg
@@ -116,12 +136,7 @@ class Trainer:
         model.set_compute_dtype(compute_dtype(opt))
 
         self.train_loader = dataset if dataset is not None else \
-            SyntheticDataset(opt.batch_size,
-                             num_batches=opt.steps_per_epoch or 16,
-                             seed=opt.seed, image_size=image_size,
-                             mean_params=self.mean_params,
-                             layout=opt.synthetic_layout,
-                             device=self.device)
+            make_dataset(opt, image_size, device=self.device)
         steps_per_epoch = len(self.train_loader)
         print("batch num", steps_per_epoch)
         optimizer, scheduler = schedule.make_optimizer(
@@ -156,14 +171,25 @@ class Trainer:
             _sync(self.device)
             t_epoch = t_window = time.perf_counter()
             n_samples = 0
-            for i, batch in enumerate(self.train_loader):
-                stats = self.train_step(self.state, batch)
-                n_samples += self.batch_size
-                global_step += 1
-                running += torch.stack([stats["loss"], stats["loss_3d"],
-                                        stats["loss_2d"]])
-                loss_pl += stats["loss_pl"]
-                window_steps += 1
+            # a real loader decodes and stages batch i+1 in a background
+            # thread while the card runs step i; the synthetic task
+            # renders on the card in the step's stream
+            loader = self.train_loader
+            if not isinstance(loader, SyntheticDataset):
+                loader = prefetch_to_device(loader, self.device)
+            for i, batches in enumerate(loader):
+                # ConcatDataset yields one batch of each member: one step
+                # each, as the reference's inner loop (train.py:136-138)
+                if isinstance(batches, dict):
+                    batches = (batches,)
+                for batch in batches:
+                    stats = self.train_step(self.state, batch)
+                    n_samples += self.batch_size
+                    global_step += 1
+                    running += torch.stack([stats["loss"], stats["loss_3d"],
+                                            stats["loss_2d"]])
+                    loss_pl += stats["loss_pl"]
+                    window_steps += 1
                 if i % log_every == 0:
                     total, l3d, l2d = running.tolist()  # waits for the step
                     pl = float(loss_pl)

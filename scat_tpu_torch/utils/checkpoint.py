@@ -84,7 +84,13 @@ def load_weights(model: nn.Module, path: str, seed: int = 0) -> None:
     apath = os.path.abspath(path)
     if not os.path.exists(apath):
         raise FileNotFoundError(f"torch checkpoint {apath} does not exist")
-    sd = _read(apath)
+    load_state_dict(model, _read(apath))
+
+
+def load_state_dict(model: nn.Module, sd: dict) -> None:
+    """A reference-keyed state_dict (or ``{"state_dict": ...}``) into
+    ``model``, strictly, but for the positional-encoding buffer that the
+    port recomputes."""
     sd = sd.get("state_dict", sd)
     model.load_state_dict({k: v for k, v in sd.items() if k != PE_KEY},
                           strict=True)

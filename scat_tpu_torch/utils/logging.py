@@ -1,8 +1,9 @@
 """Structured metrics logging (the port's own copy of
 ``scat_tpu/utils/logging.py``, CSV only): the quantities the reference
-prints (total/3d/2d/pl loss, rates) as an append-only
-``{log_dir}/metrics.csv``.  The JAX package's optional TensorBoard
-mirror is not ported (``--tensorboard`` raises in the trainer)."""
+prints (total/3d/2d/pl loss, rates; the evaluator's MPJPE, AUC and PCK)
+as an append-only ``{log_dir}/{filename}``, ``metrics.csv`` by default.
+The JAX package's optional TensorBoard mirror is not ported
+(``--tensorboard`` raises in the trainer and the evaluator)."""
 
 from __future__ import annotations
 
@@ -13,14 +14,15 @@ from typing import Dict, Optional
 
 
 class MetricsLogger:
-    def __init__(self, log_dir: Optional[str] = None):
+    def __init__(self, log_dir: Optional[str] = None,
+                 filename: str = "metrics.csv"):
         self.log_dir = log_dir
         self._file = None
         self._writer = None
         self._fields = None
         if log_dir:
             os.makedirs(log_dir, exist_ok=True)
-            self._path = os.path.join(log_dir, "metrics.csv")
+            self._path = os.path.join(log_dir, filename)
 
     def log(self, step: int, metrics: Dict[str, float]) -> None:
         if self.log_dir is None:

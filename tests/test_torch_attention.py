@@ -152,28 +152,42 @@ def _bf16(a):
     return torch.from_numpy(a).bfloat16().float().numpy()
 
 
+def _split(x):
+    """A float32 tensor as its bf16 high part and the bf16 of what that
+    leaves (mma.cuh split_bf16), both as float32."""
+    hi = x.bfloat16().float()
+    return hi, (x - hi).bfloat16().float()
+
+
+def _split_product(eq, x, y):
+    """The kernels' product of a split float32 operand ``x`` with the bf16
+    operand ``y``: the high and the low part's products, summed in
+    float32."""
+    hi, lo = _split(x)
+    return torch.einsum(eq, hi, y) + torch.einsum(eq, lo, y)
+
+
 def _tensor_core_bwd(q, k, v, do, scale):
     """The arithmetic of the bf16 backward kernel on the CPU: products of
     bf16 values summed in float32, softmax, delta and dS in float32, and
-    P and dS rounded to bf16 once before the second products (dV, dQ,
-    dK); outputs rounded to bf16."""
+    P and dS split into bf16 high and low parts for the second products
+    (dV, dQ, dK); outputs rounded to bf16."""
     q, k, v, do = (torch.from_numpy(a) for a in (q, k, v, do))
     s = torch.einsum("bhid,bhjd->bhij", q, k) * scale
     p = s.softmax(dim=-1)
     dp = torch.einsum("bhid,bhjd->bhij", do, v)
     ds = p * (dp - (dp * p).sum(dim=-1, keepdim=True))
-    p, ds = (t.bfloat16().float() for t in (p, ds))
-    dv = torch.einsum("bhij,bhid->bhjd", p, do)
-    dq = torch.einsum("bhij,bhjd->bhid", ds, k) * scale
-    dk = torch.einsum("bhij,bhid->bhjd", ds, q) * scale
+    dv = _split_product("bhij,bhid->bhjd", p, do)
+    dq = _split_product("bhij,bhjd->bhid", ds, k) * scale
+    dk = _split_product("bhij,bhid->bhjd", ds, q) * scale
     return tuple(t.bfloat16().float().numpy() for t in (dq, dk, dv))
 
 
 @pytest.mark.parametrize("b,h,n,d", BWD_SHAPES)
 def test_tensor_core_rounding_matches_pallas_bwd(rng, b, h, n, d):
-    """bf16 operands through the bf16 kernel's rounding (P and dS in bf16
-    for the second products) against the Pallas backward in interpret
-    mode at the bf16 tolerance of the card's checks."""
+    """bf16 operands through the bf16 kernel's arithmetic (P and dS split
+    into bf16 parts for the second products) against the Pallas backward
+    in interpret mode at the bf16 tolerance of the card's checks."""
     q, k, v, do = (_bf16(rng.randn(b, h, n, d).astype(np.float32))
                    for _ in range(4))
     scale = d ** -0.5
@@ -187,25 +201,46 @@ def test_tensor_core_rounding_matches_pallas_bwd(rng, b, h, n, d):
 
 def _tensor_core_fwd(q, k, v, scale):
     """The arithmetic of the bf16 forward kernel on the CPU: products of
-    bf16 values summed in float32, softmax in float32, P rounded to bf16
-    once before P V, O rounded to bf16."""
+    bf16 values summed in float32, softmax in float32, P split into bf16
+    high and low parts for P V, O rounded to bf16."""
     q, k, v = (torch.from_numpy(a) for a in (q, k, v))
     p = (torch.einsum("bhid,bhjd->bhij", q, k) * scale).softmax(dim=-1)
-    o = torch.einsum("bhij,bhjd->bhid", p.bfloat16().float(), v)
+    o = _split_product("bhij,bhjd->bhid", p, v)
     return o.bfloat16().float().numpy()
 
 
 @pytest.mark.parametrize("b,h,n,d", BWD_SHAPES)
 def test_tensor_core_rounding_matches_pallas_fwd(rng, b, h, n, d):
-    """bf16 operands through the bf16 forward kernel's rounding (P in
-    bf16 for P V) against the Pallas forward in interpret mode at the
-    bf16 tolerance of the card's checks."""
+    """bf16 operands through the bf16 forward kernel's arithmetic (P split
+    into bf16 parts for P V) against the Pallas forward in interpret mode
+    at the bf16 tolerance of the card's checks."""
     q, k, v = (_bf16(rng.randn(b, h, n, d).astype(np.float32))
                for _ in range(3))
     scale = d ** -0.5
     want = pa._flash_fwd_impl(*map(jnp.asarray, (q, k, v)), scale)
     got = _tensor_core_fwd(q, k, v, scale)
     np.testing.assert_allclose(got, np.asarray(want), atol=1e-2, rtol=1e-2)
+
+
+@pytest.mark.parametrize("b,h,n,d", BWD_SHAPES)
+def test_split_p_within_two_bf16_ulps(rng, b, h, n, d):
+    """The kernels' split-P arithmetic (emulated above) holds the card's
+    bar: within 2 bf16 ulps (``bf16_ulps``) of the float32 plain versions
+    rounded to bf16, forward and backward; P rounded to bf16 once, the
+    design before, does not, so the bar tells the two apart."""
+    q, k, v, do = (_bf16(rng.randn(b, h, n, d).astype(np.float32))
+                   for _ in range(4))
+    scale = d ** -0.5
+    t = [torch.from_numpy(a) for a in (q, k, v, do)]
+    want = [ta.attention_reference(*t[:3], scale),
+            *ta.attention_bwd_reference(*t, scale)]
+    got = [_tensor_core_fwd(q, k, v, scale),
+           *_tensor_core_bwd(q, k, v, do, scale)]
+    for name, g, w in zip(("o", "dq", "dk", "dv"), got, want):
+        assert ta.bf16_ulps(torch.from_numpy(g), w).max() <= 2, name
+    p = (t[0] @ t[1].transpose(-1, -2) * scale).softmax(-1)
+    rounded = (p.bfloat16().float() @ t[2]).bfloat16()
+    assert ta.bf16_ulps(rounded, want[0]).max() > 2
 
 
 def test_unaligned_bf16_rows_are_copied(rng):

@@ -1,5 +1,5 @@
-"""The port's CUDA kernels on the card (marker ``cuda``; skipped without
-a CUDA device).
+"""The port's CUDA kernels, and its STB loader and Evaluator, on the card
+(marker ``cuda``; skipped without a CUDA device).
 
 This file imports neither JAX nor the JAX package, so it also runs on a
 machine that has only the port's stack.  There the repository's
@@ -8,15 +8,22 @@ conftest (which sets JAX up) is skipped:
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py
 """
 
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
 
+from scat_tpu_torch.config import Options
+from scat_tpu_torch.data import stb
+from scat_tpu_torch.data.synthetic import SyntheticDataset
+from scat_tpu_torch.evaluation.evaluator import Evaluator
 from scat_tpu_torch.ops import favor
 from scat_tpu_torch.ops.attention import (attention_bwd,
                                           attention_bwd_reference,
-                                          attention_reference,
+                                          attention_reference, bf16_ulps,
                                           flash_attention)
+from stb_tree import TRAIN_SEQS, write_stb_tree
 
 pytestmark = pytest.mark.cuda
 
@@ -118,6 +125,30 @@ def test_forward_kernel_sequence_lengths(cuda, n, dtype, atol):
     assert got.dtype == dtype and got.shape == shape
     torch.testing.assert_close(got.float(), want, atol=atol,
                                rtol=atol if dtype == torch.bfloat16 else 0)
+
+
+@pytest.mark.parametrize("shape", [(96, 8, 21, 64), (2, 4, 128, 64),
+                                   (3, 2, 1, 64), (3, 2, 17, 64),
+                                   (3, 2, 33, 64)])
+def test_bf16_kernels_within_two_ulps(cuda, shape):
+    """P (and in the backward dS) split into bf16 high and low parts: the
+    bf16 forward and backward lie within 2 bf16 ulps (``bf16_ulps``) of
+    the float32 plain versions on the same bf16 inputs, rounded to
+    bf16."""
+    q, k, v = _qkv(shape, torch.bfloat16, cuda, seed=sum(shape))
+    g = np.random.RandomState(2)
+    do = torch.from_numpy(g.randn(shape[0], shape[2], shape[1],
+                                  shape[3]).astype(np.float32))
+    do = do.to(cuda, torch.bfloat16).permute(0, 2, 1, 3)
+    with torch.no_grad():
+        out = flash_attention(q, k, v, 0.125)
+    grads = attention_bwd(q, k, v, do, 0.125)
+    torch.cuda.synchronize()
+    want = [attention_reference(q.float(), k.float(), v.float(), 0.125),
+            *attention_bwd_reference(q.float(), k.float(), v.float(),
+                                     do.float(), 0.125)]
+    for name, got, w in zip(("o", "dq", "dk", "dv"), (out, *grads), want):
+        assert bf16_ulps(got, w).max().item() <= 2, name
 
 
 def _unaligned(x):
@@ -339,3 +370,38 @@ def test_favor_kernels_refuse_what_they_do_not_take(cuda):
     ksum, kptv = favor.favor_stats(k, v, w)
     with pytest.raises(ValueError, match="favor_stats' contiguous"):
         favor.favor_apply(q, ksum, kptv.transpose(-1, -2), w)
+
+
+@pytest.mark.parametrize("augment", [False, True])
+def test_stb_batch_on_card_equals_cpu(cuda, tmp_path, augment):
+    """The PIL path's batch made on the card (upload, blur, warp, labels)
+    equals the CPU's from the same tree and seed, within 1e-4."""
+    data_dir = write_stb_tree(tmp_path, TRAIN_SEQS, n=2)
+    kw = dict(rotation=augment, motion_blur=augment, shuffle=True, seed=4,
+              use_native=False)
+    got = next(iter(stb.STBDataset("STB_train", data_dir, 4, device=cuda,
+                                   **kw)))
+    want = next(iter(stb.STBDataset("STB_train", data_dir, 4, device="cpu",
+                                    **kw)))
+    for key in ("image", "label", "valid"):
+        assert got[key].is_cuda
+        torch.testing.assert_close(got[key].cpu(), want[key], atol=1e-4,
+                                   rtol=1e-5, msg=key)
+
+
+def test_evaluator_on_card_matches_cpu(cuda, tmp_path):
+    """The Evaluator in float32 on the card against the CPU, same weights
+    (seed 0) and synthetic batches: MPJPE within 1e-3 relative, AUC and
+    the PCK within one joint of a batch."""
+    opt = Options(net="reg_transformer", vit_heads=2, iteration=3,
+                  batch_size=4, compute_dtype="float32",
+                  checkpoint_path_eval="", result_dir=str(tmp_path / "gpu"))
+    data = list(SyntheticDataset(4, num_batches=2, image_size=64))
+    got = Evaluator(opt, image_size=64, dataset=data, device=cuda).eval()
+    cpu = dataclasses.replace(opt, result_dir=str(tmp_path / "cpu"))
+    want = Evaluator(cpu, image_size=64, dataset=data, device="cpu").eval()
+    np.testing.assert_allclose(got["mpjpe_mm"], want["mpjpe_mm"], rtol=1e-3)
+    np.testing.assert_allclose(got["pck"], want["pck"],
+                               atol=100 / (4 * 21) + 1e-6)
+    np.testing.assert_allclose(got["auc"], want["auc"],
+                               atol=100 / (4 * 21) + 1e-6)

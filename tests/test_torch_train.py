@@ -396,6 +396,34 @@ def test_checkpoint_roundtrip_and_bitwise_resume(flax_init, rng, tmp_path):
                                         resumed)
 
 
+def test_fused_preprocess_step_is_warp_then_step(flax_init, rng):
+    """make_fused_preprocess_train_step on raw uint8 frames and their crop
+    affines equals make_train_step on the frames warped and normalised
+    beforehand (preprocess.affine_sample with fill -1), bit for bit."""
+    from scat_tpu_torch.data import preprocess
+    params, bs = flax_init
+    raw = (rng.rand(BS, 80, 96, 3) * 255).astype(np.uint8)
+    hints = np.stack([rng.uniform(20, 70, (BS, 21)),
+                      rng.uniform(15, 60, (BS, 21))], -1).astype(np.float32)
+    M, _ = preprocess.crop_hand_affine(torch.from_numpy(hints), 96.0, 80.0,
+                                       IMG)
+    lab = _batches(rng, 1)[0][1]
+    fused, plain = (_port_state(_ported(params, bs)) for _ in range(2))
+    stats = steps.make_fused_preprocess_train_step(W3D, W2D, out_size=IMG)(
+        fused, {"raw_image": torch.from_numpy(raw), "affine": M,
+                "label": torch.from_numpy(lab)})
+    images = preprocess.affine_sample(
+        preprocess.normalize_to_unit(torch.from_numpy(raw)), M, IMG, IMG,
+        fill=-1.0)
+    want = steps.make_train_step(W3D, W2D)(
+        plain, {"image": images, "label": torch.from_numpy(lab),
+                "valid": torch.ones(BS)})
+    assert torch.equal(stats["loss"], want["loss"])
+    for (k, a), b in zip(fused.model.state_dict().items(),
+                         plain.model.state_dict().values()):
+        assert torch.equal(a, b), k
+
+
 def test_trained_pth_loads_into_predictor(flax_init, rng, tmp_path):
     params, bs = flax_init
     state = _port_state(_ported(params, bs))
@@ -474,7 +502,7 @@ def test_trainer_needs_cuda_by_default(tmp_path, monkeypatch):
 
 
 @pytest.mark.parametrize("flags,item", [
-    (dict(debug=True), 18), (dict(synthetic_data=False), 7),
+    (dict(debug=True), 18), (dict(synthetic_data=False, stage=1), 15),
     (dict(param_sharding="fsdp"), 17), (dict(mesh_shape="data:4"), 17),
     (dict(profile_trace_dir="/x"), 18), (dict(tensorboard=True), 18)])
 def test_unported_flags_name_their_item(tmp_path, flags, item):
