@@ -2,6 +2,8 @@
 """Smoke run of the PyTorch / H100 port (scat_tpu_torch) on one CUDA card.
 
     python3 chip_smoke.py        # from the root of a checkout
+    python3 chip_smoke.py train group-norm   # only these phases (and
+                                 # build, and what they need); no result
 
 Phases, in order; any failure raises and exits non-zero:
   1. build    compile every kernel source under scat_tpu_torch/csrc
@@ -59,7 +61,32 @@ Phases, in order; any failure raises and exits non-zero:
               path: MPJPE within 1%, AUC within 1e-3 of its full scale)
               and its crops/s; predict_from_frames on 7 frames against
               frames_to_crops then predict;
-  7. favor    the FAVOR+ stats and apply kernels against their plain
+  7. datasets FreiHAND (224x224 JPEG), HO-3D (640x480 PNG), MHP (640x480
+              JPEG, data_15 webcam 1) and RHD (320x320 PNG) trees of 192
+              samples written under build/ beside an STB tree: each
+              loader's ms per batch of 96 by stage (host decode, labels,
+              FreiHAND's colour jitter, upload and warp on the card, the
+              whole batch); the canonical run at --stage 2 --synthetic_data
+              False for 2 epochs through all five loaders (one step per
+              member of each tuple, 3 + 3 attention launches a member step,
+              label widths 166, 166, 105, 105, 105, a finite loss each,
+              each metrics.csv row its tuple's mean), its rate, p50 member
+              step and device idle share; the Evaluator on frei and ho3d
+              from its checkpoint (3 launches a batch, against the plain
+              attention path on the same batches: MPJPE within 1%, AUC
+              within 1e-3 of its full scale) and its crops/s; DemoRunner on
+              STB's B1Counting and MHP's data_15_cam_1 (3 launches a frame,
+              finite MPJPE, ACC and AUC, the same bounds against the plain
+              path) and its frames/s;
+  8. group-norm  the flagship with --norm_layer group: requests of 1 and
+              64 crops (3 launches a chunk, against the plain attention
+              path within 2%), p50 chunk and request latencies at buckets
+              1 and 64 beside BatchNorm's predictor; 8 synthetic training
+              steps at bs 96 (3 + 3 launches a step, a falling loss, one
+              step against the plain attention path) and the training
+              rate, p50 step and device time a step beside the train
+              phase's;
+  9. favor    the FAVOR+ stats and apply kernels against their plain
               versions at --net ViP's shapes (BH 4, 28, 256, 384 at
               T = 3137, e = 128, m = 64; T at chunk and tile edges; e 64
               / m 32) at rtol 1e-4 (atol 1e-5, times the largest
@@ -77,7 +104,7 @@ Phases, in order; any failure raises and exits non-zero:
               call computes FAVOR+, so no library time), each kernel's
               bound both as its tensor-core design's (bytes, and the
               bf16x3 products) and as the float32-operation figure;
-  8. vip-serve  the --net ViP predictor at full width (224 px, 3137
+  10. vip-serve  the --net ViP predictor at full width (224 px, 3137
               tokens x 512, 4 heads, depth 3, m 64, iteration 3, bf16,
               --use_pallas_favor True, weights from seed 0) serves uint8
               requests of 1, 7, 64 and 150 crops: 3 stats + 3 apply
@@ -86,17 +113,17 @@ Phases, in order; any failure raises and exits non-zero:
               model with the plain float32 FAVOR+ substituted (2%); the
               end-to-end rate, p50 request latency at buckets 1 and 64
               and a profile;
-  9. vip-train  the Trainer on --net ViP (bs 96, lr 5e-4, weights 1e5 /
+  11. vip-train  the Trainer on --net ViP (bs 96, lr 5e-4, weights 1e5 /
               10, bf16, dropout 0.1) for 3 epochs of 8 steps: 3 + 3
               launches a step, a falling loss; one step's loss and
               gradient norm against the plain float32 FAVOR+; remat_blocks
               against none (6 + 6 launches, the same loss and
               gradients); hand_net_final.pth served; the training rate,
               p50 step time and a profile;
-  10. vip-eval  the Evaluator on vip-train's hand_net_final.pth
+  12. vip-eval  the Evaluator on vip-train's hand_net_final.pth
               (synthetic batches): 3 + 3 FAVOR+ launches a batch and the
               file's frozen mains.{i}.w;
-  11. the card line, the kernels line, and the final
+  13. the card line, the kernels line, and the final
      {"ok": true, "device": ...} line.
 
 TF32 is off for the whole run (torch.backends.cuda.matmul.allow_tf32 and
@@ -122,9 +149,13 @@ import torch
 import torch.nn.functional as F
 
 from scat_tpu_torch.config import Options
-from scat_tpu_torch.data import native_loader, preprocess, stb
+from scat_tpu_torch.data import (freihand, ho3d, mhp, native_loader,
+                                 preprocess, stb)
+from scat_tpu_torch.data.common import load_rgb
 from scat_tpu_torch.data.multi import ConcatDataset
 from scat_tpu_torch.data.prefetch import prefetch_to_device, to_device
+from scat_tpu_torch.data.preprocess import color_jitter_np
+from scat_tpu_torch.evaluation import demo
 from scat_tpu_torch.evaluation.evaluator import Evaluator
 from scat_tpu_torch.kernels import build
 from scat_tpu_torch.models import performer
@@ -522,7 +553,7 @@ def phase_slice(rng):
     out_f = pred.predict(as_float)
     launches = flash_attention.launches
     chunks = sum(n_chunks(n, big) for n in REQUESTS) + n_chunks(7, big)
-    FWD.result["launches"] = launches
+    FWD.result["launches"] += launches
     print(f"[slice] requests {list(REQUESTS)} uint8 + 7 float32: "
           f"{chunks} forward chunks, attention_fwd launches {launches}, "
           f"attention_bwd launches {attention_bwd.launches}")
@@ -657,48 +688,12 @@ def set_kernel(model, on: bool):
             m.use_kernel = on
 
 
-def phase_train(rng):
-    t0 = time.perf_counter()
-    trainer = Trainer(TRAIN, image_size=IMAGE)
-    state, model = trainer.state, trainer.model
-    assert model.main_encoder.fc1.in_features == 2048      # resnet50
-    assert model.transformer.layers[0][0].fn.norm.normalized_shape \
-        == ((IMAGE // 8) ** 2,)
-    assert all(p.dtype == torch.float32 for p in model.parameters())
-    assert model.compute_dtype == torch.bfloat16
-    print(f"[train] trainer built in {time.perf_counter() - t0:.1f} s "
-          f"(resnet50, bs {TRAIN.batch_size}, {IMAGE}x{IMAGE}, "
-          f"{(IMAGE // 8) ** 2}-dim tokens, 8 heads, iteration 3, mask_rate "
-          f"0.2, bf16 compute, float32 parameters)")
-    log = os.path.join(TRAIN.checkpoint_folder, "metrics.csv")
-    if os.path.exists(log):
-        os.remove(log)
-    n_steps = TRAIN.epoch * TRAIN.steps_per_epoch
-    reset_counts()
-    t0 = time.perf_counter()
-    trainer.train()
-    fwd, bwd = flash_attention.launches, attention_bwd.launches
-    print(f"[train] {TRAIN.epoch} epochs x {TRAIN.steps_per_epoch} steps in "
-          f"{time.perf_counter() - t0:.1f} s (first steps and saves "
-          f"included); attention_fwd launches {fwd}, attention_bwd "
-          f"launches {bwd}")
-    FWD.result["launches"] += fwd
-    BWD.result["launches"] = bwd
-    assert fwd == 3 * n_steps and bwd == 3 * n_steps, (fwd, bwd, n_steps)
-    with open(log) as f:
-        losses = [float(r["loss"]) for r in csv.DictReader(f)]
-    assert len(losses) == n_steps and np.isfinite(losses).all(), losses
-    quarter = n_steps // 4
-    first, last = np.mean(losses[:quarter]), np.mean(losses[-quarter:])
-    print(f"[train] loss: mean of the first {quarter} steps {first:.1f}, "
-          f"of the last {quarter} {last:.1f}")
-    assert last < first, (first, last)
-
-    # one step's loss and gradient norm, kernels against plain attention,
-    # from the same weights, batch and token mask
-    batches = list(trainer.train_loader)[:2]
-    batch = batches[0]
-    flags = torch.zeros(21, dtype=torch.bool, device="cuda")
+def step_vs_plain(tag, model, batch):
+    """One step's loss and global gradient norm through the attention
+    kernels against the plain attention path, from the same weights,
+    batch and token mask: within BF16_REL; 3 + 3 launches, none on the
+    plain path."""
+    flags = torch.zeros(21, dtype=torch.bool, device=batch["image"].device)
     flags[[0, 5, 9, 17]] = True
 
     def loss_and_grad_norm():
@@ -725,11 +720,53 @@ def phase_train(rng):
     for what, got, want in (("loss", loss_k, loss_p),
                             ("global gradient norm", norm_k, norm_p)):
         diff, bnd = abs(got - want), BF16_REL * abs(want)
-        print(f"[train] bf16 kernel vs plain attention, one step, {what}: "
+        print(f"[{tag}] bf16 kernel vs plain attention, one step, {what}: "
               f"{got:.6g} vs {want:.6g}, diff {diff:.4e} (bound {bnd:.4e})")
         if not diff <= bnd:
             failed.append(what)
     assert not failed, failed
+
+
+def phase_train(rng):
+    t0 = time.perf_counter()
+    trainer = Trainer(TRAIN, image_size=IMAGE)
+    state, model = trainer.state, trainer.model
+    assert model.main_encoder.fc1.in_features == 2048      # resnet50
+    assert model.transformer.layers[0][0].fn.norm.normalized_shape \
+        == ((IMAGE // 8) ** 2,)
+    assert all(p.dtype == torch.float32 for p in model.parameters())
+    assert model.compute_dtype == torch.bfloat16
+    print(f"[train] trainer built in {time.perf_counter() - t0:.1f} s "
+          f"(resnet50, bs {TRAIN.batch_size}, {IMAGE}x{IMAGE}, "
+          f"{(IMAGE // 8) ** 2}-dim tokens, 8 heads, iteration 3, mask_rate "
+          f"0.2, bf16 compute, float32 parameters)")
+    log = os.path.join(TRAIN.checkpoint_folder, "metrics.csv")
+    if os.path.exists(log):
+        os.remove(log)
+    n_steps = TRAIN.epoch * TRAIN.steps_per_epoch
+    reset_counts()
+    t0 = time.perf_counter()
+    trainer.train()
+    fwd, bwd = flash_attention.launches, attention_bwd.launches
+    print(f"[train] {TRAIN.epoch} epochs x {TRAIN.steps_per_epoch} steps in "
+          f"{time.perf_counter() - t0:.1f} s (first steps and saves "
+          f"included); attention_fwd launches {fwd}, attention_bwd "
+          f"launches {bwd}")
+    FWD.result["launches"] += fwd
+    BWD.result["launches"] += bwd
+    assert fwd == 3 * n_steps and bwd == 3 * n_steps, (fwd, bwd, n_steps)
+    with open(log) as f:
+        losses = [float(r["loss"]) for r in csv.DictReader(f)]
+    assert len(losses) == n_steps and np.isfinite(losses).all(), losses
+    quarter = n_steps // 4
+    first, last = np.mean(losses[:quarter]), np.mean(losses[-quarter:])
+    print(f"[train] loss: mean of the first {quarter} steps {first:.1f}, "
+          f"of the last {quarter} {last:.1f}")
+    assert last < first, (first, last)
+
+    batches = list(trainer.train_loader)[:2]
+    batch = batches[0]
+    step_vs_plain("train", model, batch)
 
     stats = steps.make_train_step(TRAIN.l_weight_3d, TRAIN.l_weight_2d,
                                   grad_accum=2)(state, batch)
@@ -777,9 +814,14 @@ def phase_train(rng):
           f"{1e3 * err.mean():.2f} mm, PCK at 20..50 mm "
           f"{', '.join(f'{v:.2f}' for v in pck[:, -1])} %")
 
-    # the training rate: a window of steps after warm-up, synchronised at
-    # its ends; then each step synchronised for the p50 step time
-    step = trainer.train_step
+    return train_rate("train", state, trainer.train_step, batches)
+
+
+def train_rate(tag, state, step, batches):
+    """The training rate: a window of 20 steps after 3 warm-up steps,
+    synchronised at its ends; the p50 of 10 steps, each synchronised; a
+    profile of 3 steps, whose device time a step is held against the p50
+    (the profiler slows the host)."""
     for i in range(3):
         step(state, batches[i % 2])
     torch.cuda.synchronize()
@@ -796,7 +838,7 @@ def phase_train(rng):
         torch.cuda.synchronize()
         times.append(time.perf_counter() - t1)
     rate = window * TRAIN.batch_size / dt
-    print(f"[train] rate: {window} steps of {TRAIN.batch_size} crops in "
+    print(f"[{tag}] rate: {window} steps of {TRAIN.batch_size} crops in "
           f"{dt * 1e3:.1f} ms: {rate:.1f} crops/s; "
           f"p50 step time {np.median(times) * 1e3:.3f} ms (10 steps, each "
           f"synchronised); card {card_line()}")
@@ -806,15 +848,14 @@ def phase_train(rng):
             step(state, batches[i % 2])
         torch.cuda.synchronize()
 
-    busy, _ = device_profile("train", three_steps, f"3 train steps of "
-                          f"{TRAIN.batch_size} crops")
-    # the profiler slows the host; against the unprofiled p50 step time
+    busy, _ = device_profile(tag, three_steps, f"3 train steps of "
+                             f"{TRAIN.batch_size} crops")
     p50 = float(np.median(times)) * 1e3
     idle = 100 * (1 - busy / 3 / p50)
-    print(f"[train] device busy {busy / 3:.3f} ms per step against the "
+    print(f"[{tag}] device busy {busy / 3:.3f} ms per step against the "
           f"p50 step time {p50:.3f} ms: device idle "
           f"{idle:.1f}% of an unprofiled step")
-    return {"rate": rate, "p50": p50, "idle": idle}
+    return {"rate": rate, "p50": p50, "idle": idle, "busy": busy / 3}
 
 
 def write_stb_tree(root, rng):
@@ -1019,6 +1060,463 @@ def phase_stb(rng, synth):
         assert crops.shape == (7, IMAGE, IMAGE, 3) and M.shape == (7, 2, 3)
         print(f"[stb] predict_from_frames on 7 640x480 frames equals "
               f"frames_to_crops then predict; attention_fwd launches {fwd}")
+
+
+# the datasets phase: trees of DATASET_SAMPLES samples a dataset (two
+# batches of 96), the canonical run at --stage 2 for 2 epochs
+DATASET_SAMPLES = 192
+DATASETS_TRAIN = dataclasses.replace(
+    TRAIN, synthetic_data=False, stage=2, epoch=2,
+    checkpoint_folder=os.path.join("build", "chip_smoke_datasets"))
+STAGE2_WIDTHS = (166, 166, 105, 105, 105)   # FreiHAND, HO-3D, STB, MHP, RHD
+HO3D_K = np.array([[614.6, 0.0, 320.0], [0.0, 614.6, 240.0],
+                   [0.0, 0.0, 1.0]])
+
+
+def frame(h, w, k):
+    """A smooth frame (fast to encode and decode), shifted by ``k``."""
+    y, x = np.mgrid[0:h, 0:w]
+    return np.stack([(x * 3 + k) % 256, (y * 5 + 7 * k) % 256,
+                     (x + y + 3 * k) % 256], -1).astype(np.uint8)
+
+
+def write_frei_tree(root, rng):
+    """FreiHAND beside the STB tree: 224x224 JPEG frames and
+    training_{K,xyz,mano}.json, hands 0.5 m from the camera."""
+    from PIL import Image
+    n = DATASET_SAMPLES
+    rgb = os.path.join(root, "FreiHAND", "training", "rgb")
+    os.makedirs(rgb)
+    labels = {"K": np.tile([[480.0, 0, 112], [0, 480.0, 112], [0, 0, 1]],
+                           (n, 1, 1)),
+              "xyz": rng.uniform(-0.04, 0.04, (n, 21, 3)) + [0, 0, 0.5],
+              "mano": rng.randn(n, 1, 58) * 0.1}
+    for name, value in labels.items():
+        with open(os.path.join(root, "FreiHAND", f"training_{name}.json"),
+                  "w") as f:
+            json.dump(value.tolist(), f)
+    for i in range(n):
+        Image.fromarray(frame(224, 224, i)).save(
+            os.path.join(rgb, f"{i:08d}.jpg"))
+
+
+def write_ho3d_tree(root, rng):
+    """HO-3D beside the STB tree: train/{seq}/rgb 640x480 PNG frames and
+    meta pickles (MANO-order joints in OpenGL camera coordinates, 0.55 m
+    away), two sequences."""
+    from PIL import Image
+    for s, seq in enumerate(("ABF10", "GPMF11")):
+        rgb = os.path.join(root, "HO3D", "train", seq, "rgb")
+        meta = os.path.join(root, "HO3D", "train", seq, "meta")
+        os.makedirs(rgb)
+        os.makedirs(meta)
+        for i in range(DATASET_SAMPLES // 2):
+            with open(os.path.join(meta, f"{i:04d}.pkl"), "wb") as f:
+                pickle.dump({"handJoints3D": rng.uniform(-0.06, 0.06, (21, 3))
+                             + [0, 0, -0.55],
+                             "handPose": rng.randn(48) * 0.1,
+                             "handBeta": rng.randn(10) * 0.05,
+                             "camMat": HO3D_K}, f)
+            Image.fromarray(frame(480, 640, 100 * s + i)).save(
+                os.path.join(rgb, f"{i:04d}.png"), compress_level=1)
+
+
+def write_mhp_tree(root, rng):
+    """MHP beside the STB tree: annotated_frames/data_15 of webcam 1,
+    640x480 JPEG frames with world joints (mm) 0.6 m from the camera,
+    and its rvec/tvec (the rig's DEFAULT_K)."""
+    from PIL import Image
+    frames = os.path.join(root, "MHP", "annotated_frames", "data_15")
+    calib = os.path.join(root, "MHP", "calibrations", "data_15", "webcam_1")
+    os.makedirs(frames)
+    os.makedirs(calib)
+    for name, value in (("rvec", rng.randn(3) * 0.05),
+                        ("tvec", np.array([0.0, 0.0, 50.0]))):
+        with open(os.path.join(calib, f"{name}.pkl"), "wb") as f:
+            pickle.dump(value.astype(np.float32), f)
+    for i in range(DATASET_SAMPLES):
+        Image.fromarray(frame(480, 640, i)).save(
+            os.path.join(frames, f"{i}_webcam_1.jpg"))
+        joints = rng.randn(21, 3) * 30.0 + [0, 0, 600.0]
+        with open(os.path.join(frames, f"{i}_joints.txt"), "w") as f:
+            f.writelines(f"{j} {x} {y} {z}\n"
+                         for j, (x, y, z) in enumerate(joints))
+
+
+def write_rhd_tree(root, rng):
+    """RHD beside the STB tree: training/color 320x320 PNG frames whose
+    two hands are both visible (the left one mirrored by the loader), so
+    DATASET_SAMPLES samples, and anno_training.pickle."""
+    from PIL import Image
+    color = os.path.join(root, "RHD", "training", "color")
+    os.makedirs(color)
+    anno = {}
+    for i in range(DATASET_SAMPLES // 2):
+        Image.fromarray(frame(320, 320, i)).save(
+            os.path.join(color, f"{i:05d}.png"), compress_level=1)
+        uv = rng.uniform(80, 240, (42, 2))
+        anno[i] = {"xyz": (rng.randn(42, 3) * 0.03 + [0, 0, 0.6]).astype(
+                       np.float32),
+                   "uv_vis": np.concatenate([uv, np.ones((42, 1))], 1).astype(
+                       np.float32),
+                   "K": np.eye(3, dtype=np.float32)}
+    with open(os.path.join(root, "RHD", "training", "anno_training.pickle"),
+              "wb") as f:
+        pickle.dump(anno, f)
+
+
+def median_ms(fn, reps=3):
+    """Median wall time of ``fn`` in ms, the card synchronised."""
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    return 1e3 * float(np.median(times))
+
+
+def dataset_stages_ms(ds):
+    """A loader's cost of one batch of 96 by stage (median of 3): PIL's
+    decode, the label math and FreiHAND's colour jitter on the host, the
+    upload (and the warp) on the card, and the whole batch as the
+    dataset makes it."""
+    if isinstance(ds, stb.STBDataset):
+        return loader_stages_ms(ds)
+    idxs = np.arange(TRAIN_BATCH)
+    dev = ds.device
+    if isinstance(ds, freihand.FreiHANDDataset):
+        images = np.stack([ds._load_image(i) for i in idxs]).astype(
+            np.float32) / 127.5 - 1.0
+        labels = np.stack([ds.sample_labels(i) for i in idxs])
+        stages = {
+            "PIL decode (host)": lambda: [ds._load_image(i) for i in idxs],
+            "labels (host)": lambda: [ds.sample_labels(i) for i in idxs],
+            "color jitter (host)": lambda: color_jitter_np(
+                np.random.RandomState(0), images),
+            "upload (card)": lambda: (to_device(images, dev),
+                                      to_device(labels, dev))}
+    else:
+        if isinstance(ds, ho3d.HO3DDataset):
+            paths = [ds.samples[i][0] for i in idxs]
+
+            def sample(i):
+                rgb, meta = ds.samples[i]
+                return ds._load_image(rgb), ds.sample_labels(meta)[1]
+            labels_fn = ("labels (host)",
+                         lambda: [ds.sample_labels(ds.samples[i][1])
+                                  for i in idxs])
+        else:
+            if isinstance(ds, mhp.MHPDataset):
+                seqs = [(ds.sequences[si], fi)
+                        for si, fi in (ds.index[i] for i in idxs)]
+                paths = [seq.frames[fi][0] for seq, fi in seqs]
+
+                def sample(i):
+                    seq, fi = seqs[i]
+                    return seq.get_sample(fi)[:2]
+            else:
+                paths = [os.path.join(ds.color_dir,
+                                      f"{ds.samples[i][0]:05d}.png")
+                         for i in idxs]
+
+                def sample(i):
+                    return ds.get_sample(i)[:2]
+            labels_fn = ("decode and labels (host)",
+                         lambda: [sample(i) for i in idxs])
+        got = [sample(i) for i in idxs]
+        frames = [f for f, _ in got]
+        j2d = np.stack([j for _, j in got])
+        stages = {
+            "PIL decode (host)": lambda: [load_rgb(p) for p in paths],
+            labels_fn[0]: labels_fn[1],
+            "upload and warp (card)": lambda: preprocess.crop_frames(
+                frames, j2d, dev)}
+    stages["whole batch"] = lambda: next(iter(ds))
+    return {k: median_ms(fn) for k, fn in stages.items()}
+
+
+def demo_vs_plain(tag, opt, eval_set, card):
+    """DemoRunner on ``eval_set``'s sequence: 3 attention_fwd launches a
+    frame and no backward, finite MPJPE, ACC and AUC, its frames/s; the
+    same sequence on the plain attention path: MPJPE within 1e-2
+    relative, AUC within 1e-3 of its full scale, ACC printed.  Returns
+    the launches."""
+    loader = demo.demo_loader(eval_set, opt)
+    runner = demo.DemoRunner(dataclasses.replace(
+        opt, result_dir=os.path.join("build", f"chip_smoke_demo_{eval_set}")),
+        loader=loader)
+    reset_counts()
+    t0 = time.perf_counter()
+    got = runner.demo()
+    dt = time.perf_counter() - t0
+    fwd = flash_attention.launches
+    print(f"[{tag}] DemoRunner on {eval_set} ({got['frames']} frames) in "
+          f"{dt * 1e3:.1f} ms: {got['frames'] / dt:.1f} frames/s (batch 1, "
+          f"the sequence's get_sample included); attention_fwd launches "
+          f"{fwd}; card {card}")
+    assert fwd == 3 * got["frames"] and attention_bwd.launches == 0, fwd
+    assert all(np.isfinite(got[k]) for k in ("mpjpe_mm", "acc", "auc")), got
+    before = flash_attention.launches
+    plain = demo.DemoRunner(dataclasses.replace(
+        opt, use_pallas_attention=False, result_dir=os.path.join(
+            "build", f"chip_smoke_demo_{eval_set}_plain")),
+        loader=demo.demo_loader(eval_set, opt)).demo()
+    assert flash_attention.launches == before, "plain path launched"
+    d_mpjpe = abs(got["mpjpe_mm"] - plain["mpjpe_mm"]) / plain["mpjpe_mm"]
+    d_auc = abs(got["auc"] - plain["auc"]) / 100
+    d_acc = abs(got["acc"] - plain["acc"]) / max(abs(plain["acc"]), 1e-30)
+    print(f"[{tag}] demo {eval_set}, kernel vs plain attention path: MPJPE "
+          f"{got['mpjpe_mm']:.4f} vs {plain['mpjpe_mm']:.4f} mm (relative "
+          f"{d_mpjpe:.2e}, bound 1e-2), AUC {got['auc']:.4f} vs "
+          f"{plain['auc']:.4f} (difference {d_auc:.2e} of the full scale, "
+          f"bound 1e-3), ACC {got['acc']:.4f} vs {plain['acc']:.4f} "
+          f"(relative {d_acc:.2e})")
+    assert d_mpjpe <= 1e-2 and d_auc <= 1e-3, (d_mpjpe, d_auc)
+    return fwd
+
+
+def evaluator_vs_plain(tag, opt, eval_set, card):
+    """The Evaluator on ``eval_set`` at bs 96: 3 launches a batch, none
+    backward, finite metrics, crops/s; the same batches on the plain
+    attention path within the stb phase's bounds.  Returns the
+    launches."""
+    ev_opt = dataclasses.replace(
+        opt, eval_dataset=eval_set,
+        result_dir=os.path.join("build", f"chip_smoke_eval_{eval_set}"))
+    ev = Evaluator(ev_opt, image_size=IMAGE)
+    reset_counts()
+    t0 = time.perf_counter()
+    result = ev.eval()
+    dt = time.perf_counter() - t0
+    fwd = flash_attention.launches
+    n_batches = DATASET_SAMPLES // TRAIN_BATCH
+    print(f"[{tag}] Evaluator on {eval_set} ({n_batches} batches of "
+          f"{TRAIN_BATCH}) in {dt * 1e3:.1f} ms: "
+          f"{n_batches * TRAIN_BATCH / dt:.1f} crops/s (loader included); "
+          f"attention_fwd launches {fwd}; card {card}")
+    assert fwd == 3 * n_batches and attention_bwd.launches == 0, fwd
+    assert np.isfinite(result["mpjpe_mm"]) and np.isfinite(result["auc"])
+    assert ((result["pck"] >= 0) & (result["pck"] <= 100)).all()
+    batches = list(make_dataset(ev_opt, IMAGE, training=False))
+    before = flash_attention.launches
+    plain = Evaluator(dataclasses.replace(
+        ev_opt, use_pallas_attention=False, result_dir=os.path.join(
+            "build", f"chip_smoke_eval_{eval_set}_plain")), image_size=IMAGE,
+        dataset=batches).eval()
+    assert flash_attention.launches == before, "plain path launched"
+    d_auc = abs(result["auc"] - plain["auc"]) / 100
+    d_mpjpe = abs(result["mpjpe_mm"] - plain["mpjpe_mm"]) / plain["mpjpe_mm"]
+    print(f"[{tag}] {eval_set}, kernel vs plain attention path, the same "
+          f"batches: MPJPE {result['mpjpe_mm']:.4f} vs "
+          f"{plain['mpjpe_mm']:.4f} mm (relative {d_mpjpe:.2e}, bound 1e-2), "
+          f"AUC {result['auc']:.4f} vs {plain['auc']:.4f} (difference "
+          f"{d_auc:.2e} of the full scale, bound 1e-3)")
+    assert d_mpjpe <= 1e-2 and d_auc <= 1e-3, (d_mpjpe, d_auc)
+    return fwd
+
+
+def phase_datasets(rng):
+    """The canonical run at --stage 2 --synthetic_data False through the
+    FreiHAND, HO-3D, STB, MHP and RHD loaders; the Evaluator on frei and
+    ho3d from its checkpoint; the demo on STB and MHP."""
+    card = card_line()
+    os.makedirs("build", exist_ok=True)
+    with tempfile.TemporaryDirectory(prefix="datasets_", dir="build") as root:
+        t0 = time.perf_counter()
+        write_stb_tree(os.path.join(root, "STB"), rng)
+        for writer in (write_frei_tree, write_ho3d_tree, write_mhp_tree,
+                       write_rhd_tree):
+            writer(root, rng)
+        print(f"[datasets] wrote an STB tree ({4 * STB_FRAMES} frames) and "
+              f"FreiHAND, HO-3D, MHP and RHD trees of {DATASET_SAMPLES} "
+              f"samples beside it in {time.perf_counter() - t0:.1f} s")
+        opt = dataclasses.replace(DATASETS_TRAIN,
+                                  data_dir=os.path.join(root, "STB"))
+
+        t0 = time.perf_counter()
+        trainer = Trainer(opt, image_size=IMAGE)
+        loader = trainer.train_loader
+        names = [type(d).__name__ for d in loader.datasets]
+        assert names == ["FreiHANDDataset", "HO3DDataset", "STBDataset",
+                         "MHPDataset", "RHDDataset"], names
+        assert len(loader) == DATASET_SAMPLES // TRAIN_BATCH, len(loader)
+        print(f"[datasets] trainer built in {time.perf_counter() - t0:.1f} s "
+              f"(--stage 2 --synthetic_data False: {', '.join(names)}; "
+              f"{len(loader)} tuples an epoch)")
+        for ds in loader.datasets:
+            stages = dataset_stages_ms(ds)
+            print(f"[datasets] {type(ds).__name__} loader ms per batch of "
+                  f"{TRAIN_BATCH} (median of 3): " + ", ".join(
+                      f"{k} {v:.3f}" for k, v in stages.items())
+                  + f"; card {card}")
+
+        # every member step recorded: its label width and its loss
+        seen = []
+        step = trainer.train_step
+
+        def recording_step(state, batch):
+            stats = step(state, batch)
+            seen.append((batch["label"].shape[1], stats["loss"]))
+            return stats
+
+        trainer.train_step = recording_step
+        log = os.path.join(opt.checkpoint_folder, "metrics.csv")
+        if os.path.exists(log):
+            os.remove(log)
+        n_steps = opt.epoch * len(loader) * len(names)
+        reset_counts()
+        t0 = time.perf_counter()
+        trainer.train()
+        fwd, bwd = flash_attention.launches, attention_bwd.launches
+        trainer.train_step = step
+        print(f"[datasets] {opt.epoch} epochs x {len(loader)} tuples of "
+              f"{len(names)} member steps in {time.perf_counter() - t0:.1f} "
+              f"s; attention_fwd launches {fwd}, attention_bwd launches "
+              f"{bwd}")
+        assert fwd == 3 * n_steps and bwd == 3 * n_steps, (fwd, bwd, n_steps)
+        FWD.result["launches"] += fwd
+        BWD.result["launches"] += bwd
+        widths = [w for w, _ in seen]
+        losses = [float(l) for _, l in seen]
+        assert widths == list(STAGE2_WIDTHS) * (n_steps // len(names)), \
+            widths
+        assert np.isfinite(losses).all(), losses
+        with open(log) as f:
+            rows = [float(r["loss"]) for r in csv.DictReader(f)]
+        assert len(rows) == opt.epoch * len(loader), rows
+        np.testing.assert_allclose(
+            rows, np.reshape(losses, (len(rows), -1)).mean(1), rtol=1e-4)
+        path = os.path.join(opt.checkpoint_folder, checkpoint.FINAL_NAME)
+        assert os.path.exists(path), path
+        print(f"[datasets] member losses (label width): " + ", ".join(
+            f"{l:.1f} ({w})" for w, l in seen) + f"; each metrics.csv row "
+            f"the mean of its tuple's {len(names)}; {path}")
+
+        # the rate through the five loaders, as Trainer.train feeds the
+        # step: a window of 2 epochs, then 2 epochs each step synchronised
+        state = trainer.state
+
+        def epochs(k, sync):
+            ends = []
+            for _ in range(k):
+                for batches in prefetch_to_device(loader, trainer.device):
+                    for batch in batches:
+                        step(state, batch)
+                        if sync:
+                            torch.cuda.synchronize()
+                            ends.append(time.perf_counter())
+            torch.cuda.synchronize()
+            return ends
+
+        epochs(1, False)
+        t0 = time.perf_counter()
+        epochs(2, False)
+        dt = time.perf_counter() - t0
+        member_steps = 2 * len(loader) * len(names)
+        rate = member_steps * TRAIN_BATCH / dt
+        t0 = time.perf_counter()
+        gaps = np.diff([t0] + epochs(2, True))
+        _, busy_pct = device_profile(
+            "datasets", lambda: epochs(1, False),
+            f"1 epoch of {len(loader)} stage-2 tuples through the loaders")
+        print(f"[datasets] stage-2 training: {rate:.1f} crops/s "
+              f"({member_steps} member steps of {TRAIN_BATCH}), p50 member "
+              f"step {1e3 * np.median(gaps):.3f} ms, mean "
+              f"{1e3 * gaps.mean():.3f} ms (the loader's wait included), "
+              f"device idle {100 - busy_pct:.1f}% of a profiled epoch; card "
+              f"{card}")
+
+        ck = dataclasses.replace(opt, checkpoint_path_eval=path)
+        for eval_set in ("frei", "ho3d"):
+            FWD.result["launches"] += evaluator_vs_plain(
+                "datasets", ck, eval_set, card)
+        for eval_set in ("STB", "MHP"):
+            FWD.result["launches"] += demo_vs_plain(
+                "datasets", ck, eval_set, card)
+
+
+def phase_group_norm(rng, synth):
+    """The flagship with --norm_layer group: serving at buckets 1 and 64
+    against the same predictor on the plain attention path and against
+    BatchNorm's p50 latencies in this run; 8 synthetic training steps at
+    bs 96 (3 + 3 launches a step, a falling loss, one step against the
+    plain attention path), its rate beside the train phase's."""
+    card = card_line()
+    gn = dataclasses.replace(FLAGSHIP, norm_layer="group")
+    preds = {"group": HandPosePredictor.from_checkpoint(gn, image_size=IMAGE),
+             "batch": HandPosePredictor.from_checkpoint(FLAGSHIP,
+                                                        image_size=IMAGE)}
+    pred = preds["group"]
+    assert sum(isinstance(m, torch.nn.GroupNorm)
+               for m in pred.model.modules()) == 53   # resnet50's norms
+    for p in preds.values():
+        p.warmup()
+    crops = {n: rng.randint(0, 256, (n, IMAGE, IMAGE, 3)).astype(np.uint8)
+             for n in (1, 64)}
+    reset_counts()
+    outs = {n: pred.predict(crops[n]) for n in crops}
+    fwd = flash_attention.launches
+    print(f"[group-norm] requests of 1 and 64 crops: attention_fwd launches "
+          f"{fwd}")
+    assert fwd == 3 * 2 and attention_bwd.launches == 0, fwd
+    FWD.result["launches"] += fwd
+    for n, out in outs.items():
+        check_output(out, n)
+    plain = HandPosePredictor.from_checkpoint(
+        dataclasses.replace(gn, use_pallas_attention=False), image_size=IMAGE)
+    before = flash_attention.launches
+    out_plain = plain.predict(crops[64])
+    assert flash_attention.launches == before, "plain path launched"
+    del plain
+    compare("group-norm", [(f"bf16 kernel vs plain attention, 64 crops, {k}",
+                            outs[64][k], out_plain[k], None)
+                           for k in out_plain])
+    for b in (1, 64):
+        x = crops[b]
+        row = []
+        for name, p in preds.items():
+            chunk_t, req_t = [], []
+            for _ in range(20):
+                p.predict(x, chunk_device_times=chunk_t)
+                t0 = time.perf_counter()
+                p.predict(x)
+                req_t.append(time.perf_counter() - t0)
+            row.append(f"{name} norm p50 chunk {np.median(chunk_t) * 1e3:.3f} "
+                       f"ms, p50 request {np.median(req_t) * 1e3:.3f} ms")
+        print(f"[group-norm] bucket {b:2d} (20 requests each): "
+              + "; ".join(row) + f"; card {card}")
+    del preds, pred
+
+    opt = dataclasses.replace(
+        TRAIN, norm_layer="group", epoch=1, steps_per_epoch=8,
+        checkpoint_folder=os.path.join("build", "chip_smoke_group_norm"))
+    trainer = Trainer(opt, image_size=IMAGE)
+    log = os.path.join(opt.checkpoint_folder, "metrics.csv")
+    if os.path.exists(log):
+        os.remove(log)
+    reset_counts()
+    trainer.train()
+    fwd, bwd = flash_attention.launches, attention_bwd.launches
+    print(f"[group-norm] {opt.steps_per_epoch} training steps at bs "
+          f"{opt.batch_size}: attention_fwd launches {fwd}, attention_bwd "
+          f"launches {bwd}")
+    assert fwd == 3 * 8 and bwd == 3 * 8, (fwd, bwd)
+    FWD.result["launches"] += fwd
+    BWD.result["launches"] += bwd
+    with open(log) as f:
+        losses = [float(r["loss"]) for r in csv.DictReader(f)]
+    assert len(losses) == 8 and np.isfinite(losses).all(), losses
+    print(f"[group-norm] losses {', '.join(f'{x:.1f}' for x in losses)}")
+    assert np.mean(losses[-2:]) < np.mean(losses[:2]), losses
+    batches = list(trainer.train_loader)[:2]
+    step_vs_plain("group-norm", trainer.model, batches[0])
+    got = train_rate("group-norm", trainer.state, trainer.train_step,
+                     batches)
+    print(f"[group-norm] training, group vs batch norm in this run: "
+          f"{got['rate']:.1f} vs {synth['rate']:.1f} crops/s, p50 step "
+          f"{got['p50']:.3f} vs {synth['p50']:.3f} ms, device busy "
+          f"{got['busy']:.3f} vs {synth['busy']:.3f} ms a step; card {card}")
 
 
 def favor_operands(b, h, t, e, m, dtype, seed):
@@ -1250,7 +1748,8 @@ def phase_vip_serve(rng):
     outs = {n: pred.predict(crops[n]) for n in REQUESTS}
     st, ap = favor_stats.launches, favor_apply.launches
     chunks = sum(n_chunks(n, big) for n in REQUESTS)
-    STATS.result["launches"], APPLY.result["launches"] = st, ap
+    STATS.result["launches"] += st
+    APPLY.result["launches"] += ap
     print(f"[vip-serve] requests {list(REQUESTS)} uint8: {chunks} forward "
           f"chunks, favor_stats launches {st}, favor_apply launches {ap}, "
           f"attention launches {flash_attention.launches} + "
@@ -1554,7 +2053,13 @@ def phase_serve(pred, crops):
     assert not any(t.is_alive() for t in threads), "server thread alive"
 
 
-def main():
+# a phase's inputs come from the phase named here, which a partial run
+# adds
+NEEDS = {"profile": "slice", "serve": "slice", "stb": "train",
+         "group-norm": "train", "vip-eval": "vip-train"}
+
+
+def main(argv):
     if not torch.cuda.is_available():
         sys.exit("chip_smoke.py: no CUDA device; the port's smoke run "
                  "needs one")
@@ -1562,29 +2067,33 @@ def main():
     torch.backends.cudnn.allow_tf32 = False
     t_start = time.perf_counter()
     rng = np.random.RandomState(0)
-    phases = [("build", phase_build), ("kernels", phase_kernels)]
+    state = {}
+    phases = [
+        ("build", phase_build),
+        ("kernels", phase_kernels),
+        ("slice", lambda: state.update(served=phase_slice(rng))),
+        ("profile", lambda: phase_profile(state["served"][0], rng)),
+        ("serve", lambda: phase_serve(*state.pop("served"))),
+        ("train", lambda: state.update(synth=phase_train(rng))),
+        ("stb", lambda: phase_stb(rng, state["synth"])),
+        ("datasets", lambda: phase_datasets(rng)),
+        ("group-norm", lambda: phase_group_norm(rng, state["synth"])),
+        ("favor", phase_favor_kernels),
+        ("vip-serve", lambda: phase_vip_serve(rng)),
+        ("vip-train", lambda: state.update(vip=phase_vip_train(rng))),
+        ("vip-eval", lambda: phase_vip_eval(*state["vip"]))]
+    names = [name for name, _ in phases]
+    chosen = set(argv) or set(names)
+    unknown = chosen - set(names)
+    if unknown:
+        sys.exit(f"chip_smoke.py: unknown phase(s) {sorted(unknown)}; the "
+                 f"phases are {', '.join(names)}")
+    chosen |= {"build"} | {NEEDS[n] for n in chosen if n in NEEDS}
+    for k in KERNELS:
+        k.result["launches"] = 0
     for name, fn in phases:
-        t0 = time.perf_counter()
-        fn()
-        print(f"[{name}] done in {time.perf_counter() - t0:.1f} s")
-    t0 = time.perf_counter()
-    pred, crops = phase_slice(rng)
-    print(f"[slice] done in {time.perf_counter() - t0:.1f} s")
-    phase_profile(pred, rng)
-    t0 = time.perf_counter()
-    phase_serve(pred, crops)
-    print(f"[serve] done in {time.perf_counter() - t0:.1f} s")
-    del pred, crops
-    t0 = time.perf_counter()
-    synth = phase_train(rng)
-    print(f"[train] done in {time.perf_counter() - t0:.1f} s")
-    vip = {}
-    for name, fn in (("stb", lambda: phase_stb(rng, synth)),
-                     ("favor", phase_favor_kernels),
-                     ("vip-serve", lambda: phase_vip_serve(rng)),
-                     ("vip-train",
-                      lambda: vip.update(trained=phase_vip_train(rng))),
-                     ("vip-eval", lambda: phase_vip_eval(*vip["trained"]))):
+        if name not in chosen:
+            continue
         torch.cuda.empty_cache()
         t0 = time.perf_counter()
         fn()
@@ -1592,6 +2101,10 @@ def main():
     print(f"[total] {time.perf_counter() - t_start:.1f} s")
 
     print(card_line())
+    if chosen != set(names):
+        # a partial run measures part of the kernels' keys: no result
+        print(f"[partial run of {', '.join(n for n in names if n in chosen)}]")
+        return
     print(json.dumps({"kernels": [
         {"name": k.name, "route": k.route, "source": k.source,
          "replaces": k.replaces, **{key: k.result[key] for key in (
@@ -1604,4 +2117,4 @@ def main():
 
 
 if __name__ == "__main__":
-    main()
+    main(sys.argv[1:])

@@ -1,4 +1,5 @@
-"""Shared loader plumbing (port of ``scat_tpu/data/common.py``).
+"""Shared loader plumbing (port of ``scat_tpu/data/common.py``), and the
+loaders' PIL decode.
 
 Every dataset iterates with torch-DataLoader(shuffle=True) semantics:
 each pass advances an epoch counter and takes a fresh deterministic
@@ -9,11 +10,30 @@ shard of every epoch at its share of the global batch.
 
 from __future__ import annotations
 
+import os
 from typing import Tuple
 
 import numpy as np
 
 EPOCH_STRIDE = 9973   # a prime stride decorrelates the per-epoch streams
+
+
+def sibling_root(data_dir: str, *names: str) -> str:
+    """The first of ``names`` that is a directory beside ``data_dir`` (the
+    STB tree of ``--data_dir``), else ``data_dir`` itself: where the
+    FreiHAND, HO-3D, MHP and RHD loaders find their trees."""
+    parent = os.path.dirname(data_dir.rstrip("/"))
+    for name in names:
+        if os.path.isdir(os.path.join(parent, name)):
+            return os.path.join(parent, name)
+    return data_dir
+
+
+def load_rgb(path: str) -> np.ndarray:
+    """A frame decoded by PIL as uint8 [H,W,3]."""
+    from PIL import Image
+    with Image.open(path) as im:
+        return np.asarray(im.convert("RGB"))
 
 
 def _process_topology() -> Tuple[int, int]:

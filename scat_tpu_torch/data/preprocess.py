@@ -197,6 +197,19 @@ def fused_crop_pipeline(images: torch.Tensor, joints_2d: torch.Tensor,
     return out, joints
 
 
+def crop_frames(frames, joints_2d: np.ndarray, device: torch.device
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Host frames (uint8 [H,W,3] arrays of one size) of right hands
+    uploaded to ``device`` and cropped about their 2D joints, no flip:
+    the HO-3D, MHP and RHD loaders' pixel work.  Returns (crops [B,224,
+    224,3] in [-1, 1], joints in crop pixels [B,21,2])."""
+    from scat_tpu_torch.data.prefetch import to_device
+    images = to_device(np.stack(frames), device)
+    return fused_crop_pipeline(
+        images, to_device(np.asarray(joints_2d, np.float32), device),
+        flip=False)
+
+
 def color_jitter(generator: torch.Generator, images: torch.Tensor,
                  brightness: float = 0.5, contrast: float = 0.5,
                  saturation: float = 0.5, hue: float = 0.1) -> torch.Tensor:

@@ -39,7 +39,8 @@ import torch.nn.functional as F
 from scat_tpu_torch.config import Options
 from scat_tpu_torch.data import native_loader, preprocess
 from scat_tpu_torch.data.common import (EPOCH_STRIDE, epoch_order,
-                                        local_batch_size, num_batches)
+                                        load_rgb, local_batch_size,
+                                        num_batches)
 from scat_tpu_torch.data.prefetch import to_device
 from scat_tpu_torch.devices import resolve_device
 from scat_tpu_torch.ops.geometry import (project_points_pinhole,
@@ -260,9 +261,7 @@ class STBDataset:
         return num_batches(len(self.image_paths), self.batch_size)
 
     def _load_image(self, path: str) -> np.ndarray:
-        from PIL import Image
-        with Image.open(path) as im:
-            return np.asarray(im.convert("RGB"))
+        return load_rgb(path)
 
     def sample_labels(self, index: int):
         """One sample's labels before the pixel work: 3D joints (SMPLX

@@ -116,8 +116,8 @@ class Evaluator:
             flat_compat=opt.compat_pck_flat)
 
     def eval(self, eval_dataset: Optional[str] = None) -> dict:
-        """Evaluate on ``eval_dataset`` (STB; FreiHAND and HO-3D wait for
-        item 15), by default ``opt.eval_dataset``.  An injected
+        """Evaluate on ``eval_dataset`` ('STB', 'frei' or 'ho3d'), by
+        default ``opt.eval_dataset``.  An injected
         ``dataset`` is the data: a name beside it is an error."""
         if self.dataset is not None:
             if eval_dataset is not None:

@@ -16,19 +16,19 @@ feat_visual) when ``pl_reg``.
 
 Compute dtype, and where bf16 rounding happens.  The JAX package keeps
 every parameter in float32 and computes the backbone, the 1x1 conv and
-the transformer's Dense layers in bf16; BatchNorm and LayerNorm compute
-in float32 from float32 parameters and statistics (the BN output is
-rounded to bf16, the LN output is rounded by the Dense it feeds); the
-regressor is float32.  The port places the rounding at the same points
-in two ways:
+the transformer's Dense layers in bf16; BatchNorm (or GroupNorm) and
+LayerNorm compute in float32 from float32 parameters and statistics (the
+BN or GN output is rounded to bf16, the LN output is rounded by the
+Dense it feeds); the regressor is float32.  The port places the
+rounding at the same points in two ways:
   * ``set_compute_dtype(dtype)`` (training): parameters stay float32 and
     the backbone, conv and transformer run under ``torch.autocast``, which
     rounds the inputs and weights of every convolution and Linear to
     ``dtype``; BatchNorm takes the bf16 activation with its float32
-    parameters and statistics, LayerNorm runs in float32;
+    parameters and statistics, GroupNorm and LayerNorm run in float32;
   * ``cast_compute(dtype)`` (serving): the weights of the backbone, conv
-    and transformer are stored in ``dtype`` once, the BatchNorm and
-    LayerNorm modules stay float32.
+    and transformer are stored in ``dtype`` once, the BatchNorm,
+    GroupNorm and LayerNorm modules stay float32.
 Either way the transformer output and the backbone feature are cast to
 float32 before the regressor, which runs outside autocast.
 """
@@ -45,7 +45,7 @@ from scat_tpu_torch.models.transformer import (
     PyramidTransformer, random_token_mask, sinusoidal_position_encoding)
 
 NUM_TOKENS = 21  # one token per joint
-_NORM_LAYERS = (nn.BatchNorm2d, nn.LayerNorm)
+_NORM_LAYERS = (nn.BatchNorm2d, nn.GroupNorm, nn.LayerNorm)
 
 
 class EncoderTransformer(nn.Module):
@@ -91,8 +91,8 @@ class EncoderTransformer(nn.Module):
 
     def cast_compute(self, dtype: torch.dtype) -> "EncoderTransformer":
         """Store the weights of the backbone, 1x1 conv and transformer in
-        ``dtype`` (serving); BatchNorm and LayerNorm parameters and
-        statistics, and the regressor, stay float32."""
+        ``dtype`` (serving); the norm layers' parameters and statistics,
+        and the regressor, stay float32."""
         for m in (self.main_encoder, self.conv1x1_channel_reduction,
                   self.transformer):
             m.to(dtype)

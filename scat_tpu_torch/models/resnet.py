@@ -10,14 +10,17 @@ Differences from the JAX package that are not differences in value:
   * the stem is the plain 7x7/s2/pad-3 convolution; the JAX package's
     ``Conv7S2D`` is an exact space-to-depth rewrite of it for the TPU;
   * the stride sits on the 3x3 convolution of ``Bottleneck``, as there.
-Only ``norm_layer="batch"`` is ported: ``BatchNorm2d`` below, flax's
-``nn.BatchNorm`` (eps 1e-5, momentum 0.9, which is torch's 0.1) in train
-and eval mode.
+``norm_layer`` (``make_norm``, as the JAX package's): "batch" is
+``BatchNorm2d`` below, flax's ``nn.BatchNorm`` (eps 1e-5, momentum 0.9,
+which is torch's 0.1) in train and eval mode; "group" is ``GroupNorm``,
+flax's ``nn.GroupNorm`` with min(32, C) groups and eps 1e-5, the same in
+both modes.  Either keeps the reference's module names (``bn1``,
+``downsample.1``); GroupNorm has no running statistics.
 """
 
 from __future__ import annotations
 
-from typing import List, Sequence, Type, Union
+from typing import Callable, List, Sequence, Type, Union
 
 import torch
 import torch.nn.functional as F
@@ -55,6 +58,37 @@ class BatchNorm2d(nn.BatchNorm2d):
         return y
 
 
+class GroupNorm(nn.GroupNorm):
+    """flax's ``nn.GroupNorm(num_groups=min(32, C), epsilon=1e-5,
+    dtype=compute)`` (``scat_tpu/models/resnet.py:37-45``): the
+    statistics and the affine in float32 from float32 parameters, the
+    output in the input's dtype (bf16 under bf16 compute).
+
+    ``F.group_norm`` on CUDA works on NCHW-contiguous float32, so a
+    channels_last bf16 model pays a layout copy and a cast around each
+    norm; computing the statistics on the NHWC storage by hand was no
+    faster on the H100 (PERF.md section 6, PR 7)."""
+
+    def __init__(self, channels: int):
+        super().__init__(min(32, channels), channels, eps=1e-5)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return F.group_norm(x.float(), self.num_groups, self.weight,
+                            self.bias, self.eps).to(x.dtype)
+
+
+Norm = Callable[[int], nn.Module]
+NORMS = {"batch": BatchNorm2d, "group": GroupNorm}
+
+
+def make_norm(norm_layer: str) -> Norm:
+    """The normalisation of ``norm_layer``, "batch" or "group"."""
+    if norm_layer not in NORMS:
+        raise ValueError(f"norm_layer={norm_layer!r}: expected 'batch' or "
+                         "'group'")
+    return NORMS[norm_layer]
+
+
 def _conv3x3(cin: int, cout: int, stride: int = 1) -> nn.Conv2d:
     return nn.Conv2d(cin, cout, 3, stride=stride, padding=1, bias=False)
 
@@ -69,13 +103,13 @@ class BasicBlock(nn.Module):
     expansion = 1
 
     def __init__(self, inplanes: int, planes: int, stride: int = 1,
-                 downsample: nn.Module = None):
+                 downsample: nn.Module = None, norm: Norm = BatchNorm2d):
         super().__init__()
         self.conv1 = _conv3x3(inplanes, planes, stride)
-        self.bn1 = BatchNorm2d(planes)
+        self.bn1 = norm(planes)
         self.relu = nn.ReLU(inplace=True)
         self.conv2 = _conv3x3(planes, planes)
-        self.bn2 = BatchNorm2d(planes)
+        self.bn2 = norm(planes)
         self.downsample = downsample
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -91,14 +125,14 @@ class Bottleneck(nn.Module):
     expansion = 4
 
     def __init__(self, inplanes: int, planes: int, stride: int = 1,
-                 downsample: nn.Module = None):
+                 downsample: nn.Module = None, norm: Norm = BatchNorm2d):
         super().__init__()
         self.conv1 = _conv1x1(inplanes, planes)
-        self.bn1 = BatchNorm2d(planes)
+        self.bn1 = norm(planes)
         self.conv2 = _conv3x3(planes, planes, stride)
-        self.bn2 = BatchNorm2d(planes)
+        self.bn2 = norm(planes)
         self.conv3 = _conv1x1(planes, planes * self.expansion)
-        self.bn3 = BatchNorm2d(planes * self.expansion)
+        self.bn3 = norm(planes * self.expansion)
         self.relu = nn.ReLU(inplace=True)
         self.downsample = downsample
 
@@ -119,14 +153,11 @@ class ResNet(nn.Module):
     def __init__(self, block: Block, stage_sizes: Sequence[int],
                  norm_layer: str = "batch"):
         super().__init__()
-        if norm_layer != "batch":
-            raise NotImplementedError(
-                f"norm_layer={norm_layer!r}: only 'batch' is ported "
-                "(ROADMAP.md queue 1 item 4)")
+        self.norm = make_norm(norm_layer)
         self.block = block
         self.inplanes = 64
         self.conv1 = nn.Conv2d(3, 64, 7, stride=2, padding=3, bias=False)
-        self.bn1 = BatchNorm2d(64)
+        self.bn1 = self.norm(64)
         self.relu = nn.ReLU(inplace=True)
         self.maxpool = nn.MaxPool2d(3, stride=2, padding=1)
         self.layer1 = self._make_layer(64, stage_sizes[0])
@@ -141,11 +172,12 @@ class ResNet(nn.Module):
         downsample = None
         if stride != 1 or self.inplanes != out:
             downsample = nn.Sequential(_conv1x1(self.inplanes, out, stride),
-                                       BatchNorm2d(out))
+                                       self.norm(out))
         layers: List[nn.Module] = [
-            self.block(self.inplanes, planes, stride, downsample)]
+            self.block(self.inplanes, planes, stride, downsample, self.norm)]
         self.inplanes = out
-        layers += [self.block(out, planes) for _ in range(1, blocks)]
+        layers += [self.block(out, planes, norm=self.norm)
+                   for _ in range(1, blocks)]
         return nn.Sequential(*layers)
 
     def forward(self, x: torch.Tensor):

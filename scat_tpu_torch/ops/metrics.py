@@ -1,13 +1,13 @@
-"""Evaluation metrics: MPJPE, PCK, AUC (port of
-``scat_tpu/ops/metrics.py:24-93,141-163``).
+"""Evaluation metrics: MPJPE, PCK, AUC, acceleration (port of
+``scat_tpu/ops/metrics.py``).
 
 Reference formulas: PCK over 20-50 mm thresholds (reference
 eval.py:300-316, with the ``dist.flat`` quirk behind ``flat_compat``),
 AUC by the trapezoid rule on normalized thresholds (eval.py:328-348),
-MPJPE (eval.py:1026-1027).  As in the JAX package, samples are excluded
-by a per-sample ``valid`` mask ([B] in {0,1}) instead of the reference's
-slicing, so shapes stay static.  The acceleration metrics wait for the
-temporal stage (ROADMAP.md queue 1 item 14).
+MPJPE (eval.py:1026-1027), acceleration and acceleration error
+(data_utils/eval_utils.py:6-48).  As in the JAX package, samples (and
+frames) are excluded by a ``valid`` (``vis``) mask in {0,1} instead of
+the reference's slicing, so shapes stay static.
 """
 
 from __future__ import annotations
@@ -76,6 +76,45 @@ def pck_auc(pred_joints: torch.Tensor, gt_joints: torch.Tensor,
     pck = cal_pck(pred_joints, gt_joints, rnge, flat_compat, valid)
     r = torch.as_tensor(rnge, dtype=torch.float32, device=pck.device)
     return pck, area_under_curve(r / r.max(), pck[:, -1])
+
+
+def compute_accel(joints: torch.Tensor) -> torch.Tensor:
+    """Mean joint acceleration magnitude per frame, ``[N,J,3] -> [N-2]``
+    (reference data_utils/eval_utils.py:6-17)."""
+    velocities = joints[1:] - joints[:-1]
+    accel = velocities[1:] - velocities[:-1]
+    return torch.linalg.norm(accel, dim=2).mean(dim=1)
+
+
+def compute_error_accel(joints_gt: torch.Tensor, joints_pred: torch.Tensor,
+                        vis: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Acceleration error against the ground truth, ``[N-2]`` (reference
+    data_utils/eval_utils.py:20-48); where the reference drops the
+    windows with an invisible frame, they are zero here (the masked mean
+    is ``accel_error_mean``)."""
+    accel_gt = joints_gt[:-2] - 2 * joints_gt[1:-1] + joints_gt[2:]
+    accel_pred = joints_pred[:-2] - 2 * joints_pred[1:-1] + joints_pred[2:]
+    normed = torch.linalg.norm(accel_pred - accel_gt, dim=2).mean(dim=1)
+    if vis is not None:
+        normed = normed * _accel_vis_mask(vis)
+    return normed
+
+
+def _accel_vis_mask(vis: torch.Tensor) -> torch.Tensor:
+    """A window counts only if frames i, i+1 and i+2 are all visible
+    (reference eval_utils.py:42-46)."""
+    invis = ~vis.bool()
+    return (~(invis[:-2] | invis[1:-1] | invis[2:])).float()
+
+
+def accel_error_mean(joints_gt: torch.Tensor, joints_pred: torch.Tensor,
+                     vis: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The mean acceleration error over the visible windows."""
+    errs = compute_error_accel(joints_gt, joints_pred)
+    if vis is None:
+        return errs.mean()
+    mask = _accel_vis_mask(vis)
+    return (errs * mask).sum() / mask.sum().clamp(min=1.0)
 
 
 def valid_sample_mask(images: torch.Tensor, threshold: float = 2000.0

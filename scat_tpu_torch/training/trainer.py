@@ -12,12 +12,12 @@ step stays asynchronous: losses accumulate on the device and reach the
 host only at the log boundary.
 
 It trains on the synthetic task (``--synthetic_data True``, the JAX
-package's ``data/synthetic.py``) or on STB (``--synthetic_data False
---stage 3 --data_dir <tree>``), whose loader runs behind
-``data/prefetch.prefetch_to_device``.  Flags whose feature is not ported
-raise and name their ROADMAP.md item (``UNPORTED_FLAGS``; the other
-stages and the FreiHAND and HO-3D evaluation sets in ``make_dataset``);
-none is ignored.  ``--donate_state`` has nothing to do: the state is
+package's ``data/synthetic.py``) or on the mix of ``--stage`` 1-6
+(``--synthetic_data False --data_dir <STB tree>``, the other datasets'
+trees beside it: FreiHAND, HO-3D, STB, MHP, RHD), whose loaders run
+behind ``data/prefetch.prefetch_to_device``.  Flags whose feature is not
+ported raise and name their ROADMAP.md item (``UNPORTED_FLAGS``); none is
+ignored.  ``--donate_state`` has nothing to do: the state is
 updated in place.
 """
 
@@ -80,9 +80,9 @@ def check_flags(opt: Options) -> None:
 def make_dataset(opt: Options, image_size: int, training: bool = True,
                  device=None):
     """The batches of ``opt`` on ``device``: the synthetic task, the
-    training mix of ``--stage`` (stage 3: STB), or the evaluation set of
-    ``--eval_dataset`` (STB), each at this process's share of
-    ``--batch_size``."""
+    training mix of ``--stage``, or the evaluation set of
+    ``--eval_dataset`` (STB, frei or ho3d), each at this process's share
+    of ``--batch_size``."""
     lbs = local_batch_size(opt.batch_size)
     if opt.synthetic_data:
         return SyntheticDataset(
@@ -93,10 +93,17 @@ def make_dataset(opt: Options, image_size: int, training: bool = True,
     if training:
         from scat_tpu_torch.data.multi import concat_dataset
         return concat_dataset(lbs, opt, device=device)
-    if opt.eval_dataset in ("frei", "ho3d"):
-        raise NotImplementedError(
-            f"--eval_dataset {opt.eval_dataset}: the loader is not ported to "
-            "scat_tpu_torch yet (ROADMAP.md queue 1 item 15); STB is")
+    if opt.eval_dataset == "frei":
+        # stage "training" picks the labelled split, which the reference
+        # evaluates (eval.py:793-795); eval batches are neither shuffled
+        # nor jittered
+        from scat_tpu_torch.data.freihand import get_loader_frei
+        return get_loader_frei("training", lbs, opt, shuffle=False,
+                               color_jitter=False, device=device)
+    if opt.eval_dataset == "ho3d":
+        from scat_tpu_torch.data.ho3d import get_loader_ho3d
+        return get_loader_ho3d("training", lbs, opt, shuffle=False,
+                               device=device)
     from scat_tpu_torch.data.stb import get_loader_STB_eval
     return get_loader_STB_eval(opt, device=device)
 

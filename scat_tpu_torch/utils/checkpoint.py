@@ -62,7 +62,7 @@ def init_weights(model: nn.Module, seed: int = 0) -> None:
                                       b=2 * std, generator=gen)
                 if m.bias is not None:
                     nn.init.zeros_(m.bias)
-            elif isinstance(m, (nn.BatchNorm2d, nn.LayerNorm)):
+            elif isinstance(m, (nn.BatchNorm2d, nn.GroupNorm, nn.LayerNorm)):
                 nn.init.ones_(m.weight)
                 nn.init.zeros_(m.bias)
                 if isinstance(m, nn.BatchNorm2d):

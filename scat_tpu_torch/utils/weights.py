@@ -86,14 +86,26 @@ class _Exporter:
             self.out[torch_name] = v
 
 
+def _norm(v, flax_path, torch_name) -> None:
+    """A BatchNorm, or the GroupNorm of ``norm_layer="group"``, whose
+    ``_GN`` wrapper (``scat_tpu/models/resnet.py:37-45``) nests its
+    ``GroupNorm_0`` one level down and has no running statistics."""
+    gn = flax_path + ("GroupNorm_0",)
+    if v.has(gn):
+        v.ln(gn, torch_name)
+    else:
+        v.bn(flax_path, torch_name)
+
+
 def _walk_resnet(v) -> None:
     """The backbone under ``main_encoder`` (torchvision key layout; fc1
     is the reference's replacement head).  The walk covers resnet50's
     stages; blocks and convs absent from the tree (resnet18) are
-    skipped."""
+    skipped.  A block's norms are auto-named ``BatchNorm_<i>``, or
+    ``_GN_<i>`` under GroupNorm."""
     fp, tp = ("main_encoder",), "main_encoder."
     v.conv(fp + ("conv1",), tp + "conv1")
-    v.bn(fp + ("bn1",), tp + "bn1")
+    _norm(v, fp + ("bn1",), tp + "bn1")
     for stage, blocks in enumerate((3, 4, 6, 3)):
         for b in range(blocks):
             fb = fp + (f"layer{stage + 1}_{b}",)
@@ -102,10 +114,13 @@ def _walk_resnet(v) -> None:
                 if not v.has(fb + (f"Conv_{ci - 1}",)):
                     continue
                 v.conv(fb + (f"Conv_{ci - 1}",), f"{tb}.conv{ci}")
-                v.bn(fb + (f"BatchNorm_{ci - 1}",), f"{tb}.bn{ci}")
+                norm = fb + (f"BatchNorm_{ci - 1}",)
+                if not v.has(norm):
+                    norm = fb + (f"_GN_{ci - 1}",)
+                _norm(v, norm, f"{tb}.bn{ci}")
             if v.has(fb + ("downsample_conv",)):
                 v.conv(fb + ("downsample_conv",), f"{tb}.downsample.0")
-                v.bn(fb + ("downsample_bn",), f"{tb}.downsample.1")
+                _norm(v, fb + ("downsample_bn",), f"{tb}.downsample.1")
     v.dense(fp + ("fc1",), tp + "fc1")
 
 

@@ -1,5 +1,6 @@
-"""The port's CUDA kernels, and its STB loader and Evaluator, on the card
-(marker ``cuda``; skipped without a CUDA device).
+"""The port's CUDA kernels, and its loaders, stage-2 mix, Evaluator,
+demo and GroupNorm flagship, on the card (marker ``cuda``; skipped
+without a CUDA device).
 
 This file imports neither JAX nor the JAX package, so it also runs on a
 machine that has only the port's stack.  There the repository's
@@ -14,16 +15,25 @@ import numpy as np
 import pytest
 import torch
 
+from scat_tpu_torch import assets
 from scat_tpu_torch.config import Options
 from scat_tpu_torch.data import stb
+from scat_tpu_torch.data.multi import concat_dataset
 from scat_tpu_torch.data.synthetic import SyntheticDataset
+from scat_tpu_torch.evaluation import demo
 from scat_tpu_torch.evaluation.evaluator import Evaluator
+from scat_tpu_torch.models.hand_net import EncoderTransformer
 from scat_tpu_torch.ops import favor
 from scat_tpu_torch.ops.attention import (attention_bwd,
                                           attention_bwd_reference,
                                           attention_reference, bf16_ulps,
                                           flash_attention)
-from stb_tree import TRAIN_SEQS, write_stb_tree
+from scat_tpu_torch.training import schedule, steps
+from scat_tpu_torch.training.state import TrainState
+from scat_tpu_torch.utils import checkpoint
+from dataset_trees import (write_frei_tree, write_ho3d_tree, write_mhp_tree,
+                           write_rhd_tree)
+from stb_tree import TRAIN_SEQS, _smooth, write_stb_tree
 
 pytestmark = pytest.mark.cuda
 
@@ -405,3 +415,106 @@ def test_evaluator_on_card_matches_cpu(cuda, tmp_path):
                                atol=100 / (4 * 21) + 1e-6)
     np.testing.assert_allclose(got["auc"], want["auc"],
                                atol=100 / (4 * 21) + 1e-6)
+
+
+def _stage2_trees(root):
+    write_stb_tree(root / "STB", TRAIN_SEQS, n=4)
+    write_frei_tree(root, n=8)
+    write_ho3d_tree(root, frames=4)
+    write_mhp_tree(root, frames=4)
+    write_rhd_tree(root, n=4)
+    return Options(stage=2, data_dir=str(root / "STB"), seed=3)
+
+
+def test_stage2_batches_on_card_equal_cpu(cuda, tmp_path):
+    """The first tuple of the stage-2 mix (FreiHAND with its jitter,
+    HO-3D, STB, MHP, RHD) made on the card equals the CPU's from the same
+    trees and seed, within 1e-4."""
+    opt = _stage2_trees(tmp_path)
+    got = next(iter(concat_dataset(2, opt, device=cuda)))
+    want = next(iter(concat_dataset(2, opt, device="cpu")))
+    assert [b["label"].shape[1] for b in got] == [166, 166, 105, 105, 105]
+    for g, w in zip(got, want):
+        for key in ("image", "label", "valid"):
+            assert g[key].is_cuda
+            torch.testing.assert_close(g[key].cpu(), w[key], atol=1e-4,
+                                       rtol=1e-5, msg=key)
+
+
+def test_stage2_train_steps_on_card(cuda, tmp_path):
+    """One bf16 train step per member of a stage-2 tuple on the card
+    (a resnet18 flagship at 224): 3 + 3 attention launches a step, finite
+    losses, both label widths through the same step."""
+    opt = _stage2_trees(tmp_path)
+    model = EncoderTransformer(
+        mean_params=torch.from_numpy(assets.load_mean_params()),
+        iteration=3, heads=8, backbone="resnet18", mask_rate=0.2,
+        use_kernel=True)
+    checkpoint.init_weights(model, seed=0)
+    model = model.to(cuda, memory_format=torch.channels_last)
+    model.set_compute_dtype(torch.bfloat16)
+    optimizer, scheduler = schedule.make_optimizer(model, 5e-4, 2)
+    state = TrainState.create(model, optimizer, scheduler, seed=0)
+    step = steps.make_train_step(1e5, 10.0)
+    batches = next(iter(concat_dataset(2, opt, device=cuda)))
+    for batch in batches:
+        fwd, bwd = flash_attention.launches, attention_bwd.launches
+        loss = float(step(state, batch)["loss"])
+        assert np.isfinite(loss), batch["label"].shape
+        assert flash_attention.launches - fwd == 3
+        assert attention_bwd.launches - bwd == 3
+    assert state.step == 5
+
+
+def _group_model(device, dtype=torch.float32):
+    model = EncoderTransformer(
+        mean_params=torch.from_numpy(assets.load_mean_params()),
+        iteration=3, heads=2, token_dim=64, backbone="resnet18",
+        norm_layer="group", use_kernel=True)
+    checkpoint.init_weights(model, seed=0)
+    model = model.to(device, memory_format=torch.channels_last)
+    return model.cast_compute(dtype).eval()
+
+
+def test_group_norm_forward_on_card(cuda):
+    """The GroupNorm flagship's eval forward on the card: float32 against
+    the CPU within 1e-3, bf16 (GroupNorm statistics in float32, bf16 out)
+    against float32 within 2% of the largest magnitude, 3 attention
+    launches a forward."""
+    x = torch.from_numpy(np.random.RandomState(0).randn(4, 3, 64, 64)
+                         .astype(np.float32) * 0.5)
+    with torch.no_grad():
+        want = _group_model("cpu")(x)[0]
+        got = _group_model(cuda)(x.to(cuda))[0].cpu()
+        before = flash_attention.launches
+        bf16 = _group_model(cuda, torch.bfloat16)(x.to(cuda))[0].cpu()
+    assert flash_attention.launches - before == 3
+    torch.testing.assert_close(got, want, atol=1e-3, rtol=0)
+    assert bf16.dtype == torch.float32
+    torch.testing.assert_close(bf16, want, rtol=0,
+                               atol=2e-2 * want.abs().max().item())
+
+
+def test_demo_on_card_matches_cpu(cuda, tmp_path):
+    """The demo in float32 on the card against the CPU, the same weights
+    (seed 0) and 18 frames: MPJPE, ACC and AUC within 1e-3 relative, 3
+    attention launches a frame."""
+    rng = np.random.RandomState(0)
+    j2d = np.stack([rng.uniform(40, 90, (18, 21)),
+                    rng.uniform(30, 66, (18, 21))], -1).astype(np.float32)
+    j3d = (rng.randn(18, 21, 3) * 0.03).astype(np.float32)
+    loader = demo.SequenceLoader(
+        np.stack([_smooth(96, 128, t) for t in range(18)]), j2d, j3d)
+    opt = Options(net="reg_transformer", vit_heads=2, iteration=3,
+                  compute_dtype="float32", checkpoint_path_eval="",
+                  result_dir=str(tmp_path / "gpu"))
+    before = flash_attention.launches
+    got = demo.DemoRunner(opt, loader=loader, image_size=64,
+                          device=cuda).demo()
+    assert flash_attention.launches - before == 3 * 18
+    cpu = dataclasses.replace(opt, result_dir=str(tmp_path / "cpu"))
+    want = demo.DemoRunner(cpu, loader=loader, image_size=64,
+                           device="cpu").demo()
+    for k in ("mpjpe_mm", "acc", "auc"):
+        np.testing.assert_allclose(got[k], want[k], rtol=1e-3, atol=1e-9,
+                                   err_msg=k)

@@ -1,8 +1,8 @@
 """The port's data side against the JAX package's, on the CPU: the loader
 geometry, every preprocess function, the heatmaps, the motion blur, the
 epoch plumbing, STBDataset (PIL path with rotation and motion blur, and
-the native path), the native glue's size guard, ConcatDataset and the
-stage mixes, the prefetcher, and the Trainer on an STB tree.
+the native path), the native glue's size guard, ConcatDataset, the
+prefetcher, and the Trainer on an STB tree.
 
 Inputs come from seeded numpy RandomStates and go through both
 packages; each tolerance is stated where it is used.  STB trees are
@@ -26,7 +26,7 @@ from scat_tpu.ops import geometry as jgeo
 from scat_tpu.ops import heatmap as jheat
 from scat_tpu_torch.config import Options
 from scat_tpu_torch.data import common, native_loader, preprocess, stb
-from scat_tpu_torch.data.multi import ConcatDataset, concat_dataset
+from scat_tpu_torch.data.multi import ConcatDataset
 from scat_tpu_torch.data.prefetch import PrefetchIterator, prefetch_to_device
 from scat_tpu_torch.ops import geometry, heatmap
 from scat_tpu_torch.training.trainer import Trainer
@@ -393,12 +393,6 @@ def test_concat_dataset_zips_and_refuses_empty():
     assert len(cd) == 2 and list(cd) == [(1, "x"), (2, "y")]
     with pytest.raises(ValueError, match="empty"):
         ConcatDataset([1, 2], [])
-
-
-@pytest.mark.parametrize("stage", [1, 2, 4, 5, 6])
-def test_unported_stages_name_item_15(stage):
-    with pytest.raises(NotImplementedError, match="item 15"):
-        concat_dataset(2, Options(stage=stage), device="cpu")
 
 
 def test_prefetch_early_exit_stops_the_worker():

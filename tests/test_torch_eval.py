@@ -1,7 +1,7 @@
 """The port's Evaluator against the JAX package's, in float32 on the
 CPU, and its surface: prints, eval_metrics.csv, the returned metrics, a
-ViP checkpoint's frozen projection, STB through ``make_dataset``, the
-flags it refuses, and the CLI's device rule.
+ViP checkpoint's frozen projection, STB, FreiHAND and HO-3D through
+``make_dataset``, the flags it refuses, and the CLI's device rule.
 
 One small EncoderTransformer (resnet18, 32x32 crops, 2 heads, iteration
 3) is initialised once in flax and carried into the port by
@@ -32,6 +32,7 @@ from scat_tpu_torch.evaluation import evaluator
 from scat_tpu_torch.models.hand_net import EncoderTransformer
 from scat_tpu_torch.models.performer import ViP
 from scat_tpu_torch.utils.weights import state_dict_from_flax
+from dataset_trees import write_frei_tree, write_ho3d_tree
 from stb_tree import EVAL_SEQS, write_stb_tree
 
 IMG, BS, N_BATCHES = 32, 8, 2
@@ -205,12 +206,46 @@ def test_unported_flags_name_their_item(tmp_path, flags, item):
         evaluator.Evaluator(_opt(tmp_path, **flags), device="cpu")
 
 
+@pytest.fixture(scope="module")
+def weights_224():
+    """(flax variables, state_dict) of the small model at 224x224 crops,
+    the size the FreiHAND and HO-3D loaders produce."""
+    x = np.zeros((1, 224, 224, 3), np.float32)
+    v = jax.jit(lambda x: _jmodel(224).init(
+        {"params": jax.random.key(0), "mask": jax.random.key(1)}, x,
+        train=False))(x)
+    flax = {"params": _unfreeze(v["params"]),
+            "batch_stats": _unfreeze(v["batch_stats"])}
+    return flax, state_dict_from_flax(flax["params"], flax["batch_stats"])
+
+
 @pytest.mark.parametrize("dataset", ["frei", "ho3d"])
-def test_unported_eval_sets_name_item_15(tmp_path, dataset, small_models):
-    ev = evaluator.Evaluator(_opt(tmp_path, synthetic_data=False),
-                             image_size=IMG, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 15"):
-        ev.eval(eval_dataset=dataset)
+def test_evaluator_on_frei_and_ho3d_matches_jax(tmp_path, dataset,
+                                                weights_224, small_models):
+    """``--eval_dataset frei|ho3d`` through make_dataset (the training
+    split, unshuffled and unjittered, as the reference evaluates it) and
+    the prefetcher on written trees beside --data_dir, against the JAX
+    package's Evaluator with the same weights: MPJPE and AUC within 1e-3
+    relative, two batches."""
+    write_frei_tree(tmp_path, n=4)
+    write_ho3d_tree(tmp_path, frames=4)
+    data_dir = str(tmp_path / "STB")
+    jopt = jconfig.Options(net="reg_transformer", vit_heads=2, iteration=3,
+                           batch_size=2, compute_dtype="float32",
+                           data_dir=data_dir, eval_dataset=dataset,
+                           result_dir=str(tmp_path / "jax"))
+    flax, sd = weights_224
+    want = jevaluator.Evaluator(jopt, image_size=224, variables=flax).eval()
+    opt = _opt(tmp_path, data_dir=data_dir, synthetic_data=False,
+               batch_size=2, eval_dataset=dataset)
+    got = evaluator.Evaluator(opt, image_size=224, state_dict=sd,
+                              device="cpu").eval()
+    assert np.isfinite(got["mpjpe_mm"]) and got["mpjpe_mm"] > 0
+    np.testing.assert_allclose(got["mpjpe_mm"], want["mpjpe_mm"], rtol=1e-3)
+    np.testing.assert_allclose(got["auc"], want["auc"], rtol=1e-3,
+                               atol=1e-6)
+    with open(os.path.join(opt.result_dir, "eval_metrics.csv")) as f:
+        assert len(f.read().splitlines()) == 1 + 2 + 1
 
 
 def test_save_pck_curve_skips_without_matplotlib(tmp_path, monkeypatch,

@@ -1,5 +1,6 @@
 """The port's model modules against the JAX package's, in float32 on the
-CPU, with the same weights carried by scat_tpu_torch.utils.weights.
+CPU, with the same weights carried by scat_tpu_torch.utils.weights; the
+ResNet with BatchNorm and with GroupNorm.
 
 Inputs come from a seeded numpy RandomState and go to both sides."""
 
@@ -244,3 +245,156 @@ def test_bf16_eval_forward_matches_jax_bf16(flax_encoder, rng):
     assert got.dtype == np.float32
     np.testing.assert_allclose(got, want, rtol=0,
                                atol=2e-2 * np.abs(want).max())
+
+
+# ---------------------------------------------------------------------------
+# norm_layer="group" (scat_tpu/models/resnet.py:27-48)
+
+@pytest.fixture(scope="module")
+def flax_group_encoder():
+    """One flax init of the small EncoderTransformer with GroupNorm."""
+    mean = assets.load_mean_params()
+    jm = JEncoder(mean_params=jnp.asarray(mean), iteration=2, heads=2,
+                  token_dim=16, backbone="resnet18", norm_layer="group")
+    x = np.zeros((1, 32, 32, 3), np.float32)
+    variables = jax.jit(lambda x: jm.init(jax.random.key(5), x,
+                                          train=False))(x)
+    params = _unfreeze(variables["params"])
+    # non-trivial affines, so that a swapped scale or bias shows
+    rng = np.random.RandomState(2)
+    for path, leaf in jax.tree_util.tree_flatten_with_path(params)[0]:
+        keys = [p.key for p in path]
+        if "GroupNorm_0" in keys:
+            node = params
+            for k in keys[:-1]:
+                node = node[k]
+            node[keys[-1]] = (leaf + rng.uniform(-0.3, 0.3, leaf.shape)
+                              ).astype(np.float32)
+    return mean, jm, params
+
+
+def _group_encoder(mean, **kw):
+    return EncoderTransformer(mean_params=torch.from_numpy(mean),
+                              iteration=2, heads=2, token_dim=16,
+                              backbone="resnet18", norm_layer="group", **kw)
+
+
+@pytest.mark.parametrize("channels", [16, 64, 256])
+def test_group_norm_matches_flax(rng, channels):
+    """The port's GroupNorm against flax's nn.GroupNorm with min(32, C)
+    groups and eps 1e-5, affine from the same numbers: within 1e-5; bf16
+    input keeps its dtype, float32 statistics."""
+    import flax.linen as fnn
+    x = (rng.randn(2, 5, 7, channels) * 3 + 1).astype(np.float32)
+    scale = rng.uniform(0.5, 1.5, channels).astype(np.float32)
+    bias = rng.randn(channels).astype(np.float32)
+    jm = fnn.GroupNorm(num_groups=min(32, channels), epsilon=1e-5)
+    want = jm.apply({"params": {"scale": scale, "bias": bias}}, x)
+    gn = resnet.GroupNorm(channels)
+    assert gn.num_groups == min(32, channels) and gn.eps == 1e-5
+    gn.load_state_dict({"weight": torch.from_numpy(scale),
+                        "bias": torch.from_numpy(bias)}, strict=True)
+    xt = torch.from_numpy(x.transpose(0, 3, 1, 2))
+    with torch.no_grad():
+        got = gn(xt)
+        got_bf16 = gn(xt.to(torch.bfloat16))
+    np.testing.assert_allclose(got.numpy().transpose(0, 2, 3, 1),
+                               np.asarray(want), atol=1e-5)
+    assert got_bf16.dtype == torch.bfloat16
+    np.testing.assert_allclose(got_bf16.float().numpy().transpose(0, 2, 3, 1),
+                               np.asarray(want), atol=5e-2)
+
+
+def test_group_norm_flagship_matches_flax(flax_group_encoder, rng,
+                                         tmp_path):
+    """The flagship with norm_layer="group" carried from flax by
+    state_dict_from_flax (``bn1/GroupNorm_0``, ``_GN_<i>/GroupNorm_0``,
+    ``downsample_bn/GroupNorm_0`` -> ``bnK`` and ``downsample.1``, no
+    running buffers), loaded strictly: the f32 forward in eval and train
+    mode (the same: no batch statistics) within 1e-3; a .pth of it loads
+    strictly into a fresh GroupNorm model."""
+    mean, jm, params = flax_group_encoder
+    sd = state_dict_from_flax(params)
+    path = str(tmp_path / "hand_net_final.pth")
+    torch.save({"state_dict": sd}, path)
+    loaded = _group_encoder(mean)
+    checkpoint.load_weights(loaded, path)
+    assert all(torch.equal(v, sd[k]) for k, v in loaded.state_dict().items())
+    assert "main_encoder.layer2.0.downsample.1.weight" in sd
+    assert "main_encoder.bn1.bias" in sd
+    assert not any("running" in k or "num_batches" in k for k in sd)
+    tm = _group_encoder(mean)
+    tm.load_state_dict(sd, strict=True)
+    x = (rng.randn(2, 32, 32, 3) * 0.5).astype(np.float32)
+    want = np.asarray(jax.jit(lambda p, x: jm.apply(
+        {"params": p}, x, train=False))(params, x)[0])
+    for mode in (tm.eval, tm.train):
+        mode()
+        with torch.no_grad():
+            got = tm(torch.from_numpy(x.transpose(0, 3, 1, 2)))[0].numpy()
+        np.testing.assert_allclose(got, want, atol=1e-3)
+
+
+def test_group_norm_bf16_and_cast_compute(flax_group_encoder, rng):
+    """bf16 serving keeps every GroupNorm float32 and matches the JAX
+    package's bf16 forward to 2% of the largest magnitude (the bound of
+    the bf16 BatchNorm case above)."""
+    mean, _, params = flax_group_encoder
+    jm = JEncoder(mean_params=jnp.asarray(mean), iteration=2, heads=2,
+                  token_dim=16, backbone="resnet18", norm_layer="group",
+                  dtype=jnp.bfloat16)
+    x = (rng.randn(2, 32, 32, 3) * 0.5).astype(np.float32)
+    want = np.asarray(jax.jit(lambda p, x: jm.apply(
+        {"params": p}, x, train=False))(params, x)[0])
+    tm = _group_encoder(mean)
+    tm.load_state_dict(state_dict_from_flax(params), strict=True)
+    tm.cast_compute(torch.bfloat16).eval()
+    norms = [m for m in tm.modules() if isinstance(m, resnet.GroupNorm)]
+    assert len(norms) == 20
+    assert all(m.weight.dtype == torch.float32 for m in norms)
+    assert tm.main_encoder.layer1[0].conv1.weight.dtype == torch.bfloat16
+    with torch.no_grad():
+        got = tm(torch.from_numpy(x.transpose(0, 3, 1, 2)))[0].numpy()
+    np.testing.assert_allclose(got, want, rtol=0,
+                               atol=2e-2 * np.abs(want).max())
+
+
+def test_group_norm_train_step_matches_jax(flax_group_encoder, rng):
+    """One float32 train step of the GroupNorm flagship against the JAX
+    package's make_train_step from the same weights and batch: the loss
+    within 1e-3 relative, the updated regressor and stem within 1e-5
+    (Adam moves a weight by about the learning rate, 5e-4)."""
+    from scat_tpu.training import schedule as jschedule
+    from scat_tpu.training import steps as jsteps
+    from scat_tpu.training.state import TrainState as JState
+    from scat_tpu_torch.training import schedule, steps
+    from scat_tpu_torch.training.state import TrainState
+    mean, jm, params = flax_group_encoder
+    offsets = mean[3:66].reshape(21, 3)
+    j3d = (offsets[None] + rng.randn(2, 21, 3) * 0.02).astype(np.float32)
+    j3d -= j3d[:, 1:2]
+    j2d = (rng.rand(2, 21, 2) * 180 + 22).astype(np.float32)
+    label = np.concatenate([j3d.reshape(2, 63), j2d.reshape(2, 42)], 1)
+    img = (rng.randn(2, 32, 32, 3) * 0.5).astype(np.float32)
+    tx = jschedule.make_optimizer(5e-4, 4)
+    jstate = JState.create(params, {}, tx, jax.random.key(1))
+    jstate, jstats = jax.jit(jsteps.make_train_step(jm, tx, 1e5, 10.0))(
+        jstate, {"image": jnp.asarray(img), "label": jnp.asarray(label),
+                 "valid": jnp.ones(2)})
+    tm = _group_encoder(mean)
+    tm.load_state_dict(state_dict_from_flax(params), strict=True)
+    opt, sched = schedule.make_optimizer(tm, 5e-4, 4)
+    state = TrainState.create(tm, opt, sched, seed=0)
+    stats = steps.make_train_step(1e5, 10.0)(state, {
+        "image": torch.from_numpy(img), "label": torch.from_numpy(label),
+        "valid": torch.ones(2)})
+    np.testing.assert_allclose(float(stats["loss"]), float(jstats["loss"]),
+                               rtol=1e-3)
+    sd = state.model.state_dict()
+    np.testing.assert_allclose(
+        sd["regressor.weight"].numpy(),
+        np.asarray(jstate.params["regressor"]["kernel"]).T, atol=1e-5)
+    np.testing.assert_allclose(
+        sd["main_encoder.bn1.weight"].numpy(),
+        np.asarray(jstate.params["main_encoder"]["bn1"]["GroupNorm_0"][
+            "scale"]), atol=1e-5)

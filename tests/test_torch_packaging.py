@@ -2,9 +2,11 @@
 "..."`` under ``scat_tpu_torch/csrc/`` names a file that the wheel's
 package-data globs (``pyproject.toml``) and the sdist's ``MANIFEST.in``
 ship, every library's build key hashes the shared headers, and a
-read-only install builds into the per-user cache."""
+read-only install builds into the per-user cache; and every console
+script of the port resolves to a callable."""
 
 import fnmatch
+import importlib
 import os
 import re
 import tomllib
@@ -85,3 +87,23 @@ def test_read_only_install_builds_in_the_user_cache(monkeypatch, tmp_path):
     assert cached.startswith(os.path.join(str(tmp_path), ".cache",
                                           "scat_tpu_torch"))
     assert os.path.basename(cached) == os.path.basename(here)
+
+
+def _port_scripts():
+    with open(os.path.join(REPO, "pyproject.toml"), "rb") as f:
+        scripts = tomllib.load(f)["project"]["scripts"]
+    return {k: v for k, v in scripts.items()
+            if v.startswith("scat_tpu_torch.")}
+
+
+def test_port_scripts_are_named():
+    assert set(_port_scripts()) == {
+        "scat-tpu-torch-serve", "scat-tpu-torch-train",
+        "scat-tpu-torch-eval", "scat-tpu-torch-demo"}
+    assert _port_scripts()["scat-tpu-torch-demo"] == "scat_tpu_torch.demo:main"
+
+
+@pytest.mark.parametrize("script", sorted(_port_scripts()))
+def test_port_script_resolves_to_a_callable(script):
+    module, _, attr = _port_scripts()[script].partition(":")
+    assert callable(getattr(importlib.import_module(module), attr))

@@ -502,7 +502,7 @@ def test_trainer_needs_cuda_by_default(tmp_path, monkeypatch):
 
 
 @pytest.mark.parametrize("flags,item", [
-    (dict(debug=True), 18), (dict(synthetic_data=False, stage=1), 15),
+    (dict(debug=True), 18),
     (dict(param_sharding="fsdp"), 17), (dict(mesh_shape="data:4"), 17),
     (dict(profile_trace_dir="/x"), 18), (dict(tensorboard=True), 18)])
 def test_unported_flags_name_their_item(tmp_path, flags, item):
