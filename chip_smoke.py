@@ -23,7 +23,9 @@ Phases, in order; any failure raises and exits non-zero:
               version and the library call (SDPA forward, and SDPA
               forward+backward beside the two kernels' sum, with SDPA's
               backward alone as their difference), each beside its
-              bound;
+              bound; also at the 128-token heads' [96, 8, 128, 64] (NT = 8
+              warps a head), with each kernel's blocks an SM holds and
+              shared memory a block (the occupancy API) at N 21 and 128;
   3. slice    the flagship --net reg_transformer predictor at full width
               (resnet50, 224x224 crops, 784-dim tokens, 8 heads,
               iteration 3, bfloat16, weights from seed 0) serves uint8
@@ -86,7 +88,34 @@ Phases, in order; any failure raises and exits non-zero:
               step against the plain attention path) and the training
               rate, p50 step and device time a step beside the train
               phase's;
-  9. favor    the FAVOR+ stats and apply kernels against their plain
+  9. coarse   --net reg_transformer_coarse at the widths of
+              script/ablation_pose.sh (resnet50, 21 tokens x 784, 8
+              heads, depth 3, bf16, seed 0): requests of 1 and 64 crops
+              and HTTP answers equal to predict; train_coarse's flag line
+              (bs 96, mask_rate 0.2, 3 epochs of 8 steps, --debug False):
+              a falling loss, hand_net_final.pth served equal to the
+              trained model; one --pl_reg True step, finite; the Evaluator
+              with --debug True on 2 synthetic batches of 96: the
+              attention dump attn/{finger}/NNN.png (or its skip message
+              without cv2), the eval step's attn [96, 8, 21, 21] with rows
+              summing to 1 (bf16: within the rounding of their entries;
+              float32: 1e-5); the training rate and a profile; no
+              attention-kernel launch anywhere (the coarse head's
+              attention is the plain version: it returns P);
+  10. token-heads  backbone_hrnet (HRNet-W24, 56x56x128 read as 512 x
+              28x28) and backbone_incepv3 (768x12x12 read as 192 x
+              24x24), each to 128 tokens x 196, 8 heads, depth 3,
+              iteration 3, seed 0, built by the factory on the plain
+              attention path: eval forwards at bs 1, 64 and 96 with the
+              kernels (use_kernel) against the plain path on the same
+              weights (pred less its mean within 2% in bf16, 1e-3 in
+              float32; 3 attention_fwd launches at N = 128 a forward);
+              a train-mode forward+backward at bs 96, bf16, 25 of the 128
+              tokens masked, on the surrogate pred.float().square().mean()
+              (3 + 3 launches; loss and gradient norm within 2%); device
+              ms a forward and a forward+backward on each path, and the
+              kernels' share of device time;
+  11. favor    the FAVOR+ stats and apply kernels against their plain
               versions at --net ViP's shapes (BH 4, 28, 256, 384 at
               T = 3137, e = 128, m = 64; T at chunk and tile edges; e 64
               / m 32) at rtol 1e-4 (atol 1e-5, times the largest
@@ -104,7 +133,7 @@ Phases, in order; any failure raises and exits non-zero:
               call computes FAVOR+, so no library time), each kernel's
               bound both as its tensor-core design's (bytes, and the
               bf16x3 products) and as the float32-operation figure;
-  10. vip-serve  the --net ViP predictor at full width (224 px, 3137
+  12. vip-serve  the --net ViP predictor at full width (224 px, 3137
               tokens x 512, 4 heads, depth 3, m 64, iteration 3, bf16,
               --use_pallas_favor True, weights from seed 0) serves uint8
               requests of 1, 7, 64 and 150 crops: 3 stats + 3 apply
@@ -113,17 +142,17 @@ Phases, in order; any failure raises and exits non-zero:
               model with the plain float32 FAVOR+ substituted (2%); the
               end-to-end rate, p50 request latency at buckets 1 and 64
               and a profile;
-  11. vip-train  the Trainer on --net ViP (bs 96, lr 5e-4, weights 1e5 /
+  13. vip-train  the Trainer on --net ViP (bs 96, lr 5e-4, weights 1e5 /
               10, bf16, dropout 0.1) for 3 epochs of 8 steps: 3 + 3
               launches a step, a falling loss; one step's loss and
               gradient norm against the plain float32 FAVOR+; remat_blocks
               against none (6 + 6 launches, the same loss and
               gradients); hand_net_final.pth served; the training rate,
               p50 step time and a profile;
-  12. vip-eval  the Evaluator on vip-train's hand_net_final.pth
+  14. vip-eval  the Evaluator on vip-train's hand_net_final.pth
               (synthetic batches): 3 + 3 FAVOR+ launches a batch and the
               file's frozen mains.{i}.w;
-  13. the card line, the kernels line, and the final
+  15. the card line, the kernels line, and the final
      {"ok": true, "device": ...} line.
 
 TF32 is off for the whole run (torch.backends.cuda.matmul.allow_tf32 and
@@ -158,12 +187,15 @@ from scat_tpu_torch.data.preprocess import color_jitter_np
 from scat_tpu_torch.evaluation import demo
 from scat_tpu_torch.evaluation.evaluator import Evaluator
 from scat_tpu_torch.kernels import build
-from scat_tpu_torch.models import performer
+from scat_tpu_torch import train_coarse
+from scat_tpu_torch.models import build_model, performer
+from scat_tpu_torch.models.hand_net import EncoderTransformerCoarse
 from scat_tpu_torch.models.transformer import Attention
 from scat_tpu_torch.ops.attention import (attention_bwd,
                                           attention_bwd_reference,
                                           attention_reference, bf16_ulps,
                                           flash_attention)
+from scat_tpu_torch.ops.attention import occupancy as attention_occupancy
 from scat_tpu_torch.ops.favor import (favor_apply, favor_apply_reference,
                                       favor_attention, favor_attention_fused,
                                       favor_stats, favor_stats_reference)
@@ -172,6 +204,7 @@ from scat_tpu_torch.serving import HandPosePredictor, frames_to_crops
 from scat_tpu_torch.training import steps
 from scat_tpu_torch.training.trainer import Trainer, make_dataset
 from scat_tpu_torch.utils import checkpoint
+from scat_tpu_torch.viz.draw import FINGER_QUERIES
 
 # NVIDIA H100 SXM data sheet, dense rates
 HBM_BYTES_PER_S = 3.35e12
@@ -198,6 +231,7 @@ STB_EVAL_SEQS = ("B1Counting", "B1Random")
 STB_FRAMES = 96   # frames a sequence
 IMAGE = 224
 HEADS, TOKENS, HEAD_DIM = 8, 21, 64
+HEAD_TOKENS = 128   # the HRNet and Inception heads' tokens
 TRAIN_BATCH = 96
 SCALE = HEAD_DIM ** -0.5
 REQUESTS = (1, 7, 64, 150)
@@ -389,7 +423,8 @@ def bound(n_bytes, flops, dtype=torch.bfloat16):
 def phase_kernels():
     buckets = [1, 2, 4, 7, 8, 16, 32, 64, TRAIN_BATCH]
     shapes = [(b, HEADS, TOKENS, HEAD_DIM) for b in buckets]
-    shapes += [(2, 4, 128, HEAD_DIM), (3, 2, TOKENS, HEAD_DIM)]
+    shapes += [(2, 4, 128, HEAD_DIM), (3, 2, TOKENS, HEAD_DIM),
+               (TRAIN_BATCH, HEADS, HEAD_TOKENS, HEAD_DIM)]
     train_shape = (TRAIN_BATCH, HEADS, TOKENS, HEAD_DIM)
     for i, shape in enumerate(shapes):
         for dtype, tol in ((torch.float32, 2e-5), (torch.bfloat16, 1e-2)):
@@ -454,33 +489,60 @@ def phase_kernels():
     print("[kernels] device times in ms, bf16, q/k/v strided views as in "
           "the model; 200 calls in one CUDA graph, timed by CUDA events:")
     for b in (1, 7, 64, TRAIN_BATCH):
-        q, k, v = qkv_views(b, HEADS, TOKENS, HEAD_DIM, torch.bfloat16,
-                            seed=100 + b)
-        calls = {
-            "kernel": lambda: flash_attention(q, k, v, SCALE),
-            "plain": lambda: attention_reference(q, k, v, SCALE),
-            "sdpa": lambda: F.scaled_dot_product_attention(
-                q, k, v, scale=SCALE)}
-        with torch.no_grad():
-            dev = {name: device_ms(fn) for name, fn in calls.items()}
-        n_bytes = 4 * b * HEADS * TOKENS * HEAD_DIM * 2
-        flops = 4 * b * HEADS * TOKENS * TOKENS * HEAD_DIM
-        ms, by = bound(n_bytes, flops)
-        print(f"[kernels] attention_fwd b={b:2d} [{b},8,21,64]: kernel "
-              f"{dev['kernel']:.5f} plain {dev['plain']:.5f} sdpa "
-              f"{dev['sdpa']:.5f} | bound {ms:.6f} ({by}: "
-              f"{n_bytes} B, {flops} flop) | "
-              f"{100 * ms / dev['kernel']:.1f}% of the bound")
+        got = time_fwd(b, TOKENS)
         if b == TRAIN_BATCH:
-            FWD.result.update(ms=dev["kernel"], plain_ms=dev["plain"],
-                              library_ms=dev["sdpa"], bound_ms=ms,
-                              bound_by=by)
+            FWD.result.update(got)
+    BWD.result.update(time_bwd(TRAIN_BATCH, TOKENS))
 
-    # the backward at the training shape; the library yardstick is SDPA's
-    # forward+backward through autograd, beside the two kernels' sum
-    b = TRAIN_BATCH
-    q, k, v = qkv_views(b, HEADS, TOKENS, HEAD_DIM, torch.bfloat16, seed=7)
-    do = grad_out(b, HEADS, TOKENS, HEAD_DIM, torch.bfloat16, seed=8)
+    # the 128-token heads' shape (HRNet and Inception, 8 heads): NT = 8
+    # warps a head, the kernels' largest instantiation
+    card = card_line()
+    for n in (TOKENS, HEAD_TOKENS):
+        for name in ("attention_fwd", "attention_bwd"):
+            for dtype in (torch.float32, torch.bfloat16):
+                blocks, smem = attention_occupancy(name, n, dtype)
+                print(f"[kernels] {name} N={n} {str(dtype)[6:]}: {blocks} "
+                      f"block(s) an SM at once (occupancy API), {smem} B of "
+                      f"shared memory a block")
+    fwd = time_fwd(TRAIN_BATCH, HEAD_TOKENS)
+    bwd = time_bwd(TRAIN_BATCH, HEAD_TOKENS)
+    print(f"[kernels] at [{TRAIN_BATCH},{HEADS},{HEAD_TOKENS},{HEAD_DIM}] "
+          f"bf16: attention_fwd {fwd['ms']:.5f} ms, bound "
+          f"{fwd['bound_ms']:.6f} ({100 * fwd['bound_ms'] / fwd['ms']:.1f}% "
+          f"of it), SDPA {fwd['library_ms']:.5f}; attention_bwd "
+          f"{bwd['ms']:.5f} ms, bound {bwd['bound_ms']:.6f} "
+          f"({100 * bwd['bound_ms'] / bwd['ms']:.1f}%), SDPA forward+backward "
+          f"{bwd['library_ms']:.5f} against the kernels' "
+          f"{bwd['pair_ms']:.5f}; card {card}")
+
+
+def time_fwd(b, n):
+    """The forward kernel at [b, 8, n, 64] beside the plain version and
+    SDPA, and its bound; the kernels line's keys."""
+    q, k, v = qkv_views(b, HEADS, n, HEAD_DIM, torch.bfloat16, seed=100 + b)
+    calls = {
+        "kernel": lambda: flash_attention(q, k, v, SCALE),
+        "plain": lambda: attention_reference(q, k, v, SCALE),
+        "sdpa": lambda: F.scaled_dot_product_attention(q, k, v, scale=SCALE)}
+    with torch.no_grad():
+        dev = {name: device_ms(fn) for name, fn in calls.items()}
+    n_bytes = 4 * b * HEADS * n * HEAD_DIM * 2
+    flops = 4 * b * HEADS * n * n * HEAD_DIM
+    ms, by = bound(n_bytes, flops)
+    print(f"[kernels] attention_fwd b={b:2d} [{b},{HEADS},{n},{HEAD_DIM}]: "
+          f"kernel {dev['kernel']:.5f} plain {dev['plain']:.5f} sdpa "
+          f"{dev['sdpa']:.5f} | bound {ms:.6f} ({by}: {n_bytes} B, {flops} "
+          f"flop) | {100 * ms / dev['kernel']:.1f}% of the bound")
+    return dict(ms=dev["kernel"], plain_ms=dev["plain"],
+                library_ms=dev["sdpa"], bound_ms=ms, bound_by=by)
+
+
+def time_bwd(b, n):
+    """The backward kernel at [b, 8, n, 64] beside the plain version; the
+    library yardstick is SDPA's forward+backward through autograd, beside
+    the two kernels' sum (``pair_ms``)."""
+    q, k, v = qkv_views(b, HEADS, n, HEAD_DIM, torch.bfloat16, seed=7)
+    do = grad_out(b, HEADS, n, HEAD_DIM, torch.bfloat16, seed=8)
     leaves = [t.detach().requires_grad_(True) for t in (q, k, v)]
     dev = {
         "kernel": device_ms(lambda: attention_bwd(q, k, v, do, SCALE)),
@@ -494,19 +556,19 @@ def phase_kernels():
     with torch.no_grad():
         dev["sdpa fwd"] = device_ms(
             lambda: F.scaled_dot_product_attention(q, k, v, scale=SCALE))
-    n_bytes = 7 * b * HEADS * TOKENS * HEAD_DIM * 2
-    flops = 10 * b * HEADS * TOKENS * TOKENS * HEAD_DIM
+    n_bytes = 7 * b * HEADS * n * HEAD_DIM * 2
+    flops = 10 * b * HEADS * n * n * HEAD_DIM
     ms, by = bound(n_bytes, flops)
-    print(f"[kernels] attention_bwd b={b} [{b},8,21,64]: kernel "
-          f"{dev['kernel']:.5f} plain {dev['plain']:.5f} | kernels "
+    print(f"[kernels] attention_bwd b={b} [{b},{HEADS},{n},{HEAD_DIM}]: "
+          f"kernel {dev['kernel']:.5f} plain {dev['plain']:.5f} | kernels "
           f"fwd+bwd {dev['kernels fwd+bwd']:.5f} sdpa fwd+bwd "
           f"{dev['sdpa fwd+bwd']:.5f}, sdpa fwd {dev['sdpa fwd']:.5f}, so "
           f"sdpa bwd alone ~{dev['sdpa fwd+bwd'] - dev['sdpa fwd']:.5f} | "
           f"bound {ms:.6f} ({by}: {n_bytes} B, {flops} flop) | "
           f"{100 * ms / dev['kernel']:.1f}% of the bound")
-    BWD.result.update(ms=dev["kernel"], plain_ms=dev["plain"],
-                      library_ms=dev["sdpa fwd+bwd"], bound_ms=ms,
-                      bound_by=by)
+    return dict(ms=dev["kernel"], plain_ms=dev["plain"],
+                library_ms=dev["sdpa fwd+bwd"], bound_ms=ms, bound_by=by,
+                pair_ms=dev["kernels fwd+bwd"])
 
 
 def n_chunks(n: int, big: int) -> int:
@@ -1519,6 +1581,289 @@ def phase_group_norm(rng, synth):
           f"{got['busy']:.3f} vs {synth['busy']:.3f} ms a step; card {card}")
 
 
+# --net reg_transformer_coarse at script/ablation_pose.sh's widths, trained
+# through train_coarse's flag line on the synthetic task
+COARSE = dataclasses.replace(FLAGSHIP, net="reg_transformer_coarse")
+COARSE_ARGV = ("--batch_size 96 --lr 5e-4 --l_weight_3d 100000 --l_weight_2d "
+               "10 --vit_heads 8 --vit_depth 3 --mask_rate 0.2 --pos_embed "
+               "True --compute_dtype bfloat16 --synthetic_data True --debug "
+               "False --epoch 3 --steps_per_epoch 8 --log_every 1 --seed 0 "
+               "--checkpoint_folder build/chip_smoke_coarse").split()
+
+
+def attention_rows(attn):
+    """(largest |row sum - 1|, largest such bound) of a softmax matrix: a
+    float32 row sums to 1 within 1e-5; a bf16 row within the rounding of
+    its entries, sum over i of half a bf16 ulp of p_i (2^(e-8) for p_i in
+    [2^e, 2^(e+1))), plus 1e-5."""
+    p = attn.float()
+    dev = (p.sum(-1) - 1).abs()
+    bnd = torch.full_like(dev, 1e-5)
+    if attn.dtype == torch.bfloat16:
+        half_ulp = torch.exp2(torch.floor(torch.log2(p.clamp(
+            min=torch.finfo(torch.float32).tiny))) - 8)
+        bnd = bnd + half_ulp.sum(-1)
+    assert torch.all(dev <= bnd), (dev.max().item(), bnd.min().item())
+    return dev.max().item(), bnd.max().item()
+
+
+def phase_coarse(rng):
+    """The coarse head, --net reg_transformer_coarse (ResNet-50, 21 tokens
+    x 784, 8 heads, depth 3, bf16): serving and HTTP, train_coarse's run
+    (3 epochs of 8 steps at bs 96, mask_rate 0.2) and its file served, one
+    --pl_reg step, the Evaluator with --debug True and its attention dump;
+    no attention-kernel launch anywhere (its attention is the plain
+    version, which returns P)."""
+    card = card_line()
+    reset_counts()
+    t0 = time.perf_counter()
+    pred = HandPosePredictor.from_checkpoint(COARSE, image_size=IMAGE)
+    model = pred.model
+    assert isinstance(model, EncoderTransformerCoarse)
+    assert model.main_encoder.fc1.in_features == 2048      # resnet50
+    assert model.transformer.layers[0][1].norm.normalized_shape \
+        == ((IMAGE // 8) ** 2,)
+    assert model.transformer.layers[0][0].to_qkv.weight.dtype \
+        == getattr(torch, COARSE.compute_dtype)
+    pred.warmup()
+    crops = {n: rng.randint(0, 256, (n, IMAGE, IMAGE, 3)).astype(np.uint8)
+             for n in (1, 7, 64)}
+    outs = {n: pred.predict(crops[n]) for n in (1, 64)}
+    for n, out in outs.items():
+        check_output(out, n)
+    print(f"[coarse] predictor built and warmed up in "
+          f"{time.perf_counter() - t0:.1f} s; requests of 1 and 64 crops: "
+          f"finite, root-centred, |joints_3d| max "
+          f"{np.abs(outs[64]['joints_3d']).max():.4f}")
+    phase_serve(pred, crops, tag="coarse")
+    del pred, model
+
+    opt = train_coarse.parse(COARSE_ARGV)
+    assert opt.net == "reg_transformer_coarse"
+    trainer = Trainer(opt, image_size=IMAGE)
+    log = os.path.join(opt.checkpoint_folder, "metrics.csv")
+    if os.path.exists(log):
+        os.remove(log)
+    n_steps = opt.epoch * opt.steps_per_epoch
+    t0 = time.perf_counter()
+    trainer.train()
+    print(f"[coarse] train_coarse: {opt.epoch} epochs x {opt.steps_per_epoch} "
+          f"steps at bs {opt.batch_size} in {time.perf_counter() - t0:.1f} s "
+          f"(first steps and saves included)")
+    with open(log) as f:
+        losses = [float(r["loss"]) for r in csv.DictReader(f)]
+    assert len(losses) == n_steps and np.isfinite(losses).all(), losses
+    quarter = n_steps // 4
+    first, last = np.mean(losses[:quarter]), np.mean(losses[-quarter:])
+    print(f"[coarse] loss: mean of the first {quarter} steps {first:.1f}, of "
+          f"the last {quarter} {last:.1f}")
+    assert last < first, (first, last)
+
+    # the final file, served as it is: it equals the trained model cast to
+    # the serving dtype
+    path = os.path.join(opt.checkpoint_folder, checkpoint.FINAL_NAME)
+    served = HandPosePredictor.from_checkpoint(
+        dataclasses.replace(COARSE, checkpoint_path_eval=path),
+        image_size=IMAGE)
+    got = served.predict(crops[7])
+    check_output(got, 7)
+    mirror = HandPosePredictor(
+        model=copy.deepcopy(trainer.model).cast_compute(
+            getattr(torch, COARSE.compute_dtype)), image_size=IMAGE)
+    for k, v in mirror.predict(crops[7]).items():
+        np.testing.assert_array_equal(got[k], v, err_msg=k)
+    del served, mirror
+    print(f"[coarse] {path} served by HandPosePredictor: equals the trained "
+          f"model's {COARSE.compute_dtype} predict")
+
+    batches = list(trainer.train_loader)[:2]
+    pl = Trainer(dataclasses.replace(
+        opt, pl_reg=True, epoch=1, steps_per_epoch=1,
+        checkpoint_folder=os.path.join("build", "chip_smoke_coarse_pl")),
+        image_size=IMAGE)
+    stats = pl.train_step(pl.state, batches[0])
+    loss, loss_pl = stats["loss"].item(), stats["loss_pl"].item()
+    print(f"[coarse] one --pl_reg True step: loss {loss:.1f}, path-length "
+          f"term {loss_pl:.4g}")
+    assert np.isfinite(loss) and np.isfinite(loss_pl) and loss_pl > 0
+    del pl
+
+    ev = Evaluator(dataclasses.replace(
+        opt, debug=True, checkpoint_path_eval=path, steps_per_epoch=2,
+        result_dir=os.path.join("build", "chip_smoke_coarse_eval")),
+        image_size=IMAGE)
+    assert ev.want_attn
+    t0 = time.perf_counter()
+    result = ev.eval()
+    dt = time.perf_counter() - t0
+    print(f"[coarse] Evaluator --debug True, 2 synthetic batches of "
+          f"{opt.batch_size} in {dt * 1e3:.1f} ms: MPJPE "
+          f"{result['mpjpe_mm']:.3f} mm, AUC {result['auc']:.4f}")
+    assert np.isfinite(result["mpjpe_mm"]) and np.isfinite(result["auc"])
+    if ev.draw_attn:
+        for finger in FINGER_QUERIES:
+            for n in (1, 2):
+                f = os.path.join(ev.result_dir, "attn", finger,
+                                 f"{n:03d}.png")
+                assert os.path.getsize(f) > 0, f
+        print(f"[coarse] attention dump: attn/{{{','.join(FINGER_QUERIES)}}}"
+              f"/001.png and 002.png written")
+    else:
+        print("[coarse] cv2 unavailable: the dump printed its skip message")
+    batch = next(iter(make_dataset(ev.opt, IMAGE, training=False)))
+    attn = ev.eval_step(batch)["attn"]
+    assert attn.shape == (opt.batch_size, 8, 21, 21), attn.shape
+    dev, bnd = attention_rows(attn)
+    ev32 = Evaluator(dataclasses.replace(ev.opt, compute_dtype="float32"),
+                     image_size=IMAGE)
+    dev32, _ = attention_rows(ev32.eval_step(batch)["attn"])
+    print(f"[coarse] attn {list(attn.shape)} {str(attn.dtype)[6:]} from the "
+          f"eval step's one forward: rows sum to 1 within {dev:.3e} (bound "
+          f"{bnd:.3e}: the bf16 rounding of 21 entries); float32 {dev32:.3e} "
+          f"(bound 1e-05)")
+    del ev, ev32
+
+    train_rate("coarse", trainer.state, trainer.train_step, batches)
+    print(f"[coarse] attention_fwd launches {flash_attention.launches}, "
+          f"attention_bwd launches {attention_bwd.launches} (plain attention "
+          f"on the whole coarse path); card {card}")
+    assert flash_attention.launches == 0 and attention_bwd.launches == 0
+
+
+# the 128-token heads at the JAX package's widths: HRNet-W24 (56x56x128 ->
+# 512 channels) and Inception-v3 (768x12x12 -> 192 channels), each to 128
+# tokens x 196, 8 heads, dim_head 64, depth 3 (196 -> 98 -> 49 -> 3),
+# iteration 3; weights from seed 0
+HEAD_NETS = ("backbone_hrnet", "backbone_incepv3")
+HEAD_BATCHES = (1, 64, TRAIN_BATCH)
+
+
+def head_device_ms(tag, fn):
+    """Device ms a call of ``fn`` (3 calls profiled, after one)."""
+    fn()
+    torch.cuda.synchronize()
+
+    def three():
+        for _ in range(3):
+            fn()
+        torch.cuda.synchronize()
+    busy, _ = device_profile("token-heads", three, tag)
+    return busy / 3
+
+
+def phase_token_heads(rng):
+    """Each 128-token head: eval forwards at bs 1, 64 and 96 on the
+    kernel path (3 attention_fwd launches at N = 128 a forward) against
+    the plain path on the same weights, bf16 and float32; a train-mode
+    forward+backward at bs 96 with 25 of the 128 tokens masked (3 + 3
+    launches) against the plain path on the surrogate loss
+    pred.float().square().mean(); device ms a forward and a
+    forward+backward on each path and the kernels' share of it."""
+    card = card_line()
+    reset_counts()
+    flags = torch.zeros(HEAD_TOKENS, dtype=torch.bool)
+    flags[torch.randperm(HEAD_TOKENS, generator=torch.Generator()
+                         .manual_seed(0))[:int(0.2 * HEAD_TOKENS)]] = True
+    flags = flags.cuda()
+    for net in HEAD_NETS:
+        t0 = time.perf_counter()
+        opt = dataclasses.replace(FLAGSHIP, net=net, mask_rate=0.2)
+        model, mean = build_model(opt, IMAGE)
+        attns = [m for m in model.modules() if isinstance(m, Attention)]
+        assert len(attns) == 3 and not any(a.use_kernel for a in attns), \
+            "the factory routes the 128-token heads to plain attention"
+        assert model.mask_token.shape == (1, 1, 196)
+        checkpoint.init_weights(model, seed=0)
+        model = model.to("cuda", memory_format=torch.channels_last)
+        mean = torch.from_numpy(mean).cuda()
+        served = {"bf16": copy.deepcopy(model).cast_compute(
+            torch.bfloat16).eval(), "float32": copy.deepcopy(model).eval()}
+        print(f"[token-heads] {net}: built in {time.perf_counter() - t0:.1f} "
+              f"s; {sum(p.numel() for p in model.parameters())} parameters")
+        pairs = []
+        for b in HEAD_BATCHES:
+            x = torch.from_numpy(rng.uniform(
+                -1, 1, (b, IMAGE, IMAGE, 3)).astype(np.float32)).cuda()
+            x = x.permute(0, 3, 1, 2)   # NHWC crops as the predictor's view
+            for dt, m in served.items():
+                out = {}
+                for on in (True, False):
+                    set_kernel(m, on)
+                    before = flash_attention.launches
+                    with torch.no_grad():
+                        pred = m(x)
+                    assert flash_attention.launches - before == \
+                        (3 if on else 0), (net, dt, on)
+                    assert pred.shape == (b, 61) and \
+                        torch.isfinite(pred).all()
+                    # the regressed part: the prediction less its mean
+                    out[on] = (pred - mean).cpu().numpy()
+                pairs.append((f"{net} {dt} kernel vs plain attention, bs "
+                              f"{b}, pred - mean", out[True], out[False],
+                              None if dt == "bf16" else F32_ATOL))
+        compare("token-heads", pairs)
+
+        model.train().set_compute_dtype(torch.bfloat16)
+        x = torch.from_numpy(rng.uniform(-1, 1, (
+            TRAIN_BATCH, IMAGE, IMAGE, 3)).astype(np.float32)).cuda()
+        x = x.permute(0, 3, 1, 2)
+
+        def fwd_bwd():
+            model.zero_grad(set_to_none=True)
+            pred = model(x, token_mask=flags)
+            loss = pred.float().square().mean()
+            loss.backward()
+            return loss
+
+        got = {}
+        for on in (True, False):
+            set_kernel(model, on)
+            before = flash_attention.launches, attention_bwd.launches
+            loss = fwd_bwd()
+            norm = torch.sqrt(sum((p.grad.float() ** 2).sum()
+                                  for p in model.parameters()
+                                  if p.grad is not None))
+            assert (flash_attention.launches - before[0],
+                    attention_bwd.launches - before[1]) == \
+                ((3, 3) if on else (0, 0)), (net, on)
+            got[on] = (loss.item(), norm.item())
+        failed = []
+        for i, what in enumerate(("loss", "global gradient norm")):
+            k, p = got[True][i], got[False][i]
+            diff, bnd = abs(k - p), BF16_REL * abs(p)
+            print(f"[token-heads] {net} train mode, bs {TRAIN_BATCH}, 25 of "
+                  f"128 tokens masked, bf16: kernel vs plain attention, "
+                  f"{what}: {k:.6g} vs {p:.6g}, diff {diff:.4e} (bound "
+                  f"{bnd:.4e})")
+            if not diff <= bnd:
+                failed.append(what)
+        assert not failed, failed
+
+        times = {}
+        ev = served["bf16"]
+        xe = x.detach()
+        for on in (True, False):
+            path = "kernel" if on else "plain"
+            set_kernel(ev, on)
+            set_kernel(model, on)
+            with torch.no_grad():
+                times[f"forward {path}"] = head_device_ms(
+                    f"{net} eval forward bs {TRAIN_BATCH} bf16, {path} "
+                    f"attention", lambda: ev(xe))
+            times[f"forward+backward {path}"] = head_device_ms(
+                f"{net} train forward+backward bs {TRAIN_BATCH} bf16, "
+                f"{path} attention", fwd_bwd)
+        print(f"[token-heads] {net} device ms (bs {TRAIN_BATCH}, bf16): "
+              + ", ".join(f"{k} {v:.3f}" for k, v in times.items())
+              + f"; card {card}")
+        del model, served, ev
+    fwd, bwd = flash_attention.launches, attention_bwd.launches
+    print(f"[token-heads] attention_fwd launches {fwd}, attention_bwd "
+          f"launches {bwd} at [B,8,128,64]")
+    FWD.result["launches"] += fwd
+    BWD.result["launches"] += bwd
+
+
 def favor_operands(b, h, t, e, m, dtype, seed):
     """k, q, v as the Performer block passes them (strided [B,H,T,e]
     views of one [B,T,H,3e] kqv output, k and q scaled by 0.5 as ViP's
@@ -2015,7 +2360,10 @@ def _post(port, arr):
     return {k: np.asarray(v, np.float32) for k, v in body.items()}
 
 
-def phase_serve(pred, crops):
+def phase_serve(pred, crops, tag="serve"):
+    """POST /predict (also micro-batched) answers exactly what predict
+    returns, for crops[7] (uint8 and float32) and crops[1]; GET
+    /healthz."""
     servers = [make_server(pred, "127.0.0.1", 0),
                make_server(pred, "127.0.0.1", 0, batch_window_ms=5.0)]
     threads = [threading.Thread(target=s.serve_forever, daemon=True)
@@ -2033,7 +2381,7 @@ def phase_serve(pred, crops):
             for k in want:
                 np.testing.assert_allclose(got[k], want[k], rtol=1e-6,
                                            atol=1e-6, err_msg=k)
-            print(f"[serve] POST /predict {list(body.shape)} "
+            print(f"[{tag}] POST /predict {list(body.shape)} "
                   f"{body.dtype} on port {port}: equals predict")
         conn = http.client.HTTPConnection("127.0.0.1", ports[0], timeout=60)
         conn.request("GET", "/healthz")
@@ -2041,7 +2389,7 @@ def phase_serve(pred, crops):
         health = json.loads(resp.read())
         assert resp.status == 200 and health["status"] == "ok", health
         assert health["image_size"] == IMAGE, health
-        print(f"[serve] GET /healthz: {health}")
+        print(f"[{tag}] GET /healthz: {health}")
         batcher = servers[1].RequestHandlerClass.predictor
         assert batcher.requests_served == 1, batcher.requests_served
     finally:
@@ -2078,6 +2426,8 @@ def main(argv):
         ("stb", lambda: phase_stb(rng, state["synth"])),
         ("datasets", lambda: phase_datasets(rng)),
         ("group-norm", lambda: phase_group_norm(rng, state["synth"])),
+        ("coarse", lambda: phase_coarse(rng)),
+        ("token-heads", lambda: phase_token_heads(rng)),
         ("favor", phase_favor_kernels),
         ("vip-serve", lambda: phase_vip_serve(rng)),
         ("vip-train", lambda: state.update(vip=phase_vip_train(rng))),

@@ -1,5 +1,6 @@
-"""Asset lookup and the 66-dim mean-parameter template (the port's own
-copy of ``scat_tpu/assets.py:48-73,94-125,271-286``).
+"""Asset lookup, the 66-dim mean-parameter template and the 61-dim mean
+MANO parameters (the port's own copy of
+``scat_tpu/assets.py:48-73,94-125,271-303``).
 
 The mean vector is camera scale 5.0, zero translation, then the 21
 template-vertex picks of the MANO mean hand (reference
@@ -95,3 +96,20 @@ def load_mean_params(outside: bool = True,
             f"neither {mano_path} nor {obj_path} present; "
             "cannot build the mean template")
     return build_mean_params(v_template, outside)
+
+
+def load_mean_mano_pose(path: Optional[str] = None) -> np.ndarray:
+    """61-dim mean MANO parameters (cam 3 + pose 48 + shape 10) of the
+    128-token heads: camera scale 5.0; the pose's global orient zero and
+    its 45 local dofs ``mean_pose[3:48]`` of ``mean_mano_params.pkl``;
+    zero shape (reference eval.py:404-426).  A missing file leaves the
+    pose zero, as in the JAX package."""
+    path = find_asset("mean_mano_params.pkl") if path is None else path
+    mean = np.zeros((61,), dtype=np.float32)
+    mean[0] = 5.0
+    if os.path.exists(path):
+        with open(path, "rb") as f:
+            dd = pickle.load(f, encoding="latin1")
+        mean_pose = np.asarray(dd["mean_pose"], dtype=np.float32).reshape(-1)
+        mean[6:51] = mean_pose[3:48]
+    return mean

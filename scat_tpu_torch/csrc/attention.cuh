@@ -94,6 +94,20 @@ inline bool rows_aligned(const void* const* ptrs, const Strides* st,
   return true;
 }
 
+// how many blocks of `kernel` (`threads` threads, `smem` bytes of dynamic
+// shared memory) one SM holds at once, with the shared-memory limit raised
+// as its launch raises it
+template <typename K>
+cudaError_t occupancy(K kernel, int threads, size_t smem, int* blocks) {
+  if (smem > 48 * 1024) {
+    cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
+    if (err != cudaSuccess) return err;
+  }
+  return cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, kernel,
+                                                       threads, smem);
+}
+
 // f(std::integral_constant<int, NT>()) for the NT = ceil(n/16) warps a
 // head of sequence length n (1 <= n <= kMaxSeq)
 template <typename F>

@@ -368,6 +368,31 @@ int scat_attention_fwd(const void* q, const void* k, const void* v, void* o,
   return int(cudaGetLastError());
 }
 
+// the blocks of the kernel that scat_attention_fwd launches for sequence
+// length n and `dtype` that one SM holds at once (the occupancy API), and
+// the dynamic shared memory of each, in bytes; returns a cudaError_t
+int scat_attention_fwd_occupancy(int n, int dtype, int* blocks,
+                                  int* smem) {
+  if (n < 1 || n > kMaxSeq) return int(cudaErrorInvalidValue);
+  cudaError_t err;
+  if (dtype == 0) {
+    *smem = int(f32_smem_bytes(n));
+    err = occupancy(attention_fwd_f32_kernel, kF32Threads,
+                    f32_smem_bytes(n), blocks);
+  } else if (dtype == 1) {
+    err = with_tiles(n, [&](auto nt) {
+      constexpr int NT = decltype(nt)::value;
+      using T = FwdTiles<NT>;
+      *smem = int(T::kSmem);
+      return occupancy(attention_fwd_bf16_kernel<NT>, T::kThreads,
+                       T::kSmem, blocks);
+    });
+  } else {
+    return int(cudaErrorInvalidValue);
+  }
+  return int(err);
+}
+
 const char* scat_cuda_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }

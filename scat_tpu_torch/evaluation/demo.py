@@ -39,7 +39,7 @@ from scat_tpu_torch.data.prefetch import to_device
 from scat_tpu_torch.devices import resolve_device
 from scat_tpu_torch.evaluation.evaluator import save_pck_curve
 from scat_tpu_torch.models import build_model
-from scat_tpu_torch.models.factory import compute_dtype
+from scat_tpu_torch.models.factory import check_keypoint_head, compute_dtype
 from scat_tpu_torch.ops import metrics as metrics_lib
 from scat_tpu_torch.ops.geometry import batch_orth_proj_idrot, project_2d
 from scat_tpu_torch.utils import checkpoint as ckpt_lib
@@ -145,6 +145,7 @@ class DemoRunner:
         for sub in ("fm", "3d", "img"):
             os.makedirs(os.path.join(self.result_dir, sub), exist_ok=True)
         model, self.mean_params = build_model(opt, image_size)
+        check_keypoint_head(model, "DemoRunner")
         if state_dict is None:
             ckpt_lib.load_weights(model, opt.checkpoint_path_eval,
                                   seed=opt.seed)

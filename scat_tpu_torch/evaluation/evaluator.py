@@ -11,14 +11,20 @@ batches, its AUC, ``PCK.png``, the MPJPE and AUC prints, and
 the caller asks for another (the tests pass ``device="cpu"``).  Weights
 come from ``--checkpoint_path_eval`` (a reference-keyed ``.pth``, loaded
 strictly: a ViP file carries its frozen ``mains.{i}.w``) or from an
-injected ``state_dict``.  Not ported yet: the coarse head's attention
-dump (item 9), multi-process evaluation (item 17) and the TensorBoard
-mirror (item 18).
+injected ``state_dict``.  With ``--net reg_transformer_coarse --debug
+True`` each batch also writes the attention dump (reference
+eval.py:834,864-944): the last layer's head-0 attention of the batch's
+sample 1 (sample 0 in a batch of one), drawn per finger about its
+ground-truth 2D landmarks as ``{result_dir}/attn/{finger}/NNN.png``; the
+attention comes from the batch's one forward, and where cv2 is missing
+the dump is skipped with a message.  Not ported yet: multi-process
+evaluation (item 17) and the TensorBoard mirror (item 18).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import importlib.util
 import os
 import time
 from typing import Iterable, Optional
@@ -32,7 +38,7 @@ from scat_tpu_torch.data.prefetch import map_batch, prefetch_to_device, \
     to_device
 from scat_tpu_torch.devices import resolve_device
 from scat_tpu_torch.models import build_model
-from scat_tpu_torch.models.factory import compute_dtype
+from scat_tpu_torch.models.factory import check_keypoint_head, compute_dtype
 from scat_tpu_torch.ops import metrics as metrics_lib
 from scat_tpu_torch.training import steps
 from scat_tpu_torch.training.trainer import make_dataset, mesh_axes
@@ -43,8 +49,6 @@ RNGE = np.arange(20, 51, 5)
 
 # (flag, test on the options, ROADMAP.md queue 1 item that ports it)
 UNPORTED_FLAGS = (
-    ("--net reg_transformer_coarse (the attention dump)",
-     lambda o: o.net == "reg_transformer_coarse", 9),
     ("a multi-device --mesh_shape",
      lambda o: any(size not in (1, -1) for _, size in mesh_axes(o)), 17),
     ("--tensorboard True", lambda o: o.tensorboard, 18),
@@ -103,6 +107,7 @@ class Evaluator:
         self.result_dir = opt.result_dir
         os.makedirs(self.result_dir, exist_ok=True)
         model, self.mean_params = build_model(opt, image_size)
+        check_keypoint_head(model, "the Evaluator")
         if state_dict is None:
             ckpt_lib.load_weights(model, opt.checkpoint_path_eval,
                                   seed=opt.seed)
@@ -111,9 +116,27 @@ class Evaluator:
         model = model.to(self.device, memory_format=torch.channels_last)
         self.model = model.cast_compute(compute_dtype(opt)).eval()
         self.dataset = dataset
+        self.want_attn = opt.net == "reg_transformer_coarse" and opt.debug
+        self.draw_attn = (self.want_attn
+                          and importlib.util.find_spec("cv2") is not None)
         self.eval_step = steps.make_eval_step(
             self.model, pck_range=tuple(int(r) for r in RNGE),
-            flat_compat=opt.compat_pck_flat)
+            flat_compat=opt.compat_pck_flat, return_attn=self.want_attn)
+
+    def _maybe_dump_attention(self, batch: dict, out: dict, n: int) -> None:
+        """The coarse head's attention dump of batch ``n`` (the JAX
+        package's ``evaluator.py:99-134``): one sample's [H,N,N] and its
+        label row reach the host."""
+        if not self.draw_attn:
+            return
+        attn = out["attn"]
+        idx = min(1, attn.shape[0] - 1)   # the reference samples index 1
+        label = batch["label"][idx].float().cpu().numpy()
+        gt_lmk = (label[63:] if label.shape[0] == 105
+                  else label[124:]).reshape(21, 2)
+        from scat_tpu_torch.viz.draw import save_attention_maps
+        save_attention_maps(attn[idx].float().cpu().numpy(), gt_lmk,
+                            self.result_dir, n)
 
     def eval(self, eval_dataset: Optional[str] = None) -> dict:
         """Evaluate on ``eval_dataset`` ('STB', 'frei' or 'ho3d'), by
@@ -132,6 +155,9 @@ class Evaluator:
             loader = prefetch_to_device(
                 make_dataset(opt, 224, training=False, device=self.device),
                 self.device)
+        if self.want_attn and not self.draw_attn:
+            print("cv2 unavailable, skipping the attention dump; the "
+                  "metrics are computed")
         logger = MetricsLogger(self.result_dir, filename="eval_metrics.csv")
         n_cols = len(RNGE) * 22
         pck_all = np.zeros((len(RNGE), 22))
@@ -142,6 +168,7 @@ class Evaluator:
             t0 = time.time()
             batch = map_batch(batch, lambda t: to_device(t, self.device))
             out = self.eval_step(batch)
+            self._maybe_dump_attention(batch, out, n)
             # the one host read of the batch: PCK, per-sample MPJPE, valid
             host = torch.cat([out["pck"].reshape(-1).float(),
                               out["mpjpe_per_sample"].float(),

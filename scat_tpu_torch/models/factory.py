@@ -1,7 +1,14 @@
 """Model factory keyed by the ``--net`` flag (port of
-``scat_tpu/models/factory.py:29-121``).  The flagship ``reg_transformer``
-and ``ViP`` are ported; every other net raises and names the ROADMAP.md
-queue 1 item that ports it."""
+``scat_tpu/models/factory.py:29-121``).  Ported: the flagship
+``reg_transformer``, ``reg_transformer_coarse``, the 128-token heads
+``backbone_hrnet`` and ``backbone_incepv3``, and ``ViP``; every other net
+raises and names the ROADMAP.md queue 1 item that ports it.
+
+The 128-token heads take the plain attention path, as the JAX package
+builds them (``factory.py:69-81``): ``--use_pallas_attention`` is the
+flagship's flag and never routes them.  Their kernel path is
+``use_kernel=True`` on the constructor, the counterpart of the JAX
+package's ``clone(use_pallas=True)``."""
 
 from __future__ import annotations
 
@@ -13,17 +20,31 @@ from torch import nn
 
 from scat_tpu_torch import assets
 from scat_tpu_torch.config import Options
-from scat_tpu_torch.models.hand_net import EncoderTransformer
+from scat_tpu_torch.models.hand_net import (
+    EncoderTransformer, EncoderTransformerCoarse, EncoderTransformerHRNet,
+    EncoderTransformerInception)
 from scat_tpu_torch.models.performer import ViP
 from scat_tpu_torch.ops.favor import PRECISIONS
 
 _NOT_PORTED = {
-    "reg_transformer_coarse": 9,
-    "backbone_hrnet": 10,
-    "backbone_incepv3": 10,
     "frankmocap": 11,
     "ViT": 12,
 }
+# the nets whose output is 61 MANO parameters, not the 66-dim camera +
+# 21x3 joints that the keypoint losses, metrics and predictor read
+MANO_PARAM_NETS = ("backbone_hrnet", "backbone_incepv3", "frankmocap")
+KEYPOINT_DIM = 66
+
+
+def check_keypoint_head(model: nn.Module, who: str) -> None:
+    """Raise where ``model`` does not give the 66-dim camera + joints
+    contract that ``who`` reads."""
+    out_dim = getattr(model, "out_dim", KEYPOINT_DIM)
+    if out_dim != KEYPOINT_DIM:
+        raise ValueError(
+            f"{who} reads the {KEYPOINT_DIM}-dim camera + 21x3 joints "
+            f"contract; {type(model).__name__} predicts {out_dim} MANO "
+            "parameters")
 
 
 def compute_dtype(opt: Options) -> torch.dtype:
@@ -42,9 +63,26 @@ def build_model(opt: Options, image_size: int = 224
         raise NotImplementedError(
             f"--net {opt.net} is not ported to scat_tpu_torch yet "
             f"(ROADMAP.md queue 1 item {_NOT_PORTED[opt.net]})")
-    if opt.net not in ("reg_transformer", "ViP"):
+    if opt.net not in ("reg_transformer", "reg_transformer_coarse",
+                       "backbone_hrnet", "backbone_incepv3", "ViP"):
         raise ValueError(f"unknown --net {opt.net!r}")
+    if opt.net in ("backbone_hrnet", "backbone_incepv3"):
+        mean = assets.load_mean_mano_pose(opt.mean_mano_param)
+        cls = (EncoderTransformerHRNet if opt.net == "backbone_hrnet"
+               else EncoderTransformerInception)
+        model = cls(mean_params=torch.from_numpy(mean),
+                    iteration=opt.iteration, heads=opt.vit_heads,
+                    depth=opt.vit_depth, mask_rate=opt.mask_rate,
+                    pos_embed=opt.pos_embed, image_size=image_size)
+        return model, mean
     mean = assets.load_mean_params(outside=opt.outside)
+    if opt.net == "reg_transformer_coarse":
+        model = EncoderTransformerCoarse(
+            mean_params=torch.from_numpy(mean), heads=opt.vit_heads,
+            depth=opt.vit_depth, mask_rate=opt.mask_rate,
+            pos_embed=opt.pos_embed, pl_reg=opt.pl_reg,
+            token_dim=(image_size // 8) ** 2)
+        return model, mean
     if opt.net == "ViP":
         if opt.favor_precision not in PRECISIONS:
             raise ValueError(

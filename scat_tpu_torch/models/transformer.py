@@ -19,6 +19,17 @@ and the FFN hidden width is ``(dim*3)//4`` (the JAX package's ``mlp_dim``
 is ignored there, so the port has none).  Dropout is 0 in the
 reference's runs and the port has none.
 
+``PyramidTransformerAttn`` is the coarse head's variant
+(``transformer.py:154-190``; reference vision_transformer_attn.py:88-113):
+``x = LN(Attention(x)) + x``, post-norm on the branch, and it returns the
+last layer's softmax matrix beside its output.  Its keys are
+``layers.{i}.0.to_qkv`` (a bare Attention), ``layers.{i}.1.norm`` (the
+post-norm) and ``layers.{i}.2`` as ``layers.{i}.1`` above.  Its attention
+is the plain version on every device, as in the JAX package: it returns
+P, which the kernels never materialise.  The residual stream after a
+post-norm is float32, as flax's LayerNorm output promotes the sum; each
+FeedForward rounds its input to its weights' dtype, as flax's Dense does.
+
 ``random_token_mask`` is the port of ``transformer.py:206-220``.
 """
 
@@ -77,15 +88,23 @@ class Attention(nn.Module):
         # a Sequential for the reference's key ``to_out.0``
         self.to_out = nn.Sequential(nn.Linear(inner, dim))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, return_attn: bool = False):
+        """``return_attn``: also return the softmax matrix [B,H,N,N],
+        from the plain version (the coarse head's path)."""
         b, n, _ = x.shape
         # [B,N,3,H,Dh] -> three [B,H,N,Dh] views, no copy
         q, k, v = self.to_qkv(x).view(
             b, n, 3, self.heads, self.dim_head).permute(2, 0, 3, 1, 4)
-        attend = flash_attention if self.use_kernel else mha_reference
-        out = attend(q, k, v, self.scale)
+        attn = None
+        if return_attn:
+            out, attn = mha_reference(q, k, v, self.scale, return_attn=True)
+        elif self.use_kernel:
+            out = flash_attention(q, k, v, self.scale)
+        else:
+            out = mha_reference(q, k, v, self.scale)
         out = out.transpose(1, 2).reshape(b, n, self.heads * self.dim_head)
-        return self.to_out(out)
+        out = self.to_out(out)
+        return (out, attn) if return_attn else out
 
 
 class FeedForward(nn.Module):
@@ -100,7 +119,9 @@ class FeedForward(nn.Module):
                                  nn.Linear(hidden_dim, out))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.net(x)
+        # a float32 residual stream (the coarse head's) is rounded to the
+        # weights' dtype, as flax's Dense rounds its input
+        return self.net(x.to(self.net[0].weight.dtype))
 
 
 class PyramidTransformer(nn.Module):
@@ -126,6 +147,47 @@ class PyramidTransformer(nn.Module):
         for attn, ff in self.layers:
             x = ff(attn(x))
         return x
+
+
+class PostNorm(nn.Module):
+    """The post-norm of the coarse head's branch (reference
+    vision_transformer_attn.py's PreNormAttn, key ``.norm``): LayerNorm
+    in float32, float32 out."""
+
+    def __init__(self, dim: int):
+        super().__init__()
+        self.norm = nn.LayerNorm(dim, eps=LN_EPS)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.norm(x.float())
+
+
+class PyramidTransformerAttn(nn.Module):
+    """The attention-returning pyramid (reference
+    vision_transformer_attn.py:88-113): ``forward`` returns ``(x, attn of
+    the last layer)``."""
+
+    def __init__(self, dim: int, depth: int = 3, heads: int = 8,
+                 dim_head: int = 64):
+        super().__init__()
+        self.layers = nn.ModuleList()
+        for i in range(depth):
+            attn = Attention(dim, heads=heads, dim_head=dim_head)
+            hidden = (dim * 3) // 4
+            if i == depth - 1:
+                ff = FeedForward(dim, hidden, out_dim=3)
+            else:
+                ff = PreNorm(dim, FeedForward(dim, hidden))
+            self.layers.append(nn.ModuleList([attn, PostNorm(dim), ff]))
+            if i != depth - 1:
+                dim //= 2
+
+    def forward(self, x: torch.Tensor):
+        attn = None
+        for attention, post, ff in self.layers:
+            y, attn = attention(x, return_attn=True)
+            x = ff(post(y) + x)
+        return x, attn
 
 
 def random_token_mask(num_tokens: int, mask_rate: float,

@@ -78,17 +78,20 @@ def bf16_ulps(got: torch.Tensor, want: torch.Tensor,
 
 
 def attention_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                        scale: float, mask: Optional[torch.Tensor] = None
-                        ) -> torch.Tensor:
+                        scale: float, mask: Optional[torch.Tensor] = None,
+                        return_attn: bool = False):
     """Softmax attention on [B,H,N,D] in the inputs' dtype (reference
     vision_transformer.py:59-79).  ``mask`` is a boolean [B,N] keep-mask;
-    masked pairs get -finfo.max, like the reference's masked_fill_."""
+    masked pairs get -finfo.max, like the reference's masked_fill_.
+    ``return_attn`` also returns the softmax matrix [B,H,N,N] (the coarse
+    head's output, which no kernel materialises)."""
     dots = torch.einsum("bhid,bhjd->bhij", q, k) * scale
     if mask is not None:
         pair = mask[:, None, :, None] & mask[:, None, None, :]
         dots = dots.masked_fill(~pair, -torch.finfo(dots.dtype).max)
     attn = dots.softmax(dim=-1)
-    return torch.einsum("bhij,bhjd->bhid", attn, v)
+    out = torch.einsum("bhij,bhjd->bhid", attn, v)
+    return (out, attn) if return_attn else out
 
 
 def attention_bwd_reference(q: torch.Tensor, k: torch.Tensor,
@@ -117,9 +120,27 @@ def _library(name: str) -> ctypes.CDLL:
                    + [ctypes.POINTER(ctypes.c_longlong), ctypes.c_float,
                       ctypes.c_int, ctypes.c_void_p])
     fn.restype = ctypes.c_int
+    occ = getattr(lib, f"scat_{name}_occupancy")
+    occ.argtypes = [ctypes.c_int, ctypes.c_int,
+                    ctypes.POINTER(ctypes.c_int), ctypes.POINTER(ctypes.c_int)]
+    occ.restype = ctypes.c_int
     lib.scat_cuda_error_string.argtypes = [ctypes.c_int]
     lib.scat_cuda_error_string.restype = ctypes.c_char_p
     return lib
+
+
+def occupancy(name: str, n: int, dtype: torch.dtype) -> Tuple[int, int]:
+    """(blocks an SM holds at once, dynamic shared memory of a block in
+    bytes) of the kernel that ``name`` ("attention_fwd" or
+    "attention_bwd") launches at sequence length ``n`` for ``dtype``,
+    from the CUDA occupancy API on the current device.  A query: nothing
+    is launched."""
+    lib = _library(name)
+    blocks, smem = ctypes.c_int(), ctypes.c_int()
+    rc = getattr(lib, f"scat_{name}_occupancy")(
+        n, abi.DTYPE_CODES[dtype], ctypes.byref(blocks), ctypes.byref(smem))
+    abi.raise_on(rc, lib, f"{name} occupancy")
+    return blocks.value, smem.value
 
 
 def _check(*ts: torch.Tensor) -> None:

@@ -1,6 +1,7 @@
 """Serving: crops in, 3D joints out (port of
-``scat_tpu/serving.py:38-256``), for ``--net reg_transformer`` and
-``--net ViP``.
+``scat_tpu/serving.py:38-256``), for ``--net reg_transformer``,
+``reg_transformer_coarse`` and ``ViP``: the 66-dim camera + joints heads
+(a 61-dim MANO-parameter head is refused at construction).
 
 Requests of any size are padded to a ladder of power-of-two batch
 buckets and streamed through the model in bucket-sized chunks, so the
@@ -32,8 +33,9 @@ from scat_tpu_torch.config import Options
 from scat_tpu_torch.data import preprocess
 from scat_tpu_torch.devices import resolve_device
 from scat_tpu_torch.models import build_model
-from scat_tpu_torch.models.factory import compute_dtype
+from scat_tpu_torch.models.factory import check_keypoint_head, compute_dtype
 from scat_tpu_torch.ops.geometry import batch_orth_proj_idrot, project_2d
+from scat_tpu_torch.training.steps import prediction
 from scat_tpu_torch.utils.checkpoint import load_weights
 
 
@@ -129,8 +131,8 @@ class HandPosePredictor:
     def from_checkpoint(cls, opt: Options, image_size: int = 224,
                         device: Union[str, torch.device, None] = None
                         ) -> "HandPosePredictor":
-        """The predictor of ``opt`` (``--net reg_transformer`` or
-        ``ViP``) on ``device`` (default ``cuda``; the CPU only when asked
+        """The predictor of ``opt`` (``--net reg_transformer``,
+        ``reg_transformer_coarse`` or ``ViP``) on ``device`` (default ``cuda``; the CPU only when asked
         for).  Weights come from ``opt.checkpoint_path_eval``: a reference
         ``.pth`` (loaded strictly: a ViP file must carry its frozen
         ``mains.{i}.w``), or an empty path for a fresh init seeded with
@@ -142,6 +144,7 @@ class HandPosePredictor:
         return cls(model=model, image_size=image_size, device=device)
 
     def __post_init__(self):
+        check_keypoint_head(self.model, "HandPosePredictor")
         self.device = torch.device(self.device)
         # NHWC crops permuted to NCHW are channels_last tensors; keeping
         # the weights channels_last too lets cuDNN run NHWC convolutions
@@ -157,7 +160,7 @@ class HandPosePredictor:
                 # uint8 requests normalise on the device: the host
                 # uploads 4x fewer bytes than float32 crops
                 images = images.float() / 127.5 - 1.0
-            pred = self.model(images.permute(0, 3, 1, 2))[0]
+            pred = prediction(self.model(images.permute(0, 3, 1, 2)))
             cam = pred[:, :3]
             j3d = pred[:, 3:66].reshape(-1, 21, 3)
             j2d = project_2d(batch_orth_proj_idrot(j3d, cam))
@@ -185,8 +188,9 @@ class HandPosePredictor:
                 ) -> Dict[str, np.ndarray]:
         """``images``: [N,H,W,3] uint8 [0,255] or float [-1,1] crops, N
         arbitrary.  Returns numpy ``camera [N,3]``, ``joints_3d [N,21,3]``
-        (root-centred by ``reg_transformer``; ``ViP`` predicts joint 1
-        like the others) and ``joints_2d [N,21,2]`` (crop pixels).
+        (root-centred by ``reg_transformer`` and
+        ``reg_transformer_coarse``; ``ViP`` predicts joint 1 like the
+        others) and ``joints_2d [N,21,2]`` (crop pixels).
 
         ``chunk_device_times``: measurement mode, see ``run_bucketed``."""
         x = np.asarray(images)

@@ -36,6 +36,14 @@ def predictions_to_keypoints(pred_params: torch.Tensor
     return cam, j3d, project_2d(batch_orth_proj_idrot(j3d, cam))
 
 
+def prediction(outputs) -> torch.Tensor:
+    """The prediction of a model's outputs: the first of a tuple (the
+    output contract is ``(pred, fmap[, attn][, pl_grad])``, the coarse
+    head inserting ``attn``), or a bare tensor whole (the 128-token
+    heads), as ``scat_tpu/serving.py:209`` reads it."""
+    return outputs[0] if isinstance(outputs, tuple) else outputs
+
+
 def train_inputs(model: nn.Module, batch_size: int,
                  generator: torch.Generator) -> dict:
     """The random inputs of one training forward of ``model``, drawn from
@@ -56,7 +64,7 @@ def forward_loss(model: nn.Module, images: torch.Tensor,
     ``model_inputs``, e.g. ``token_mask=`` or ``dropout_masks=``), and
     the SCAT loss: ``(breakdown, new_pl_mean, joints3d, joints2d_px)``."""
     outputs = model(images.permute(0, 3, 1, 2), **model_inputs)
-    _, j3d, j2d = predictions_to_keypoints(outputs[0])
+    _, j3d, j2d = predictions_to_keypoints(prediction(outputs))
     breakdown, new_pl = losses_lib.scat_loss(
         j3d.reshape(-1, 63), j2d.reshape(-1, 42), labels, l_weight_3d,
         l_weight_2d, valid=valid, pl_grad=outputs[-1] if pl_reg else None,
@@ -69,7 +77,7 @@ def make_train_step(l_weight_3d: float, l_weight_2d: float,
                     grad_accum: int = 1
                     ) -> Callable[[TrainState, Batch], Dict[str, torch.Tensor]]:
     """The train step for a state whose model has the ``(pred,
-    feat_visual[, pl_grad])`` output contract: one forward and backward
+    feat_visual[, attn][, pl_grad])`` output contract: one forward and backward
     (or ``grad_accum`` of them over sequential microbatches) and one
     optimizer and schedule step, in place; returns the step's stats as
     device tensors (nothing waits for the device).
@@ -168,11 +176,14 @@ def make_fused_preprocess_train_step(
 def make_eval_step(model: nn.Module,
                    pck_range: Sequence[float] =
                    metrics_lib.DEFAULT_PCK_RANGE_MM,
-                   flat_compat: bool = True
+                   flat_compat: bool = True, return_attn: bool = False
                    ) -> Callable[[Batch], Dict[str, torch.Tensor]]:
     """Eval step: forward in eval mode -> projection -> PA-Procrustes ->
     PCK and MPJPE (reference eval.py:810-1027 minus visualization).  The
-    model's train/eval mode is restored afterwards."""
+    model's train/eval mode is restored afterwards.  ``return_attn``
+    (the coarse head under ``--debug``) also returns ``attn``, the last
+    layer's attention from the same forward: the reference runs a second
+    forward for it (eval.py:834)."""
 
     def eval_step(batch: Batch) -> Dict[str, torch.Tensor]:
         images, labels = batch["image"], batch["label"]
@@ -182,8 +193,8 @@ def make_eval_step(model: nn.Module,
         was_training = model.training
         model.eval()
         with torch.no_grad():
-            pred = model(images.permute(0, 3, 1, 2))[0]
-            _, j3d, j2d = predictions_to_keypoints(pred)
+            outputs = model(images.permute(0, 3, 1, 2))
+            _, j3d, j2d = predictions_to_keypoints(prediction(outputs))
             gt3d = losses_lib.split_labels(labels).joints_3d.reshape(-1, 21,
                                                                      3)
             aligned = procrustes.similarity_align(j3d, gt3d)
@@ -191,7 +202,11 @@ def make_eval_step(model: nn.Module,
                                       flat_compat=flat_compat, valid=valid)
             err = metrics_lib.mpjpe(aligned, gt3d)
         model.train(was_training)
-        return {"pck": pck, "mpjpe_per_sample": err, "valid": valid,
-                "pred_joints_3d": aligned, "pred_joints_2d": j2d}
+        out = {"pck": pck, "mpjpe_per_sample": err, "valid": valid,
+               "pred_joints_3d": aligned, "pred_joints_2d": j2d}
+        if return_attn:
+            # the coarse head's contract: (pred, feat_visual, attn[, ...])
+            out["attn"] = outputs[2]
+        return out
 
     return eval_step

@@ -11,7 +11,11 @@ conv and transformer compute in ``--compute_dtype`` under autocast.  The
 step stays asynchronous: losses accumulate on the device and reach the
 host only at the log boundary.
 
-It trains on the synthetic task (``--synthetic_data True``, the JAX
+It trains the 66-dim heads (``--net reg_transformer``,
+``reg_transformer_coarse`` through ``python -m
+scat_tpu_torch.train_coarse``, ``ViP``) and refuses the 61-dim
+MANO-parameter heads with the JAX trainer's ``ValueError``.  It trains on
+the synthetic task (``--synthetic_data True``, the JAX
 package's ``data/synthetic.py``) or on the mix of ``--stage`` 1-6
 (``--synthetic_data False --data_dir <STB tree>``, the other datasets'
 trees beside it: FreiHAND, HO-3D, STB, MHP, RHD), whose loaders run
@@ -35,7 +39,7 @@ from scat_tpu_torch.data.prefetch import prefetch_to_device
 from scat_tpu_torch.data.synthetic import SyntheticDataset
 from scat_tpu_torch.devices import resolve_device
 from scat_tpu_torch.models import build_model
-from scat_tpu_torch.models.factory import compute_dtype
+from scat_tpu_torch.models.factory import MANO_PARAM_NETS, compute_dtype
 from scat_tpu_torch.training import schedule, steps
 from scat_tpu_torch.training.state import TrainState
 from scat_tpu_torch.utils import checkpoint as ckpt_lib
@@ -132,6 +136,17 @@ class Trainer:
                   "--l_weight_2d 10 for the canonical run")
         if opt.net == "reg_transformer":
             print("[iccv2021 scat] Transformer regressor...")
+        elif opt.net in MANO_PARAM_NETS:
+            # the JAX trainer's refusal (scat_tpu/training/trainer.py:
+            # 128-139): these heads emit 61 MANO parameters, not the
+            # 66-dim camera + joints that the keypoint loss reads, and the
+            # reference ships no training script for them
+            raise ValueError(
+                f"--net {opt.net} is a 61-dim MANO-parameter head; "
+                "use the adversarial stage for training or the tester for "
+                "inference (scat_tpu_torch.training.adversarial and "
+                "scat_tpu_torch.evaluation.tester, ROADMAP.md queue 1 "
+                "items 14 and 11)")
         model, self.mean_params = build_model(opt, image_size)
         ckpt_lib.load_weights(model, "", seed=opt.seed)
         if opt.pretrained_resnet_pth:

@@ -1,12 +1,14 @@
-"""Skeleton plots, feature-map tiles and the video export of the demo
-(the part of ``scat_tpu/viz/draw.py:19-160,236-250`` that
-``evaluation/demo.py`` calls).
+"""Skeleton plots, feature-map tiles and the video export of the demo,
+and the coarse head's attention maps (the part of
+``scat_tpu/viz/draw.py:19-204,236-250`` that ``evaluation/demo.py`` and
+``evaluation/evaluator.py`` call).
 
 Reference data_utils/draw_3d_joints.py (``plot_2d_hand``, the
 per-finger bone colours of eval.py:62-67), the feature-map tiles of
-eval.py:519-536 and ``generate_video`` (eval.py:72-86).  matplotlib and
-cv2 are imported where they are used, so the module imports without
-them; the demo skips its pictures where they are missing.
+eval.py:519-536, the attention lines of eval.py:864-944 and
+``generate_video`` (eval.py:72-86).  matplotlib and cv2 are imported
+where they are used, so the module imports without them; the demo and
+the Evaluator skip their pictures where they are missing.
 """
 
 from __future__ import annotations
@@ -108,6 +110,53 @@ def feature_map_tiles(feat_visual_nhwc: np.ndarray, out_size: int = 224
         tiles.append(cv2.resize((m * 255).astype(np.uint8),
                                 (out_size, out_size)))
     return np.hstack(tiles)
+
+
+# the query joint of each finger's attention map, and its line colour
+# (BGR; reference eval.py:864-944)
+FINGER_QUERIES = {"index": 1, "thumb": 20, "middle": 5, "ring": 10,
+                  "little": 18}
+FINGER_COLORS = {"index": (0, 255, 0), "thumb": (189, 183, 107),
+                 "middle": (218, 112, 214), "ring": (0, 0, 205),
+                 "little": (135, 206, 235)}
+
+
+def draw_attention_map(attn_row: np.ndarray, gt_lmk: np.ndarray,
+                       query_idx: int, color, scale: int = 6
+                       ) -> np.ndarray:
+    """One attention row as lines from the query joint to the others,
+    each as thick as its weight above the row's 6th-smallest, on a
+    (224*scale)^2 uint8 image (reference eval.py:864-944)."""
+    import cv2
+    img = np.zeros((224 * scale, 224 * scale, 3), np.uint8)
+    ranked = np.sort(attn_row)
+    start = gt_lmk[query_idx]
+    for idx, item in enumerate(gt_lmk):
+        pt = (int(item[0] * scale), int(item[1] * scale))
+        if idx != query_idx:
+            cv2.circle(img, pt, 5, [255, 255, 255], -1)
+        else:
+            cv2.circle(img, pt, 20, [220, 20, 60], -1)
+        if idx != query_idx and attn_row[idx] - ranked[5] > 0:
+            wgt = int(max(attn_row[idx] - ranked[5], 0)
+                      / (ranked[-1] - ranked[5]) * 10)
+            if wgt > 0:
+                cv2.line(img, (int(start[0] * scale), int(start[1] * scale)),
+                         pt, color, wgt, lineType=4)
+    return img
+
+
+def save_attention_maps(attn: np.ndarray, gt_lmk: np.ndarray,
+                        result_folder: str, frame_idx: int) -> None:
+    """Each finger's map of head 0 of ``attn`` [H,N,N] about the
+    landmarks ``gt_lmk`` [21,2] (pixels), as
+    ``{result_folder}/attn/{finger}/{frame_idx:03d}.png``."""
+    import cv2
+    for finger, q in FINGER_QUERIES.items():
+        folder = os.path.join(result_folder, "attn", finger)
+        os.makedirs(folder, exist_ok=True)
+        img = draw_attention_map(attn[0, q], gt_lmk, q, FINGER_COLORS[finger])
+        cv2.imwrite(os.path.join(folder, f"{frame_idx:03d}.png"), img)
 
 
 def generate_video(pth: str, out_pth: str, fps: int = 30):

@@ -1,5 +1,5 @@
 """The port's CUDA kernels, and its loaders, stage-2 mix, Evaluator,
-demo and GroupNorm flagship, on the card (marker ``cuda``; skipped
+demo, GroupNorm flagship, coarse head and 128-token heads, on the card (marker ``cuda``; skipped
 without a CUDA device).
 
 This file imports neither JAX nor the JAX package, so it also runs on a
@@ -22,7 +22,9 @@ from scat_tpu_torch.data.multi import concat_dataset
 from scat_tpu_torch.data.synthetic import SyntheticDataset
 from scat_tpu_torch.evaluation import demo
 from scat_tpu_torch.evaluation.evaluator import Evaluator
-from scat_tpu_torch.models.hand_net import EncoderTransformer
+from scat_tpu_torch.models.hand_net import (
+    EncoderTransformer, EncoderTransformerCoarse, EncoderTransformerHRNet,
+    EncoderTransformerInception)
 from scat_tpu_torch.ops import favor
 from scat_tpu_torch.ops.attention import (attention_bwd,
                                           attention_bwd_reference,
@@ -56,7 +58,8 @@ def _qkv(shape, dtype, device, seed=0):
 
 
 @pytest.mark.parametrize("shape", [(1, 8, 21, 64), (64, 8, 21, 64),
-                                   (2, 4, 128, 64), (3, 2, 21, 64)])
+                                   (2, 4, 128, 64), (3, 2, 21, 64),
+                                   (96, 8, 128, 64)])
 @pytest.mark.parametrize("dtype,atol", [(torch.float32, 2e-5),
                                         (torch.bfloat16, 1e-2)])
 def test_kernel_matches_plain(cuda, shape, dtype, atol):
@@ -73,7 +76,8 @@ def test_kernel_matches_plain(cuda, shape, dtype, atol):
 
 
 @pytest.mark.parametrize("shape", [(1, 8, 21, 64), (96, 8, 21, 64),
-                                   (2, 4, 128, 64), (3, 2, 21, 64)])
+                                   (2, 4, 128, 64), (3, 2, 21, 64),
+                                   (96, 8, 128, 64)])
 @pytest.mark.parametrize("dtype,atol", [(torch.float32, 2e-5),
                                         (torch.bfloat16, 1e-2)])
 def test_backward_kernel_matches_plain(cuda, shape, dtype, atol):
@@ -139,7 +143,7 @@ def test_forward_kernel_sequence_lengths(cuda, n, dtype, atol):
 
 @pytest.mark.parametrize("shape", [(96, 8, 21, 64), (2, 4, 128, 64),
                                    (3, 2, 1, 64), (3, 2, 17, 64),
-                                   (3, 2, 33, 64)])
+                                   (3, 2, 33, 64), (96, 8, 128, 64)])
 def test_bf16_kernels_within_two_ulps(cuda, shape):
     """P (and in the backward dS) split into bf16 high and low parts: the
     bf16 forward and backward lie within 2 bf16 ulps (``bf16_ulps``) of
@@ -518,3 +522,54 @@ def test_demo_on_card_matches_cpu(cuda, tmp_path):
     for k in ("mpjpe_mm", "acc", "auc"):
         np.testing.assert_allclose(got[k], want[k], rtol=1e-3, atol=1e-9,
                                    err_msg=k)
+
+
+def test_coarse_head_on_card_matches_cpu(cuda):
+    """The coarse head's eval forward in float32 on the card against the
+    CPU, the same weights (seed 0): pred and attention within 1e-3, and no
+    attention kernel launch (its attention is the plain version)."""
+    def model(device):
+        m = EncoderTransformerCoarse(
+            torch.from_numpy(assets.load_mean_params()), heads=2,
+            token_dim=64, backbone="resnet18")
+        checkpoint.init_weights(m, seed=0)
+        return m.to(device).eval()
+
+    x = torch.from_numpy(np.random.RandomState(0).randn(4, 3, 64, 64)
+                         .astype(np.float32) * 0.5)
+    with torch.no_grad():
+        want = model("cpu")(x)
+        before = flash_attention.launches
+        got = model(cuda)(x.to(cuda))
+    assert flash_attention.launches == before
+    for name, a, b in zip(("pred", "feat_visual", "attn"), got, want):
+        torch.testing.assert_close(a.cpu(), b, atol=1e-3, rtol=0, msg=name)
+
+
+@pytest.mark.parametrize("cls", [EncoderTransformerHRNet,
+                                 EncoderTransformerInception])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_token_head_kernel_path_matches_plain(cuda, cls, dtype):
+    """A 128-token head at 224 px on the card, the kernel path
+    (use_kernel=True: 3 attention_fwd launches at N = 128 a forward)
+    against the plain path on the same weights: the regressed part (the
+    prediction less the mean it starts from) within 1e-3 in float32, 2%
+    of its largest magnitude in bf16."""
+    mean = torch.from_numpy(assets.load_mean_mano_pose())
+    outs = []
+    x = torch.from_numpy(np.random.RandomState(1).randn(4, 3, 224, 224)
+                         .astype(np.float32) * 0.5).to(cuda)
+    for use_kernel in (True, False):
+        m = cls(mean, heads=8, use_kernel=use_kernel)
+        checkpoint.init_weights(m, seed=0)
+        m = m.to(cuda, memory_format=torch.channels_last).eval()
+        m.cast_compute(dtype)
+        before = flash_attention.launches
+        with torch.no_grad():
+            outs.append(m(x).cpu())
+        assert flash_attention.launches - before == (3 if use_kernel else 0)
+    got, want = (o - mean for o in outs)
+    assert got.shape == (4, 61) and torch.isfinite(got).all()
+    atol = 1e-3 if dtype == torch.float32 else \
+        2e-2 * want.abs().max().item()
+    torch.testing.assert_close(got, want, atol=atol, rtol=0)

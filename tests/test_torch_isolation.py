@@ -75,6 +75,25 @@ def test_no_try_around_kernel_launch(path):
                              "in try/except")
 
 
+# the port's command-line entry points, ``python -m scat_tpu_torch.<name>``
+ENTRY_POINTS = ("train", "train_coarse", "eval", "demo", "server")
+
+
+@pytest.mark.parametrize("name", ENTRY_POINTS)
+def test_entry_point_runs_on_the_port(name):
+    """Each entry point is a module of the port with a ``main`` and a
+    ``__main__`` guard, under the AST check above."""
+    path = os.path.join(PKG, f"{name}.py")
+    assert path in _sources()
+    with open(path) as f:
+        tree = ast.parse(f.read(), path)
+    names = {n.id for n in ast.walk(tree) if isinstance(n, ast.Name)}
+    names |= {a.asname or a.name for n in ast.walk(tree)
+              if isinstance(n, ast.ImportFrom) for a in n.names}
+    names |= {n.name for n in tree.body if isinstance(n, ast.FunctionDef)}
+    assert "main" in names and "__name__" in names, name
+
+
 def test_runtime_imports_stay_clean():
     """Importing every port module pulls in no JAX; importing the
     package alone does not import torch."""

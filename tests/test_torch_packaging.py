@@ -99,8 +99,11 @@ def _port_scripts():
 def test_port_scripts_are_named():
     assert set(_port_scripts()) == {
         "scat-tpu-torch-serve", "scat-tpu-torch-train",
-        "scat-tpu-torch-eval", "scat-tpu-torch-demo"}
+        "scat-tpu-torch-train-coarse", "scat-tpu-torch-eval",
+        "scat-tpu-torch-demo"}
     assert _port_scripts()["scat-tpu-torch-demo"] == "scat_tpu_torch.demo:main"
+    assert _port_scripts()["scat-tpu-torch-train-coarse"] == \
+        "scat_tpu_torch.train_coarse:main"
 
 
 @pytest.mark.parametrize("script", sorted(_port_scripts()))

@@ -217,12 +217,20 @@ def test_bf16_compute_dtype():
     assert np.isfinite(out["joints_3d"]).all()
 
 
-@pytest.mark.parametrize("net,item", [("reg_transformer_coarse", 9),
-                                      ("backbone_hrnet", 10),
-                                      ("frankmocap", 11), ("ViT", 12)])
+@pytest.mark.parametrize("net,item", [("frankmocap", 11), ("ViT", 12)])
 def test_unported_nets_name_their_roadmap_item(net, item):
     with pytest.raises(NotImplementedError, match=f"item {item}"):
         build_model(Options(net=net))
+
+
+@pytest.mark.parametrize("net,cls,out", [
+    ("reg_transformer_coarse", "EncoderTransformerCoarse", 66),
+    ("backbone_hrnet", "EncoderTransformerHRNet", 61),
+    ("backbone_incepv3", "EncoderTransformerInception", 61)])
+def test_ported_nets_build(net, cls, out):
+    """The nets of ROADMAP.md queue 1 items 9 and 10 build in the port."""
+    model, mean = build_model(Options(net=net))
+    assert type(model).__name__ == cls and mean.shape == (out,)
 
 
 def test_training_only_paths_raise():
