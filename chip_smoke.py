@@ -115,7 +115,38 @@ Phases, in order; any failure raises and exits non-zero:
               (3 + 3 launches; loss and gradient norm within 2%); device
               ms a forward and a forward+backward on each path, and the
               kernels' share of device time;
-  11. favor    the FAVOR+ stats and apply kernels against their plain
+  11. vit      --net ViT at the JAX package's defaults (224 px, 16x16
+              patches, 197 tokens x 256, depth 3, 8 heads x 64, iteration
+              1, bf16, seed 0; the plain attention, as in JAX): requests
+              of 1, 7, 64 and 150 crops and HTTP equal to predict; the
+              float32 forward on the card (TF32 off) against the CPU on
+              the same weights within 1e-4 of the joints; the Trainer at
+              bs 96, lr 5e-4, weights 1e5 / 10 for 3 epochs of 8 steps (a
+              falling loss, hand_net_final.pth served as it is); the
+              Evaluator on 2 synthetic batches (finite MPJPE, AUC, PCK);
+              the serving rate, p50 request latency at buckets 1 and 64,
+              the training rate, p50 step and profiles; no attention-kernel
+              launch;
+  12. mano     --net frankmocap (H3DW on resnet50, 224 px, bf16, the
+              synthetic MANO of extra_data/hand.obj): rot_pose_beta_to_mesh
+              in float32 on the card against the CPU at bs 96 within 1e-5
+              (bf16 inputs decode in float32), its device ms and kernel
+              launches a call; the Tester on 16 PNG crops written under
+              build/ (finite params, joints, vertices and 2D joints, the
+              parameter files, the overlays or their skip message) and its
+              images/s; the Evaluator through H3DWJointsEncoder on 2
+              synthetic batches of 96;
+  13. video    VideoTrainer at the JAX package's defaults (resnet50 H3DW at
+              224 px, bf16; 16-frame windows at stride 8, 2 a step; GRU
+              1024 x 2, attention pooling; VIBELossConfig()) for 2 epochs
+              over 4 videos x 48 frames from seed 0: finite generator and
+              discriminator losses with d_real and d_fake; the
+              discriminator's parameters unchanged by the generator's
+              update; one step against the same step with the encoder in
+              float32 (losses within 2%); sequences/s, p50 step, the
+              synchronising calls of a step, a profile, and the step's
+              parts (encoder, MANO decode, GRU, losses) each timed alone;
+  14. favor    the FAVOR+ stats and apply kernels against their plain
               versions at --net ViP's shapes (BH 4, 28, 256, 384 at
               T = 3137, e = 128, m = 64; T at chunk and tile edges; e 64
               / m 32) at rtol 1e-4 (atol 1e-5, times the largest
@@ -133,7 +164,7 @@ Phases, in order; any failure raises and exits non-zero:
               call computes FAVOR+, so no library time), each kernel's
               bound both as its tensor-core design's (bytes, and the
               bf16x3 products) and as the float32-operation figure;
-  12. vip-serve  the --net ViP predictor at full width (224 px, 3137
+  15. vip-serve  the --net ViP predictor at full width (224 px, 3137
               tokens x 512, 4 heads, depth 3, m 64, iteration 3, bf16,
               --use_pallas_favor True, weights from seed 0) serves uint8
               requests of 1, 7, 64 and 150 crops: 3 stats + 3 apply
@@ -142,17 +173,17 @@ Phases, in order; any failure raises and exits non-zero:
               model with the plain float32 FAVOR+ substituted (2%); the
               end-to-end rate, p50 request latency at buckets 1 and 64
               and a profile;
-  13. vip-train  the Trainer on --net ViP (bs 96, lr 5e-4, weights 1e5 /
+  16. vip-train  the Trainer on --net ViP (bs 96, lr 5e-4, weights 1e5 /
               10, bf16, dropout 0.1) for 3 epochs of 8 steps: 3 + 3
               launches a step, a falling loss; one step's loss and
               gradient norm against the plain float32 FAVOR+; remat_blocks
               against none (6 + 6 launches, the same loss and
               gradients); hand_net_final.pth served; the training rate,
               p50 step time and a profile;
-  14. vip-eval  the Evaluator on vip-train's hand_net_final.pth
+  17. vip-eval  the Evaluator on vip-train's hand_net_final.pth
               (synthetic batches): 3 + 3 FAVOR+ launches a batch and the
               file's frozen mains.{i}.w;
-  15. the card line, the kernels line, and the final
+  18. the card line, the kernels line, and the final
      {"ok": true, "device": ...} line.
 
 TF32 is off for the whole run (torch.backends.cuda.matmul.allow_tf32 and
@@ -164,6 +195,7 @@ import copy
 import csv
 import dataclasses
 import http.client
+import importlib.util
 import json
 import os
 import pickle
@@ -172,6 +204,7 @@ import sys
 import tempfile
 import threading
 import time
+import warnings
 
 import numpy as np
 import torch
@@ -186,11 +219,14 @@ from scat_tpu_torch.data.prefetch import prefetch_to_device, to_device
 from scat_tpu_torch.data.preprocess import color_jitter_np
 from scat_tpu_torch.evaluation import demo
 from scat_tpu_torch.evaluation.evaluator import Evaluator
+from scat_tpu_torch.evaluation.tester import Tester
 from scat_tpu_torch.kernels import build
 from scat_tpu_torch import train_coarse
-from scat_tpu_torch.models import build_model, performer
-from scat_tpu_torch.models.hand_net import EncoderTransformerCoarse
+from scat_tpu_torch.models import build_model, mano, performer, vibe_loss
+from scat_tpu_torch.models.hand_net import (EncoderTransformerCoarse,
+                                            H3DWJointsEncoder)
 from scat_tpu_torch.models.transformer import Attention
+from scat_tpu_torch.models.vit import ViT
 from scat_tpu_torch.ops.attention import (attention_bwd,
                                           attention_bwd_reference,
                                           attention_reference, bf16_ulps,
@@ -201,8 +237,11 @@ from scat_tpu_torch.ops.favor import (favor_apply, favor_apply_reference,
                                       favor_stats, favor_stats_reference)
 from scat_tpu_torch.server import make_server
 from scat_tpu_torch.serving import HandPosePredictor, frames_to_crops
-from scat_tpu_torch.training import steps
+from scat_tpu_torch.training import adversarial, steps
+from scat_tpu_torch.training.adversarial import make_adversarial_train_step
 from scat_tpu_torch.training.trainer import Trainer, make_dataset
+from scat_tpu_torch.training.video_trainer import (VideoChunkDataset,
+                                                   VideoTrainer)
 from scat_tpu_torch.utils import checkpoint
 from scat_tpu_torch.viz.draw import FINGER_QUERIES
 
@@ -1864,6 +1903,484 @@ def phase_token_heads(rng):
     BWD.result["launches"] += bwd
 
 
+# --net ViT at the JAX package's defaults (scat_tpu/config.py:57-62): 224
+# px in 16x16 patches, 196 tokens + cls x 256, depth 3 (256 -> 128 -> 64
+# -> 3), 8 heads x 64, iteration 1, bf16, weights from seed 0; the plain
+# attention path, as the JAX package builds it
+VIT = Options(net="ViT", compute_dtype="bfloat16", checkpoint_path_eval="",
+              seed=0)
+VIT_TRAIN = dataclasses.replace(
+    VIT, batch_size=TRAIN_BATCH, lr=5e-4, l_weight_3d=1e5, l_weight_2d=10.0,
+    synthetic_data=True, debug=False, epoch=3, steps_per_epoch=8,
+    log_every=1, checkpoint_folder=os.path.join("build", "chip_smoke_vit"))
+# --net frankmocap: H3DW on resnet50 at 224 px, bf16; the synthetic MANO
+# of extra_data/hand.obj (MANO_RIGHT.pkl is not in the repository)
+FRANKMOCAP = Options(net="frankmocap", compute_dtype="bfloat16",
+                     checkpoint_path_eval="", seed=0,
+                     batch_size=TRAIN_BATCH, synthetic_data=True,
+                     steps_per_epoch=2)
+# the temporal stage at the JAX package's defaults: 16-frame windows at
+# stride 8, 2 windows a step, GRU 1024 x 2 with attention pooling,
+# VIBELossConfig(), bf16 encoder; 4 videos of 48 frames from seed 0
+VIDEO = Options(net="frankmocap", compute_dtype="bfloat16", seed=0,
+                epoch=2)
+VIDEO_SEQLEN, VIDEO_STRIDE, VIDEO_WINDOWS = 16, 8, 2
+VIDEO_COUNT, VIDEO_FRAMES = 4, 48
+
+
+def no_kernel_launch(tag):
+    """The phase's path launched none of the four kernels (the JAX
+    package's ViT, MANO and temporal stage reach no Pallas kernel)."""
+    counts = {k.name: k.wrapper.launches for k in KERNELS}
+    assert not any(counts.values()), (tag, counts)
+
+
+def serving_rate(tag, pred, rng, requests=WINDOW_REQUESTS,
+                 crops=WINDOW_CROPS):
+    """The end-to-end rate over a window of back-to-back requests of
+    ``crops`` crops, the p50 request latency at buckets 1 and 64, and a
+    profile of one 256-crop request."""
+    big = pred._buckets[-1]
+    window = [rng.randint(0, 256, (crops, IMAGE, IMAGE, 3), dtype=np.uint8)
+              for _ in range(requests)]
+    pred.predict(window[0])
+    t0 = time.perf_counter()
+    for x in window:
+        pred.predict(x)
+    dt = time.perf_counter() - t0
+    n = requests * crops
+    print(f"[{tag}] end to end: {requests} back-to-back requests of "
+          f"{crops} uint8 crops (chunks of {big}), {n} crops in "
+          f"{dt * 1e3:.1f} ms: {n / dt:.1f} crops/s")
+    for b in (1, big):
+        x = rng.randint(0, 256, (b, IMAGE, IMAGE, 3), dtype=np.uint8)
+        req_t = []
+        for _ in range(20):
+            t0 = time.perf_counter()
+            pred.predict(x)
+            req_t.append(time.perf_counter() - t0)
+        print(f"[{tag}] bucket {b:2d}: p50 request latency "
+              f"{np.median(req_t) * 1e3:.3f} ms (20 requests)")
+    x = window[1][:256]
+    device_profile(tag, lambda: pred.predict(x), f"256 crops in chunks of "
+                   f"{big}")
+
+
+def phase_vit(rng):
+    """--net ViT: served (requests of 1, 7, 64, 150 crops, HTTP), the
+    float32 forward on the card against the CPU, trained (3 epochs of 8
+    steps at bs 96, the file served as it is), evaluated; rates and
+    profiles; no attention-kernel launch."""
+    card = card_line()
+    reset_counts()
+    t0 = time.perf_counter()
+    pred = HandPosePredictor.from_checkpoint(VIT, image_size=IMAGE)
+    model = pred.model
+    assert isinstance(model, ViT) and model.tokens == 197
+    assert model.transformer.dims == [256, 128, 64]
+    assert model.patch_to_embedding.weight.dtype == torch.bfloat16
+    assert model.head[0].weight.dtype == torch.float32
+    assert not any(m.use_kernel for m in model.modules()
+                   if isinstance(m, Attention))
+    pred.warmup()
+    print(f"[vit] predictor built and warmed up in "
+          f"{time.perf_counter() - t0:.1f} s (224 px, 197 tokens x 256, "
+          f"depth 3, 8 heads x 64, iteration 1, bf16)")
+    crops = {n: rng.randint(0, 256, (n, IMAGE, IMAGE, 3)).astype(np.uint8)
+             for n in REQUESTS}
+    outs = {n: pred.predict(crops[n]) for n in REQUESTS}
+    for n, out in outs.items():
+        check_output(out, n, root_centred=False)
+    f32 = dataclasses.replace(VIT, compute_dtype="float32")
+    o32 = HandPosePredictor.from_checkpoint(f32, image_size=IMAGE).predict(
+        crops[7])
+    cpu = HandPosePredictor.from_checkpoint(
+        f32, image_size=IMAGE, device="cpu").predict(crops[7])
+    compare("vit", [("float32 on the card (TF32 off) vs the CPU, 7 crops, "
+                     "joints_3d", o32["joints_3d"], cpu["joints_3d"], 1e-4)])
+    diff = float(np.abs(outs[7]["joints_3d"] - o32["joints_3d"]).max())
+    print(f"[vit] bf16 vs float32 on the card, 7 crops, joints_3d: max abs "
+          f"diff {diff:.4e} (|joints_3d| max "
+          f"{np.abs(o32['joints_3d']).max():.4f})")
+    phase_serve(pred, crops, tag="vit")
+    serving_rate("vit", pred, rng)
+    del pred, model
+
+    trainer = Trainer(VIT_TRAIN, image_size=IMAGE)
+    log = os.path.join(VIT_TRAIN.checkpoint_folder, "metrics.csv")
+    if os.path.exists(log):
+        os.remove(log)
+    n_steps = VIT_TRAIN.epoch * VIT_TRAIN.steps_per_epoch
+    t0 = time.perf_counter()
+    trainer.train()
+    print(f"[vit] {VIT_TRAIN.epoch} epochs x {VIT_TRAIN.steps_per_epoch} "
+          f"steps at bs {VIT_TRAIN.batch_size} in "
+          f"{time.perf_counter() - t0:.1f} s (first steps and saves "
+          f"included)")
+    with open(log) as f:
+        losses = [float(r["loss"]) for r in csv.DictReader(f)]
+    assert len(losses) == n_steps and np.isfinite(losses).all(), losses
+    quarter = n_steps // 4
+    first, last = np.mean(losses[:quarter]), np.mean(losses[-quarter:])
+    print(f"[vit] loss: mean of the first {quarter} steps {first:.1f}, of "
+          f"the last {quarter} {last:.1f}")
+    assert last < first, (first, last)
+    path = os.path.join(VIT_TRAIN.checkpoint_folder, checkpoint.FINAL_NAME)
+    served = HandPosePredictor.from_checkpoint(
+        dataclasses.replace(VIT, checkpoint_path_eval=path),
+        image_size=IMAGE)
+    got = served.predict(crops[7])
+    check_output(got, 7, root_centred=False)
+    mirror = HandPosePredictor(
+        model=copy.deepcopy(trainer.model).cast_compute(torch.bfloat16),
+        image_size=IMAGE)
+    for k, v in mirror.predict(crops[7]).items():
+        np.testing.assert_array_equal(got[k], v, err_msg=k)
+    del served, mirror
+    print(f"[vit] {path} served by HandPosePredictor: equals the trained "
+          f"model's bf16 predict")
+
+    ev = Evaluator(dataclasses.replace(
+        VIT_TRAIN, checkpoint_path_eval=path, steps_per_epoch=2,
+        result_dir=os.path.join("build", "chip_smoke_vit_eval")),
+        image_size=IMAGE)
+    t0 = time.perf_counter()
+    result = ev.eval()
+    dt = time.perf_counter() - t0
+    pck = result["pck"]
+    print(f"[vit] Evaluator, 2 synthetic batches of {TRAIN_BATCH} in "
+          f"{dt * 1e3:.1f} ms: MPJPE {result['mpjpe_mm']:.3f} mm, AUC "
+          f"{result['auc']:.4f}, PCK@50 {pck[-1, -1]:.2f} %")
+    assert np.isfinite(result["mpjpe_mm"]) and np.isfinite(result["auc"])
+    assert np.isfinite(pck).all() and ((pck >= 0) & (pck <= 100)).all()
+    del ev
+    batches = list(trainer.train_loader)[:2]
+    train_rate("vit", trainer.state, trainer.train_step, batches)
+    no_kernel_launch("vit")
+    print(f"[vit] no kernel launch (the plain attention, as in the JAX "
+          f"package); card {card}")
+
+
+def decode_profile(tag, fn, calls=10):
+    """Device time and kernel launches of one call of ``fn`` (``calls``
+    profiled, after one), and its top device operations."""
+    fn()
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    events = [e for e in prof.key_averages()
+              if e.device_type == torch.autograd.DeviceType.CUDA
+              and e.self_device_time_total > 0
+              and not getattr(e, "is_user_annotation", False)]
+    busy = sum(e.self_device_time_total for e in events) / calls / 1e3
+    launches = sum(e.count for e in events) / calls
+    print(f"[{tag}] device {busy:.4f} ms and {launches:.0f} kernel launches "
+          f"a call ({calls} calls profiled)")
+    for e in sorted(events, key=lambda e: -e.self_device_time_total)[:8]:
+        print(f"[{tag}]   {e.self_device_time_total / calls / 1e3:9.4f} ms "
+              f"x{e.count / calls:<5.0f} {e.key[:110]}")
+    return busy, launches
+
+
+def write_crops(folder, rng, n=16):
+    """``n`` PNG crops of assorted sizes for the Tester."""
+    from PIL import Image
+    os.makedirs(folder, exist_ok=True)
+    for f in os.listdir(folder):
+        os.remove(os.path.join(folder, f))
+    for i in range(n):
+        h, w = rng.randint(96, 400, 2)
+        Image.fromarray(rng.randint(0, 256, (h, w, 3)).astype(
+            np.uint8)).save(os.path.join(folder, f"crop_{i:02d}.png"))
+
+
+def phase_mano(rng):
+    """--net frankmocap: the MANO decode on the card in float32 against
+    the CPU at bs 96, its device time and launches; the Tester on 16
+    written crops; the Evaluator through H3DWJointsEncoder."""
+    card = card_line()
+    reset_counts()
+    cpu = mano.ManoModel.from_data()
+    dev = cpu.to("cuda")
+    b = TRAIN_BATCH
+    rots = rng.randn(b, 3).astype(np.float32) * 0.5
+    poses = rng.randn(b, 45).astype(np.float32) * 0.3
+    betas = rng.randn(b, 10).astype(np.float32)
+    rots[0] = 0.0   # the guarded Rodrigues' Taylor branch
+    args = [torch.from_numpy(a) for a in (rots, poses, betas)]
+    want = mano.rot_pose_beta_to_mesh(cpu, *args).numpy()
+    cargs = [a.cuda() for a in args]
+    got = mano.rot_pose_beta_to_mesh(dev, *cargs)
+    got16 = mano.rot_pose_beta_to_mesh(dev, *(a.bfloat16() for a in cargs))
+    assert got.dtype == torch.float32 and got16.dtype == torch.float32
+    compare("mano", [(f"float32 decode on the card vs the CPU, bs {b}, 21 "
+                      f"joints + 778 vertices", got.cpu().numpy(), want,
+                      1e-5)])
+    busy, launches = decode_profile(
+        "mano", lambda: mano.rot_pose_beta_to_mesh(dev, *cargs))
+    print(f"[mano] rot_pose_beta_to_mesh at bs {b}: {busy:.4f} ms device, "
+          f"{launches:.0f} launches (the 16-joint chain composes 15 4x4 "
+          f"matmuls one joint at a time); card {card}")
+
+    folder = os.path.join("build", "chip_smoke_mano", "rgb")
+    write_crops(folder, rng)
+    opt = dataclasses.replace(
+        FRANKMOCAP, result_dir=os.path.join("build", "chip_smoke_mano",
+                                            "out"))
+    t0 = time.perf_counter()
+    tester = Tester(opt, image_size=IMAGE)
+    assert tester.model.main_encoder.fc1.in_features == 2048   # resnet50
+    print(f"[mano] Tester built in {time.perf_counter() - t0:.1f} s")
+    tester.test(folder)   # warm-up: convolution algorithms, decode
+    t0 = time.perf_counter()
+    results = tester.test(folder)
+    dt = time.perf_counter() - t0
+    assert len(results) == 16
+    for r in results:
+        assert r["pred_params"].shape == (61,)
+        assert r["joints_3d"].shape == (21, 3)
+        assert r["verts"].shape == (778, 3)
+        assert r["joints_2d"].shape == (21, 2)
+        for k in ("pred_params", "joints_3d", "verts", "joints_2d"):
+            assert np.isfinite(r[k]).all(), (r["name"], k)
+        stem = os.path.splitext(r["name"])[0]
+        assert os.path.getsize(os.path.join(opt.result_dir,
+                                            f"{stem}_params.txt")) > 0
+    overlays = importlib.util.find_spec("matplotlib") is not None
+    if overlays:
+        assert os.path.getsize(os.path.join(
+            opt.result_dir, "crop_00_overlay.png")) > 0
+    print(f"[mano] Tester on 16 crops: {16 / dt:.1f} images/s ({dt * 1e3:.1f}"
+          f" ms, one image at a time, PNG decode included); params, joints, "
+          f"vertices and 2D joints finite; {{stem}}_params.txt written; "
+          + ("overlays written" if overlays else
+             "no matplotlib: the overlays' skip message printed"))
+    del tester
+
+    ev = Evaluator(dataclasses.replace(
+        FRANKMOCAP, result_dir=os.path.join("build", "chip_smoke_mano_eval")),
+        image_size=IMAGE)
+    assert isinstance(ev.model, H3DWJointsEncoder)
+    t0 = time.perf_counter()
+    result = ev.eval()
+    dt = time.perf_counter() - t0
+    print(f"[mano] Evaluator through H3DWJointsEncoder, 2 synthetic batches "
+          f"of {TRAIN_BATCH} in {dt * 1e3:.1f} ms: MPJPE "
+          f"{result['mpjpe_mm']:.3f} mm, AUC {result['auc']:.4f}")
+    assert np.isfinite(result["mpjpe_mm"]) and np.isfinite(result["auc"])
+    assert np.isfinite(result["pck"]).all()
+    no_kernel_launch("mano")
+
+
+def video_data(rng):
+    """4 videos x 48 frames at 224 px: smooth noise frames in [-1, 1] and
+    166-float labels (pose 3:51, 3D joints 61:124, 2D joints 124:166)."""
+    n = VIDEO_COUNT * VIDEO_FRAMES
+    base = rng.uniform(-1, 1, (VIDEO_COUNT, 1, IMAGE, IMAGE, 3))
+    drift = rng.uniform(-0.02, 0.02, (VIDEO_COUNT, VIDEO_FRAMES, 1, 1, 3))
+    images = np.clip(base + np.cumsum(drift, axis=1), -1, 1).astype(
+        np.float32).reshape(n, IMAGE, IMAGE, 3)
+    labels = np.concatenate([
+        rng.randn(n, 61) * 0.1, rng.randn(n, 63) * 0.03,
+        rng.rand(n, 42) * IMAGE], 1).astype(np.float32)
+    vids = np.repeat([f"video_{i}" for i in range(VIDEO_COUNT)],
+                     VIDEO_FRAMES)
+    return images, labels, vids
+
+
+def event_ms(fn, reps=10):
+    """ms a call of ``fn`` over ``reps`` back-to-back calls, CUDA events
+    (the host's launch gaps included), after two warm-up calls."""
+    for _ in range(2):
+        fn()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def phase_video(rng):
+    """The temporal stage: VideoTrainer for 2 epochs (finite losses,
+    d_real and d_fake), one step against the same step with the encoder
+    in float32, the discriminator untouched by the generator's update;
+    sequences/s, p50 step, a profile and the step split into encoder,
+    MANO decode, GRU and losses."""
+    card = card_line()
+    reset_counts()
+    images, labels, vids = video_data(rng)
+    ds = VideoChunkDataset(images, labels, vids, seqlen=VIDEO_SEQLEN,
+                           stride=VIDEO_STRIDE, batch_size=VIDEO_WINDOWS)
+    per_video = (VIDEO_FRAMES - VIDEO_SEQLEN) // VIDEO_STRIDE + 1
+    assert len(ds.windows) == VIDEO_COUNT * per_video
+    assert len(ds) == len(ds.windows) // VIDEO_WINDOWS
+    trainer = VideoTrainer(VIDEO, image_size=IMAGE)
+    disc = trainer.discriminator
+    assert disc.gru.hidden_size == 1024 and disc.gru.num_layers == 2
+    assert disc.feature_pool == "attention"
+    t0 = time.perf_counter()
+    state = trainer.train(ds)
+    print(f"[video] VideoTrainer: {VIDEO.epoch} epochs of {len(ds)} steps "
+          f"({VIDEO_WINDOWS} windows of {VIDEO_SEQLEN} frames, resnet50 "
+          f"H3DW at 224 px bf16, GRU 1024 x 2, attention pooling) in "
+          f"{time.perf_counter() - t0:.1f} s (first steps included)")
+    assert state.step == VIDEO.epoch * len(ds)
+    batches = list(ds)[:2]
+    step = make_adversarial_train_step(trainer.mano, grad_norms=True)
+    stats = {k: v.item() for k, v in step(state, batches[0]).items()}
+    for k, v in stats.items():
+        assert np.isfinite(v), (k, v)
+    print(f"[video] one more step: gen {stats['gen_loss']:.4f}, disc "
+          f"{stats['disc_loss']:.4f} (d_real {stats['d_real']:.4f}, d_fake "
+          f"{stats['d_fake']:.4f}), gradient norms {stats['gen_grad_norm']:.4g}"
+          f" / {stats['disc_grad_norm']:.4g}")
+
+    # the generator's update leaves the discriminator as it is: its
+    # parameters, and no gradient written into it
+    state.discriminator.zero_grad(set_to_none=True)
+    before = [p.detach().clone() for p in state.discriminator.parameters()]
+    enc_before = state.encoder.regressor[0].weight.detach().clone()
+    fake, _ = adversarial.generator_step(state, batches[1], trainer.mano)
+    for p, b in zip(state.discriminator.parameters(), before):
+        assert torch.equal(p, b) and p.grad is None
+    assert not torch.equal(state.encoder.regressor[0].weight, enc_before)
+    adversarial.discriminator_step(state, fake, batches[1]["real_theta"])
+    print("[video] generator_step: the discriminator's parameters equal "
+          "their values before it and hold no gradient; the encoder moved")
+
+    # one step from the same weights and batch, bf16 against float32
+    got = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        disc_twin = copy.deepcopy(state.discriminator)
+        disc_twin.gru.flatten_parameters()   # a copy's weights are apart
+        twin = adversarial.AdversarialTrainState.create(
+            copy.deepcopy(state.encoder).set_compute_dtype(dtype), disc_twin,
+            VIDEO.lr, VIDEO.lr * 0.1)
+        s = step(twin, batches[0])
+        got[dtype] = (s["gen_loss"].item(), s["disc_loss"].item())
+        del twin
+    failed = []
+    for i, what in enumerate(("generator loss", "discriminator loss")):
+        a, b = got[torch.bfloat16][i], got[torch.float32][i]
+        diff, bnd = abs(a - b), BF16_REL * abs(b)
+        print(f"[video] one step, bf16 vs float32 encoder, {what}: {a:.6g} "
+              f"vs {b:.6g}, diff {diff:.4e} (bound {bnd:.4e})")
+        if not diff <= bnd:
+            failed.append(what)
+    assert not failed, failed
+
+    # rates: a window of 10 steps, and the p50 of 10 synchronised steps,
+    # of the step VideoTrainer runs (no gradient norms)
+    step = make_adversarial_train_step(trainer.mano)
+    for i in range(3):
+        step(state, batches[i % 2])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(10):
+        step(state, batches[i % 2])
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    times = []
+    for i in range(10):
+        t1 = time.perf_counter()
+        step(state, batches[i % 2])
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t1)
+    p50 = float(np.median(times)) * 1e3
+    print(f"[video] rate: 10 steps of {VIDEO_WINDOWS} windows x "
+          f"{VIDEO_SEQLEN} frames in {dt * 1e3:.1f} ms: "
+          f"{10 * VIDEO_WINDOWS / dt:.2f} sequences/s "
+          f"({10 * VIDEO_WINDOWS * VIDEO_SEQLEN / dt:.1f} frames/s); p50 "
+          f"step {p50:.3f} ms; card {card}")
+
+    # does the step wait for the card anywhere? Under the sync debug
+    # mode each synchronising call it detects warns ("called a
+    # synchronizing CUDA operation"; the mode's own notice is not one)
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            step(state, batches[0])
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    syncs = [str(w.message) for w in caught
+             if "called a synchronizing" in str(w.message)]
+    print(f"[video] one step under the sync debug mode: {len(syncs)} "
+          f"synchronising call(s)" + (f", the first: {syncs[0][:160]}"
+                                      if syncs else ""))
+
+    def three_steps():
+        for i in range(3):
+            step(state, batches[i % 2])
+        torch.cuda.synchronize()
+    busy, _ = device_profile("video", three_steps,
+                             f"3 adversarial steps of {VIDEO_WINDOWS} x "
+                             f"{VIDEO_SEQLEN} frames")
+    print(f"[video] device busy {busy / 3:.3f} ms a step against the p50 "
+          f"step {p50:.3f} ms: idle {100 * (1 - busy / 3 / p50):.1f}% of an "
+          f"unprofiled step")
+
+    # the step's parts, each timed alone at the step's shapes (forward
+    # and backward): the encoder over 32 frames, the MANO decode, the GRU
+    # discriminator's three passes, the losses
+    enc, disc = state.encoder, state.discriminator
+    x = batches[0]["image"].reshape(-1, IMAGE, IMAGE, 3).permute(0, 3, 1, 2)
+    B, T = VIDEO_WINDOWS, VIDEO_SEQLEN
+    with torch.no_grad():
+        thetas = enc(x)[1].float()
+    lab = batches[0]["label"]
+
+    def encoder_part():
+        enc(x)[1].float().sum().backward()
+
+    def decode_part():
+        th = thetas.clone().requires_grad_()
+        j, j2 = adversarial.decode_thetas(trainer.mano, th)
+        (j.sum() + j2.sum()).backward()
+
+    def gru_part():
+        th = thetas.reshape(B, T, 61).clone().requires_grad_()
+        disc(th[:, :, 3:51]).sum().backward()
+        (disc(th.detach()[:, :, 3:51]).sum()
+         + disc(batches[0]["real_theta"][:, :, 3:51]).sum()).backward()
+
+    joints, j2d = adversarial.decode_thetas(trainer.mano, thetas)
+    fake_val = disc(thetas.reshape(B, T, 61)[:, :, 3:51]).detach()
+
+    def loss_part():
+        th = thetas.reshape(B, T, 61).clone().requires_grad_()
+        gt = torch.cat([torch.zeros_like(lab[..., :3]), lab[..., 3:51],
+                        torch.zeros_like(lab[..., :10])], -1)
+        fv = fake_val.clone().requires_grad_()
+        total, _ = vibe_loss.vibe_generator_loss(
+            vibe_loss.VIBELossConfig(), th, j2d.reshape(B, T, 21, 2),
+            joints.reshape(B, T, 21, 3), lab[..., 124:].reshape(B, T, 21, 2),
+            lab[..., 61:124].reshape(B, T, 21, 3), gt, disc_fake_value=fv)
+        d = vibe_loss.vibe_discriminator_loss(
+            vibe_loss.VIBELossConfig(), fv, fv)[2]
+        (total + d).backward()
+
+    parts = {f"encoder ({B * T} frames)": event_ms(encoder_part),
+             "MANO decode": event_ms(decode_part),
+             "GRU discriminator (3 passes)": event_ms(gru_part),
+             "losses": event_ms(loss_part)}
+    enc.zero_grad(set_to_none=True)
+    disc.zero_grad(set_to_none=True)
+    print("[video] the step's parts alone, forward + backward, CUDA events "
+          "over 10 calls: " + ", ".join(
+              f"{k} {v:.3f} ms ({100 * v / p50:.1f}% of the p50 step)"
+              for k, v in parts.items()))
+    no_kernel_launch("video")
+
+
 def favor_operands(b, h, t, e, m, dtype, seed):
     """k, q, v as the Performer block passes them (strided [B,H,T,e]
     views of one [B,T,H,3e] kqv output, k and q scaled by 0.5 as ViP's
@@ -2135,29 +2652,8 @@ def phase_vip_serve(rng):
           f"joints_3d: max abs diff {diff:.4e} (|joints_3d| max "
           f"{np.abs(out_plain['joints_3d']).max():.4f})")
 
-    window = [rng.randint(0, 256, (VIP_WINDOW_CROPS, IMAGE, IMAGE, 3),
-                          dtype=np.uint8) for _ in range(VIP_WINDOW_REQUESTS)]
-    pred.predict(window[0])
-    t0 = time.perf_counter()
-    for x in window:
-        pred.predict(x)
-    dt = time.perf_counter() - t0
-    n = VIP_WINDOW_REQUESTS * VIP_WINDOW_CROPS
-    print(f"[vip-serve] end to end: {VIP_WINDOW_REQUESTS} back-to-back "
-          f"requests of {VIP_WINDOW_CROPS} uint8 crops (chunks of {big}), "
-          f"{n} crops in {dt * 1e3:.1f} ms: {n / dt:.1f} crops/s")
-    for b in (1, big):
-        x = rng.randint(0, 256, (b, IMAGE, IMAGE, 3), dtype=np.uint8)
-        req_t = []
-        for _ in range(20):
-            t0 = time.perf_counter()
-            pred.predict(x)
-            req_t.append(time.perf_counter() - t0)
-        print(f"[vip-serve] bucket {b:2d}: p50 request latency "
-              f"{np.median(req_t) * 1e3:.3f} ms (20 requests)")
-    device_profile("vip-serve", lambda: pred.predict(window[1]),
-                   f"{VIP_WINDOW_CROPS} crops in chunks of {big}")
-    del window
+    serving_rate("vip-serve", pred, rng, VIP_WINDOW_REQUESTS,
+                 VIP_WINDOW_CROPS)
 
 
 def phase_vip_train(rng):
@@ -2428,6 +2924,9 @@ def main(argv):
         ("group-norm", lambda: phase_group_norm(rng, state["synth"])),
         ("coarse", lambda: phase_coarse(rng)),
         ("token-heads", lambda: phase_token_heads(rng)),
+        ("vit", lambda: phase_vit(rng)),
+        ("mano", lambda: phase_mano(rng)),
+        ("video", lambda: phase_video(rng)),
         ("favor", phase_favor_kernels),
         ("vip-serve", lambda: phase_vip_serve(rng)),
         ("vip-train", lambda: state.update(vip=phase_vip_train(rng))),

@@ -8,7 +8,10 @@ batches, its AUC, ``PCK.png``, the MPJPE and AUC prints, and
 ``{result_dir}/eval_metrics.csv``.
 
 ``Evaluator(opt, device=None).eval()`` runs on the CUDA device unless
-the caller asks for another (the tests pass ``device="cpu"``).  Weights
+the caller asks for another (the tests pass ``device="cpu"``).  The
+model is built with ``for_keypoints=True``, as the JAX package's is:
+``--net frankmocap`` evaluates through ``H3DWJointsEncoder`` (its MANO
+decode in the forward); the 61-dim 128-token heads are refused.  Weights
 come from ``--checkpoint_path_eval`` (a reference-keyed ``.pth``, loaded
 strictly: a ViP file carries its frozen ``mains.{i}.w``) or from an
 injected ``state_dict``.  With ``--net reg_transformer_coarse --debug
@@ -106,7 +109,8 @@ class Evaluator:
         self.batch_size = opt.batch_size
         self.result_dir = opt.result_dir
         os.makedirs(self.result_dir, exist_ok=True)
-        model, self.mean_params = build_model(opt, image_size)
+        model, self.mean_params = build_model(opt, image_size,
+                                              for_keypoints=True)
         check_keypoint_head(model, "the Evaluator")
         if state_dict is None:
             ckpt_lib.load_weights(model, opt.checkpoint_path_eval,

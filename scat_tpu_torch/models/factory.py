@@ -1,8 +1,15 @@
 """Model factory keyed by the ``--net`` flag (port of
-``scat_tpu/models/factory.py:29-121``).  Ported: the flagship
-``reg_transformer``, ``reg_transformer_coarse``, the 128-token heads
-``backbone_hrnet`` and ``backbone_incepv3``, and ``ViP``; every other net
-raises and names the ROADMAP.md queue 1 item that ports it.
+``scat_tpu/models/factory.py:29-121``): the flagship ``reg_transformer``,
+``reg_transformer_coarse``, the 128-token heads ``backbone_hrnet`` and
+``backbone_incepv3``, ``frankmocap`` (``H3DWEncoder``; with
+``for_keypoints=True`` ``H3DWJointsEncoder``, its MANO decode in the
+forward), ``ViT`` (the default ``--net``) and ``ViP``.
+
+``ViT`` reads ``--vit_dim``, ``--vit_depth``, ``--vit_heads``,
+``--vit_dropout`` and ``--iteration``; ``--vit_mlp_dim`` is ignored, as
+the JAX package's pyramid ignores its ``mlp_dim`` (the FFN hidden width
+is ``(dim*3)//4``).  Like the JAX package's, it takes the plain
+attention: no flag routes it to the kernels.
 
 The 128-token heads take the plain attention path, as the JAX package
 builds them (``factory.py:69-81``): ``--use_pallas_attention`` is the
@@ -22,14 +29,13 @@ from scat_tpu_torch import assets
 from scat_tpu_torch.config import Options
 from scat_tpu_torch.models.hand_net import (
     EncoderTransformer, EncoderTransformerCoarse, EncoderTransformerHRNet,
-    EncoderTransformerInception)
+    EncoderTransformerInception, H3DWEncoder, H3DWJointsEncoder)
 from scat_tpu_torch.models.performer import ViP
+from scat_tpu_torch.models.vit import ViT
 from scat_tpu_torch.ops.favor import PRECISIONS
 
-_NOT_PORTED = {
-    "frankmocap": 11,
-    "ViT": 12,
-}
+NETS = ("reg_transformer", "reg_transformer_coarse", "backbone_hrnet",
+        "backbone_incepv3", "frankmocap", "ViT", "ViP")
 # the nets whose output is 61 MANO parameters, not the 66-dim camera +
 # 21x3 joints that the keypoint losses, metrics and predictor read
 MANO_PARAM_NETS = ("backbone_hrnet", "backbone_incepv3", "frankmocap")
@@ -55,17 +61,21 @@ def compute_dtype(opt: Options) -> torch.dtype:
     return dtype
 
 
-def build_model(opt: Options, image_size: int = 224
+def build_model(opt: Options, image_size: int = 224,
+                for_keypoints: bool = False
                 ) -> Tuple[nn.Module, np.ndarray]:
     """``(float32 module with fresh parameters, mean_params ndarray)``
-    for ``opt.net``."""
-    if opt.net in _NOT_PORTED:
-        raise NotImplementedError(
-            f"--net {opt.net} is not ported to scat_tpu_torch yet "
-            f"(ROADMAP.md queue 1 item {_NOT_PORTED[opt.net]})")
-    if opt.net not in ("reg_transformer", "reg_transformer_coarse",
-                       "backbone_hrnet", "backbone_incepv3", "ViP"):
+    for ``opt.net``.  ``for_keypoints=True`` gives the MANO-parameter head
+    ``frankmocap`` its MANO decode, so that it meets the 66-dim camera +
+    joints contract of the keypoint eval step (the JAX package's
+    Evaluator builds it so; the reference decodes outside the model,
+    test.py:332-348)."""
+    if opt.net not in NETS:
         raise ValueError(f"unknown --net {opt.net!r}")
+    if opt.net == "frankmocap":
+        mean = assets.load_mean_mano_pose(opt.mean_mano_param)
+        cls = H3DWJointsEncoder if for_keypoints else H3DWEncoder
+        return cls(mean_params=torch.from_numpy(mean)), mean
     if opt.net in ("backbone_hrnet", "backbone_incepv3"):
         mean = assets.load_mean_mano_pose(opt.mean_mano_param)
         cls = (EncoderTransformerHRNet if opt.net == "backbone_hrnet"
@@ -76,6 +86,12 @@ def build_model(opt: Options, image_size: int = 224
                     pos_embed=opt.pos_embed, image_size=image_size)
         return model, mean
     mean = assets.load_mean_params(outside=opt.outside)
+    if opt.net == "ViT":
+        model = ViT(mean_params=torch.from_numpy(mean),
+                    image_size=image_size, dim=opt.vit_dim,
+                    depth=opt.vit_depth, heads=opt.vit_heads,
+                    dropout=opt.vit_dropout, iteration=opt.iteration)
+        return model, mean
     if opt.net == "reg_transformer_coarse":
         model = EncoderTransformerCoarse(
             mean_params=torch.from_numpy(mean), heads=opt.vit_heads,

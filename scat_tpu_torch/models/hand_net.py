@@ -64,6 +64,7 @@ from typing import Optional
 import torch
 from torch import nn
 
+from scat_tpu_torch.models import mano as mano_lib
 from scat_tpu_torch.models import resnet as resnet_lib
 from scat_tpu_torch.models.transformer import (
     PyramidTransformer, PyramidTransformerAttn, random_token_mask,
@@ -365,3 +366,94 @@ class EncoderTransformerInception(_TokenRegressorHead):
         side = math.isqrt(768 * s * s // 192)
         self._init_head(mean_params, 192, side, 3, iteration, heads, depth,
                         mask_rate, pos_embed, use_kernel)
+
+
+MANO_PARAMS = 61  # camera 3 + pose 48 (global 3 + local 45) + shape 10
+
+
+class H3DWEncoder(nn.Module):
+    """The FrankMocap-style baseline, ``--net frankmocap`` (JAX
+    ``hand_net.py:222-244``; reference hand_net.py:28-58): the resnet
+    feature -> ReLU -> ``fc2`` (1024) -> ReLU -> a fixed 3-step loop
+    ``pred += regressor(cat(feat, pred))`` from the 61-dim mean MANO
+    parameters.  ``forward`` returns ``(feat [B,1024], pred [B,61])``.
+    Keys: ``main_encoder.*``, ``feat_encoder.1`` (fc2), ``regressor.0``.
+
+    The backbone computes in the compute dtype (``set_compute_dtype``:
+    autocast, training; ``cast_compute``: stored weights, serving), its
+    BatchNorm in float32; fc2 and the regressor are float32, as flax's
+    undtyped Dense layers of the JAX package."""
+
+    out_dim = MANO_PARAMS
+    ITERATIONS = 3
+
+    def __init__(self, mean_params: torch.Tensor,
+                 backbone: str = "resnet50"):
+        super().__init__()
+        self.main_encoder = resnet_lib.get_model(backbone)
+        self.feat_encoder = nn.Sequential(nn.ReLU(), nn.Linear(1024, 1024),
+                                          nn.ReLU())
+        self.regressor = nn.Sequential(nn.Linear(1024 + MANO_PARAMS,
+                                                 MANO_PARAMS))
+        self.compute_dtype = torch.float32
+        self.register_buffer(
+            "mean_params",
+            torch.as_tensor(mean_params, dtype=torch.float32).reshape(-1),
+            persistent=False)
+
+    def set_compute_dtype(self, dtype: torch.dtype) -> "H3DWEncoder":
+        """Compute the backbone in ``dtype`` under autocast; the
+        parameters stay float32 (training)."""
+        self.compute_dtype = dtype
+        return self
+
+    def cast_compute(self, dtype: torch.dtype) -> "H3DWEncoder":
+        """Store the backbone's convolution and fc1 weights in ``dtype``
+        (serving); its norms, fc2 and the regressor stay float32."""
+        self.main_encoder.to(dtype)
+        for norm in self.main_encoder.modules():
+            if isinstance(norm, _NORM_LAYERS):
+                norm.float()
+        self.compute_dtype = dtype
+        return self
+
+    def forward(self, x: torch.Tensor):
+        """(feat [B,1024], pred [B,61]) of NCHW crops ``x``."""
+        on = (self.compute_dtype != torch.float32 and
+              self.main_encoder.conv1.weight.dtype == torch.float32)
+        with torch.autocast(x.device.type, dtype=self.compute_dtype,
+                            enabled=on):
+            main_feat = self.main_encoder(
+                x.to(self.main_encoder.conv1.weight.dtype))[0]
+        feat = self.feat_encoder(main_feat.float())
+        pred = self.mean_params.expand(x.shape[0], MANO_PARAMS)
+        for _ in range(self.ITERATIONS):
+            pred = pred + self.regressor(torch.cat([feat, pred], 1))
+        return feat, pred
+
+
+class H3DWJointsEncoder(H3DWEncoder):
+    """``H3DWEncoder`` with the MANO decode in the forward (JAX
+    ``hand_net.py:379-404``), so that ``--net frankmocap`` gives the
+    66-dim camera + 21x3 joints contract of the keypoint eval step:
+    ``rot_pose_beta_to_mesh`` of the parameters, in float32 whatever the
+    compute dtype; ``forward`` returns ``(pred66, feat)``.  The keys are
+    ``H3DWEncoder``'s (the JAX package's ``h3dw`` scope is no level of the
+    reference layout).  The MANO model is ``assets.load_mano()``, moved
+    to the input's device at its first forward there."""
+
+    out_dim = 66
+
+    def __init__(self, mean_params: torch.Tensor,
+                 backbone: str = "resnet50"):
+        super().__init__(mean_params, backbone)
+        self.mano = mano_lib.ManoModel.from_data()
+
+    def forward(self, x: torch.Tensor):
+        feat, pred = super().forward(x)
+        if self.mano.device != pred.device:
+            self.mano = self.mano.to(pred.device)
+        out = mano_lib.rot_pose_beta_to_mesh(
+            self.mano, pred[:, 3:6], pred[:, 6:51], pred[:, 51:61])
+        joints = out[:, :NUM_TOKENS].reshape(-1, 63)
+        return torch.cat([pred[:, :3], joints], dim=1), feat

@@ -46,18 +46,12 @@ import torch
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
+# flax's nn.Dropout with its keep-mask given (the pyramid's, shared)
+from scat_tpu_torch.models.transformer import dropout as _dropout
 from scat_tpu_torch.ops.favor import favor_attention, favor_attention_fused
 
 LN_EPS = 1e-6
 Masks = Tuple[torch.Tensor, torch.Tensor]
-
-
-def _dropout(x: torch.Tensor, keep: Optional[torch.Tensor],
-             rate: float) -> torch.Tensor:
-    """flax's ``nn.Dropout``: kept entries scaled by 1/(1-rate)."""
-    if keep is None:
-        return x
-    return torch.where(keep, x / (1.0 - rate), 0)
 
 
 class PerformerBlock(nn.Module):

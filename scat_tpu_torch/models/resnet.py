@@ -147,6 +147,22 @@ class Bottleneck(nn.Module):
 Block = Type[Union[BasicBlock, Bottleneck]]
 
 
+def make_layer(block: Block, inplanes: int, planes: int, blocks: int,
+               stride: int = 1, norm: Norm = BatchNorm2d) -> nn.Sequential:
+    """A stage of ``blocks`` blocks, the first with the stride and, where
+    the shape changes, the 1x1 downsample (torchvision's
+    ``_make_layer``)."""
+    out = planes * block.expansion
+    downsample = None
+    if stride != 1 or inplanes != out:
+        downsample = nn.Sequential(_conv1x1(inplanes, out, stride),
+                                   norm(out))
+    layers: List[nn.Module] = [block(inplanes, planes, stride, downsample,
+                                     norm)]
+    layers += [block(out, planes, norm=norm) for _ in range(1, blocks)]
+    return nn.Sequential(*layers)
+
+
 class ResNet(nn.Module):
     """Five-output ResNet (reference resnet.py:101-162)."""
 
@@ -168,17 +184,10 @@ class ResNet(nn.Module):
 
     def _make_layer(self, planes: int, blocks: int, stride: int = 1
                     ) -> nn.Sequential:
-        out = planes * self.block.expansion
-        downsample = None
-        if stride != 1 or self.inplanes != out:
-            downsample = nn.Sequential(_conv1x1(self.inplanes, out, stride),
-                                       self.norm(out))
-        layers: List[nn.Module] = [
-            self.block(self.inplanes, planes, stride, downsample, self.norm)]
-        self.inplanes = out
-        layers += [self.block(out, planes, norm=self.norm)
-                   for _ in range(1, blocks)]
-        return nn.Sequential(*layers)
+        layer = make_layer(self.block, self.inplanes, planes, blocks,
+                           stride, self.norm)
+        self.inplanes = planes * self.block.expansion
+        return layer
 
     def forward(self, x: torch.Tensor):
         x = self.maxpool(self.relu(self.bn1(self.conv1(x))))

@@ -16,8 +16,14 @@ As in the JAX package: LayerNorm eps is flax's 1e-6 (not torch's 1e-5)
 and LayerNorm computes in float32 whatever the compute dtype (flax's
 ``nn.LayerNorm`` without a dtype promotes to float32), GELU is exact,
 and the FFN hidden width is ``(dim*3)//4`` (the JAX package's ``mlp_dim``
-is ignored there, so the port has none).  Dropout is 0 in the
-reference's runs and the port has none.
+is ignored there, so the port has none).  Dropout sits where the JAX
+package has it, after each attention's ``to_out`` (0 in the reference's
+runs; ``--vit_dropout`` for ``--net ViT``), and takes its keep-mask as
+an input of the forward (``dropout_masks``), as ViP's does.
+
+``Attention(scale_override=)`` scales the dots by a given factor
+instead of ``dim_head**-0.5`` (the reference's models/vit.py scales by
+``dim**-0.5``, ``YunqianTransformer``).
 
 ``PyramidTransformerAttn`` is the coarse head's variant
 (``transformer.py:154-190``; reference vision_transformer_attn.py:88-113):
@@ -48,13 +54,22 @@ from scat_tpu_torch.ops.attention import flash_attention
 LN_EPS = 1e-6
 
 
+def dropout(x: torch.Tensor, keep: Optional[torch.Tensor],
+            rate: float) -> torch.Tensor:
+    """flax's ``nn.Dropout`` with its keep-mask given: kept entries scaled
+    by 1/(1-rate); no mask, no dropout."""
+    if keep is None:
+        return x
+    return torch.where(keep, x / (1.0 - rate), 0)
+
+
 class Residual(nn.Module):
     def __init__(self, fn: nn.Module):
         super().__init__()
         self.fn = fn
 
-    def forward(self, x):
-        return self.fn(x) + x
+    def forward(self, x, **kw):
+        return self.fn(x, **kw) + x
 
 
 class PreNorm(nn.Module):
@@ -63,35 +78,44 @@ class PreNorm(nn.Module):
         self.norm = nn.LayerNorm(dim, eps=LN_EPS)
         self.fn = fn
 
-    def forward(self, x):
+    def forward(self, x, **kw):
         # LayerNorm in float32 (its parameters stay float32 under either
         # compute-dtype scheme); the output is rounded to the compute dtype
         # for the layer it feeds, as flax's bf16 Dense rounds its input
-        return self.fn(self.norm(x.float()).to(x.dtype))
+        return self.fn(self.norm(x.float()).to(x.dtype), **kw)
 
 
 class Attention(nn.Module):
     """Multi-head self-attention (reference vision_transformer.py:46-79).
     ``use_kernel`` routes the attention math through the CUDA kernel
     (``ops.attention.flash_attention``; the JAX package's ``use_pallas``),
-    otherwise the plain version runs."""
+    otherwise the plain version runs.  ``dropout`` applies to the output
+    where ``forward`` is given its keep-mask."""
 
     def __init__(self, dim: int, heads: int = 8, dim_head: int = 64,
-                 use_kernel: bool = False):
+                 use_kernel: bool = False, dropout: float = 0.0,
+                 scale_override: Optional[float] = None):
         super().__init__()
         inner = heads * dim_head
         self.heads = heads
         self.dim_head = dim_head
-        self.scale = dim_head ** -0.5
+        self.scale = (dim_head ** -0.5 if scale_override is None
+                      else float(scale_override))
+        self.dropout = dropout
         self.use_kernel = use_kernel
         self.to_qkv = nn.Linear(dim, inner * 3, bias=False)
         # a Sequential for the reference's key ``to_out.0``
         self.to_out = nn.Sequential(nn.Linear(inner, dim))
 
-    def forward(self, x: torch.Tensor, return_attn: bool = False):
+    def forward(self, x: torch.Tensor, return_attn: bool = False,
+                keep: Optional[torch.Tensor] = None):
         """``return_attn``: also return the softmax matrix [B,H,N,N],
-        from the plain version (the coarse head's path)."""
+        from the plain version (the coarse head's path); ``keep``: the
+        output's dropout keep-mask [B,N,dim] (training)."""
         b, n, _ = x.shape
+        # a float32 residual stream (ViT's first layer) is rounded to the
+        # weights' dtype, as flax's Dense rounds its input
+        x = x.to(self.to_qkv.weight.dtype)
         # [B,N,3,H,Dh] -> three [B,H,N,Dh] views, no copy
         q, k, v = self.to_qkv(x).view(
             b, n, 3, self.heads, self.dim_head).permute(2, 0, 3, 1, 4)
@@ -103,7 +127,7 @@ class Attention(nn.Module):
         else:
             out = mha_reference(q, k, v, self.scale)
         out = out.transpose(1, 2).reshape(b, n, self.heads * self.dim_head)
-        out = self.to_out(out)
+        out = dropout(self.to_out(out), keep, self.dropout)
         return (out, attn) if return_attn else out
 
 
@@ -125,16 +149,22 @@ class FeedForward(nn.Module):
 
 
 class PyramidTransformer(nn.Module):
-    """The dim-halving pyramid (reference vision_transformer.py:81-101)."""
+    """The dim-halving pyramid (reference vision_transformer.py:81-101).
+    ``dims`` lists each layer's token width; ``dropout`` is its
+    attentions' (``forward``'s ``dropout_masks``: one keep-mask
+    [B,N,dims[i]] a layer, in training)."""
 
     def __init__(self, dim: int, depth: int = 3, heads: int = 8,
-                 dim_head: int = 64, use_kernel: bool = False):
+                 dim_head: int = 64, use_kernel: bool = False,
+                 dropout: float = 0.0):
         super().__init__()
         self.layers = nn.ModuleList()
+        self.dims = []
         for i in range(depth):
+            self.dims.append(dim)
             attn = Residual(PreNorm(dim, Attention(
                 dim, heads=heads, dim_head=dim_head,
-                use_kernel=use_kernel)))
+                use_kernel=use_kernel, dropout=dropout)))
             hidden = (dim * 3) // 4
             if i == depth - 1:
                 ff = FeedForward(dim, hidden, out_dim=3)
@@ -143,9 +173,11 @@ class PyramidTransformer(nn.Module):
                 dim //= 2
             self.layers.append(nn.ModuleList([attn, ff]))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        for attn, ff in self.layers:
-            x = ff(attn(x))
+    def forward(self, x: torch.Tensor,
+                dropout_masks: Optional[list] = None) -> torch.Tensor:
+        for i, (attn, ff) in enumerate(self.layers):
+            keep = None if dropout_masks is None else dropout_masks[i]
+            x = ff(attn(x, keep=keep))
         return x
 
 

@@ -1,7 +1,8 @@
 """Serving: crops in, 3D joints out (port of
 ``scat_tpu/serving.py:38-256``), for ``--net reg_transformer``,
-``reg_transformer_coarse`` and ``ViP``: the 66-dim camera + joints heads
-(a 61-dim MANO-parameter head is refused at construction).
+``reg_transformer_coarse``, ``ViT`` and ``ViP``: the 66-dim camera +
+joints heads (a 61-dim MANO-parameter head is refused at construction;
+``--net frankmocap`` is served by ``evaluation/tester.py``).
 
 Requests of any size are padded to a ladder of power-of-two batch
 buckets and streamed through the model in bucket-sized chunks, so the
@@ -132,8 +133,8 @@ class HandPosePredictor:
                         device: Union[str, torch.device, None] = None
                         ) -> "HandPosePredictor":
         """The predictor of ``opt`` (``--net reg_transformer``,
-        ``reg_transformer_coarse`` or ``ViP``) on ``device`` (default ``cuda``; the CPU only when asked
-        for).  Weights come from ``opt.checkpoint_path_eval``: a reference
+        ``reg_transformer_coarse``, ``ViT`` or ``ViP``) on ``device``
+        (default ``cuda``; the CPU only when asked for).  Weights come from ``opt.checkpoint_path_eval``: a reference
         ``.pth`` (loaded strictly: a ViP file must carry its frozen
         ``mains.{i}.w``), or an empty path for a fresh init seeded with
         ``opt.seed``."""
@@ -189,8 +190,8 @@ class HandPosePredictor:
         """``images``: [N,H,W,3] uint8 [0,255] or float [-1,1] crops, N
         arbitrary.  Returns numpy ``camera [N,3]``, ``joints_3d [N,21,3]``
         (root-centred by ``reg_transformer`` and
-        ``reg_transformer_coarse``; ``ViP`` predicts joint 1 like the
-        others) and ``joints_2d [N,21,2]`` (crop pixels).
+        ``reg_transformer_coarse``; ``ViT`` and ``ViP`` predict joint 1
+        like the others) and ``joints_2d [N,21,2]`` (crop pixels).
 
         ``chunk_device_times``: measurement mode, see ``run_bucketed``."""
         x = np.asarray(images)

@@ -13,8 +13,10 @@ host only at the log boundary.
 
 It trains the 66-dim heads (``--net reg_transformer``,
 ``reg_transformer_coarse`` through ``python -m
-scat_tpu_torch.train_coarse``, ``ViP``) and refuses the 61-dim
-MANO-parameter heads with the JAX trainer's ``ValueError``.  It trains on
+scat_tpu_torch.train_coarse``, ``ViT``, ``ViP``) and refuses the 61-dim
+MANO-parameter heads with the JAX trainer's ``ValueError``
+(``frankmocap`` trains in the temporal stage,
+``training/video_trainer.py``).  It trains on
 the synthetic task (``--synthetic_data True``, the JAX
 package's ``data/synthetic.py``) or on the mix of ``--stage`` 1-6
 (``--synthetic_data False --data_dir <STB tree>``, the other datasets'
@@ -144,9 +146,8 @@ class Trainer:
             raise ValueError(
                 f"--net {opt.net} is a 61-dim MANO-parameter head; "
                 "use the adversarial stage for training or the tester for "
-                "inference (scat_tpu_torch.training.adversarial and "
-                "scat_tpu_torch.evaluation.tester, ROADMAP.md queue 1 "
-                "items 14 and 11)")
+                "inference (scat_tpu_torch.training.video_trainer and "
+                "scat_tpu_torch.evaluation.tester)")
         model, self.mean_params = build_model(opt, image_size)
         ckpt_lib.load_weights(model, "", seed=opt.seed)
         if opt.pretrained_resnet_pth:

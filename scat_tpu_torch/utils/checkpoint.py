@@ -7,7 +7,8 @@ Weights, ``load_weights(model, path, seed)``:
   * ``""`` (empty path): a fresh init drawn from a ``torch.Generator``
     seeded with ``seed``, with the distributions of the JAX package's
     init (flagship: flax's truncated lecun-normal kernels, zero biases,
-    unit norms, normal(1) mask token; ViP: its own, see
+    unit norms, normal(1) mask token, cls token and ViT's position
+    embedding; ViP and the motion discriminator: their own, see
     ``ViP.init_weights``), so a fresh port model is scaled like a fresh
     JAX one.
   * ``*.pth``: a reference-keyed state_dict (or ``{"state_dict": ...}``)
@@ -43,6 +44,15 @@ FINAL_NAME = "hand_net_final.pth"
 PERIODIC_NAME = "hand_net.pth"
 # std of a standard normal truncated to [-2, 2] (flax truncated_normal)
 _TRUNC_STD = 0.87962566103423978
+NORMAL_PARAMETERS = ("mask_token", "cls_token", "pos_embedding")
+
+
+def lecun_normal_(weight: torch.Tensor, generator: torch.Generator) -> None:
+    """flax's default kernel init in place: lecun normal truncated to two
+    standard deviations, fan-in the weight's input width."""
+    std = math.sqrt(1.0 / weight[0].numel()) / _TRUNC_STD
+    nn.init.trunc_normal_(weight, std=std, a=-2 * std, b=2 * std,
+                          generator=generator)
 
 
 def init_weights(model: nn.Module, seed: int = 0) -> None:
@@ -57,9 +67,7 @@ def init_weights(model: nn.Module, seed: int = 0) -> None:
     with torch.no_grad():
         for m in model.modules():
             if isinstance(m, (nn.Conv2d, nn.Linear)):
-                std = math.sqrt(1.0 / m.weight[0].numel()) / _TRUNC_STD
-                nn.init.trunc_normal_(m.weight, std=std, a=-2 * std,
-                                      b=2 * std, generator=gen)
+                lecun_normal_(m.weight, gen)
                 if m.bias is not None:
                     nn.init.zeros_(m.bias)
             elif isinstance(m, (nn.BatchNorm2d, nn.GroupNorm, nn.LayerNorm)):
@@ -67,9 +75,11 @@ def init_weights(model: nn.Module, seed: int = 0) -> None:
                 nn.init.zeros_(m.bias)
                 if isinstance(m, nn.BatchNorm2d):
                     m.reset_running_stats()
-        mask_token = getattr(model, "mask_token", None)
-        if mask_token is not None:
-            nn.init.normal_(mask_token, generator=gen)
+        # the learned tokens and ViT's position embedding: normal(1)
+        for name in NORMAL_PARAMETERS:
+            p = getattr(model, name, None)
+            if p is not None:
+                nn.init.normal_(p, generator=gen)
 
 
 def load_weights(model: nn.Module, path: str, seed: int = 0) -> None:

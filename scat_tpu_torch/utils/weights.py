@@ -7,13 +7,19 @@ in the reference SCAT key layout, which the port's module loads with
 ``load_state_dict(strict=True)``; ``vip_state_dict_from_flax(params,
 constants)`` does the same for ``ViP``, and
 ``hrnet_state_dict_from_flax`` / ``inception_state_dict_from_flax`` for
-``EncoderTransformerHRNet`` / ``EncoderTransformerInception``.  They are
-the port's own copy of the mapping in ``scat_tpu/utils/torch_import.py``
-(``_Exporter`` :100-165, ``_walk_resnet``/``_walk_pyramid``/
-``_walk_encoder`` :191-256, ``_walk_hrnet`` :259-311, ``_walk_token_head``
-:321-331, ``_walk_vip`` :343-358, ``_walk_conv_bn_tree`` :361-379,
+``EncoderTransformerHRNet`` / ``EncoderTransformerInception``,
+``vit_state_dict_from_flax`` for ``ViT``, ``h3dw_state_dict_from_flax``
+for ``H3DWEncoder`` and ``H3DWJointsEncoder``, and
+``{yunqian,truncated_resnet,spade,motion_discriminator}_state_dict_from_flax``
+for the rest.  They are the port's own copy of the mapping in
+``scat_tpu/utils/torch_import.py`` (``_Exporter`` :100-165,
+``_walk_resnet``/``_walk_pyramid``/``_walk_encoder`` :191-256,
+``_walk_hrnet`` :259-311, ``_walk_h3dw`` :313-319, ``_walk_token_head``
+:321-331, ``_walk_vit`` :333-341, ``_walk_vip`` :343-358,
+``_walk_conv_bn_tree`` :361-379, the ``h3dw`` scope :525-527,
 ``export_torch_encoder_transformer`` :551-567, ``export_torch_vip``
-:472-480, ``export_torch_{hrnet,inception}_encoder`` :593-615).  Layout
+:472-480, ``export_torch_{hrnet,inception}_encoder`` :593-615, and the
+GRU gates of ``import_torch_motion_discriminator`` :616-680).  Layout
 conversions: conv kernels HWIO -> OIHW, dense kernels [in,out] ->
 [out,in].
 """
@@ -102,13 +108,14 @@ def _norm(v, flax_path, torch_name) -> None:
         v.bn(flax_path, torch_name)
 
 
-def _walk_resnet(v) -> None:
-    """The backbone under ``main_encoder`` (torchvision key layout; fc1
-    is the reference's replacement head).  The walk covers resnet50's
-    stages; blocks and convs absent from the tree (resnet18) are
-    skipped.  A block's norms are auto-named ``BatchNorm_<i>``, or
-    ``_GN_<i>`` under GroupNorm."""
-    fp, tp = ("main_encoder",), "main_encoder."
+def _walk_resnet(v, fp: Tuple[str, ...] = ("main_encoder",),
+                 tp: str = "main_encoder.") -> None:
+    """The backbone under flax path ``fp``, torch prefix ``tp``
+    (torchvision key layout; fc1 is the reference's replacement head).
+    The walk covers resnet50's stages; blocks, convs and the fc1 absent
+    from the tree (resnet18, the truncated trunk) are skipped.  A block's
+    norms are auto-named ``BatchNorm_<i>``, or ``_GN_<i>`` under
+    GroupNorm."""
     v.conv(fp + ("conv1",), tp + "conv1")
     _norm(v, fp + ("bn1",), tp + "bn1")
     for stage, blocks in enumerate((3, 4, 6, 3)):
@@ -316,4 +323,126 @@ def inception_state_dict_from_flax(params: Dict,
     _walk_conv_bn_tree(e, params.get("main_encoder", {}), ("main_encoder",),
                        "main_encoder.")
     _walk_token_head(e, params)
+    return _tensors(e.out)
+
+
+def vit_state_dict_from_flax(params: Dict) -> Dict[str, torch.Tensor]:
+    """The JAX package's ``ViT`` params as the reference-keyed state_dict
+    (``export_torch_vit``, ``_walk_vit`` :333-341): ``patch_to_embedding``,
+    ``cls_token``, ``pos_embedding``, ``head.0`` and the pyramid, whose
+    depth is read from the tree."""
+    e = _Exporter(params, None)
+    e.dense(("patch_to_embedding",), "patch_to_embedding")
+    e.raw(("cls_token",), "cls_token")
+    e.raw(("pos_embedding",), "pos_embedding")
+    e.dense(("head",), "head.0")
+    _walk_pyramid(e, _pyramid_depth(params.get("transformer", {})))
+    return _tensors(e.out)
+
+
+def h3dw_state_dict_from_flax(params: Dict,
+                              batch_stats: Optional[Dict] = None
+                              ) -> Dict[str, torch.Tensor]:
+    """The JAX package's ``H3DWEncoder`` trees, or ``H3DWJointsEncoder``'s
+    (the encoder under its ``h3dw`` scope), as the reference-keyed
+    state_dict (``export_torch_h3dw``, ``_walk_h3dw`` :313-319): the
+    backbone (flax ``ResNet_0``) under ``main_encoder.``, ``fc2`` as
+    ``feat_encoder.1``, ``regressor.0``."""
+    if "h3dw" in params:
+        params = params["h3dw"]
+        batch_stats = (batch_stats or {}).get("h3dw", {})
+    e = _Exporter(params, batch_stats)
+    _walk_resnet(e, ("ResNet_0",))
+    e.dense(("fc2",), "feat_encoder.1")
+    e.dense(("regressor",), "regressor.0")
+    return _tensors(e.out)
+
+
+def yunqian_state_dict_from_flax(params: Dict) -> Dict[str, torch.Tensor]:
+    """The JAX package's ``YunqianTransformer`` params in the reference's
+    models/vit.py layout: ``transformer.layers.{i}.0.fn`` (the attention),
+    ``transformer.layers.{i}.1.fn.net.{0,3}`` (the feed-forward),
+    ``mlp_head.{0,1}`` (LayerNorm, Linear)."""
+    e = _Exporter(params, None)
+    depth = sum(1 for k in params if k.startswith("attn_"))
+    for i in range(depth):
+        L = f"transformer.layers.{i}"
+        e.dense((f"attn_{i}", "to_qkv"), f"{L}.0.fn.to_qkv")
+        e.dense((f"attn_{i}", "to_out"), f"{L}.0.fn.to_out.0")
+        e.dense((f"ff_{i}_1",), f"{L}.1.fn.net.0")
+        e.dense((f"ff_{i}_2",), f"{L}.1.fn.net.3")
+    e.ln(("head_norm",), "mlp_head.0")
+    e.dense(("head",), "mlp_head.1")
+    return _tensors(e.out)
+
+
+def truncated_resnet_state_dict_from_flax(
+        params: Dict, batch_stats: Optional[Dict] = None
+        ) -> Dict[str, torch.Tensor]:
+    """The JAX package's ``TruncatedResNet`` trees in torchvision's key
+    layout (``conv1``, ``bn1``, ``layer{1,2}.*``)."""
+    e = _Exporter(params, batch_stats)
+    _walk_resnet(e, (), "")
+    return _tensors(e.out)
+
+
+def spade_state_dict_from_flax(params: Dict,
+                               batch_stats: Optional[Dict] = None
+                               ) -> Dict[str, torch.Tensor]:
+    """The JAX package's ``SPADE`` trees in the reference's
+    models/helper/spatial_norm.py layout: ``mlp_shared.0``,
+    ``mlp_gamma``, ``mlp_beta`` and, for the batch norm, the running
+    statistics of ``param_free_norm``."""
+    e = _Exporter(params, batch_stats)
+    for flax_name, torch_name in (("mlp_shared", "mlp_shared.0"),
+                                  ("mlp_gamma", "mlp_gamma"),
+                                  ("mlp_beta", "mlp_beta")):
+        e.conv((flax_name,), torch_name)
+        e.raw((flax_name, "bias"), torch_name + ".bias")
+    e.bn(("param_free_norm",), "param_free_norm")
+    return _tensors(e.out)
+
+
+def motion_discriminator_state_dict_from_flax(
+        params: Dict, batch_stats: Optional[Dict] = None
+        ) -> Dict[str, torch.Tensor]:
+    """The JAX package's ``MotionDiscriminator`` trees as the port's
+    state_dict: each flax ``GRUCell_{k}`` (Denses ``ir``, ``iz``, ``in``
+    with biases, ``hr``, ``hz`` without, ``hn`` with) as torch's
+    ``gru.*_l{k}``, gates stacked [r; z; n]: ``weight_ih = [ir; iz; in]``,
+    ``bias_ih = [b_ir; b_iz; b_in]``, ``weight_hh = [hr; hz; hn]``,
+    ``bias_hh = [0; 0; b_hn]`` (torch's n gate multiplies ``W_hn h +
+    b_hn`` by r, as flax's does); the attention pooling's Denses as
+    ``attention.attention.{0,3,...}`` (Linear, activation, dropout a
+    layer), ``fc``, and under spectral norm the power iteration's
+    ``fc_u`` [1, out] and ``fc_sigma``."""
+    e = _Exporter(params, None)
+    layers = sorted(int(k.split("_")[1]) for k in params
+                    if k.startswith("GRUCell_"))
+    for k in layers:
+        cell = params[f"GRUCell_{k}"]
+        kern = {g: np.asarray(cell[g]["kernel"]).T for g in
+                ("ir", "iz", "in", "hr", "hz", "hn")}
+        e.out[f"gru.weight_ih_l{k}"] = np.concatenate(
+            [kern["ir"], kern["iz"], kern["in"]])
+        e.out[f"gru.weight_hh_l{k}"] = np.concatenate(
+            [kern["hr"], kern["hz"], kern["hn"]])
+        e.out[f"gru.bias_ih_l{k}"] = np.concatenate(
+            [np.asarray(cell[g]["bias"]) for g in ("ir", "iz", "in")])
+        b_hn = np.asarray(cell["hn"]["bias"])
+        e.out[f"gru.bias_hh_l{k}"] = np.concatenate(
+            [np.zeros_like(b_hn), np.zeros_like(b_hn), b_hn])
+    attn = params.get("attention", {})
+    hidden = sorted(int(k.split("_")[1]) for k in attn
+                    if k.startswith("attn_") and k != "attn_out")
+    for j in hidden:
+        e.dense(("attention", f"attn_{j}"), f"attention.attention.{3 * j}")
+    if "attn_out" in attn:
+        e.dense(("attention", "attn_out"),
+                f"attention.attention.{3 * len(hidden)}")
+    e.dense(("fc",), "fc")
+    sn = (batch_stats or {}).get("SpectralNorm_0", {})
+    if sn:
+        e.out["fc_u"] = np.asarray(sn["fc/kernel/u"])
+        e.out["fc_sigma"] = np.asarray(sn["fc/kernel/sigma"])
     return _tensors(e.out)

@@ -310,7 +310,7 @@ def test_evaluator_dumps_the_attention(tmp_path, flax_init, rng, monkeypatch,
     metrics."""
     params, bs = flax_init
     monkeypatch.setattr(evaluator, "build_model",
-                        lambda opt, image_size=224: (
+                        lambda opt, image_size=224, for_keypoints=False: (
                             _tmodel(), assets.load_mean_params()))
     if not cv2_present:
         real = evaluator.importlib.util.find_spec

@@ -1,6 +1,7 @@
 """The port's CUDA kernels, and its loaders, stage-2 mix, Evaluator,
-demo, GroupNorm flagship, coarse head and 128-token heads, on the card (marker ``cuda``; skipped
-without a CUDA device).
+demo, GroupNorm flagship, coarse head, 128-token heads, ViT, MANO decode
+and adversarial step, on the card (marker ``cuda``; skipped without a
+CUDA device).
 
 This file imports neither JAX nor the JAX package, so it also runs on a
 machine that has only the port's stack.  There the repository's
@@ -22,15 +23,17 @@ from scat_tpu_torch.data.multi import concat_dataset
 from scat_tpu_torch.data.synthetic import SyntheticDataset
 from scat_tpu_torch.evaluation import demo
 from scat_tpu_torch.evaluation.evaluator import Evaluator
+from scat_tpu_torch.models import build_model, mano
+from scat_tpu_torch.models.discriminator import MotionDiscriminator
 from scat_tpu_torch.models.hand_net import (
     EncoderTransformer, EncoderTransformerCoarse, EncoderTransformerHRNet,
-    EncoderTransformerInception)
+    EncoderTransformerInception, H3DWEncoder, H3DWJointsEncoder)
 from scat_tpu_torch.ops import favor
 from scat_tpu_torch.ops.attention import (attention_bwd,
                                           attention_bwd_reference,
                                           attention_reference, bf16_ulps,
                                           flash_attention)
-from scat_tpu_torch.training import schedule, steps
+from scat_tpu_torch.training import adversarial, schedule, steps
 from scat_tpu_torch.training.state import TrainState
 from scat_tpu_torch.utils import checkpoint
 from dataset_trees import (write_frei_tree, write_ho3d_tree, write_mhp_tree,
@@ -573,3 +576,79 @@ def test_token_head_kernel_path_matches_plain(cuda, cls, dtype):
     atol = 1e-3 if dtype == torch.float32 else \
         2e-2 * want.abs().max().item()
     torch.testing.assert_close(got, want, atol=atol, rtol=0)
+
+
+def test_mano_decode_on_card_matches_cpu(cuda):
+    """``rot_pose_beta_to_mesh`` on the card in float32 (TF32 off, bf16
+    inputs decoded in float32) against the CPU: joints and vertices
+    within 1e-5."""
+    rng = np.random.RandomState(2)
+    args = [rng.randn(96, n).astype(np.float32) * s
+            for n, s in ((3, 0.5), (45, 0.3), (10, 1.0))]
+    args[0][0] = 0.0
+    cpu = mano.ManoModel.from_data()
+    want = mano.rot_pose_beta_to_mesh(cpu, *map(torch.from_numpy, args))
+    got = mano.rot_pose_beta_to_mesh(
+        cpu.to(cuda), *(torch.from_numpy(a).to(cuda) for a in args))
+    assert got.dtype == torch.float32
+    torch.testing.assert_close(got.cpu(), want, atol=1e-5, rtol=0)
+
+
+@pytest.mark.parametrize("net", ["ViT", "frankmocap"])
+def test_vit_and_h3dw_on_card_match_cpu(cuda, net):
+    """``--net ViT`` (224 px, 197 tokens x 256) and the frankmocap keypoint
+    head (H3DWJointsEncoder, resnet18 at 64 px) in float32 on the card
+    against the CPU on the same weights: the 66-dim prediction within
+    1e-4; ViT launches no attention kernel."""
+    size = 224 if net == "ViT" else 64
+
+    def model(device):
+        if net == "ViT":
+            m, _ = build_model(Options(net=net), size)
+        else:
+            m = H3DWJointsEncoder(
+                torch.from_numpy(assets.load_mean_mano_pose()),
+                backbone="resnet18")
+        checkpoint.init_weights(m, seed=0)
+        return m.to(device).eval()
+
+    x = torch.from_numpy(np.random.RandomState(3).uniform(
+        -1, 1, (4, 3, size, size)).astype(np.float32))
+    with torch.no_grad():
+        want = model("cpu")(x)[0]
+        before = flash_attention.launches
+        got = model(cuda)(x.to(cuda))[0]
+    assert flash_attention.launches == before
+    assert got.shape == (4, 66)
+    torch.testing.assert_close(got.cpu(), want, atol=1e-4, rtol=0)
+
+
+def test_adversarial_step_on_card(cuda):
+    """One adversarial step on the card (resnet18 H3DW, GRU 64 x 2 through
+    cuDNN, its backward in training mode): finite losses, both sides
+    updated, the discriminator untouched by the generator's update."""
+    enc = H3DWEncoder(torch.from_numpy(assets.load_mean_mano_pose()),
+                      backbone="resnet18")
+    checkpoint.init_weights(enc, seed=0)
+    disc = MotionDiscriminator(64, 48, 2, feature_pool="attention",
+                               attention_size=64)
+    disc.init_weights(torch.Generator().manual_seed(1))
+    state = adversarial.AdversarialTrainState.create(
+        enc.to(cuda), disc.to(cuda), 1e-4, 1e-5)
+    rng = np.random.RandomState(4)
+    batch = {"image": rng.uniform(-1, 1, (2, 8, 64, 64, 3)),
+             "label": rng.randn(2, 8, 166) * 0.05,
+             "real_theta": rng.randn(2, 8, 61) * 0.05}
+    batch = {k: torch.from_numpy(v.astype(np.float32)).to(cuda)
+             for k, v in batch.items()}
+    mano_model = mano.ManoModel.from_data(device=cuda)
+    before = [p.detach().clone() for p in disc.parameters()]
+    fake, stats = adversarial.generator_step(state, batch, mano_model)
+    for p, b in zip(disc.parameters(), before):
+        assert torch.equal(p, b) and p.grad is None
+    stats.update(adversarial.discriminator_step(state, fake,
+                                                batch["real_theta"]))
+    for k, v in stats.items():
+        assert torch.isfinite(v).all(), k
+    assert any(not torch.equal(p, b)
+               for p, b in zip(disc.parameters(), before))

@@ -107,8 +107,8 @@ def _opt(tmp_path, **kw):
 def small_models(monkeypatch):
     monkeypatch.setattr(
         evaluator, "build_model",
-        lambda opt, image_size=224: (_tmodel(image_size),
-                                     assets.load_mean_params()))
+        lambda opt, image_size=224, for_keypoints=False: (
+            _tmodel(image_size), assets.load_mean_params()))
     monkeypatch.setattr(
         jevaluator, "build_model",
         lambda opt, image_size=224, for_keypoints=False: (

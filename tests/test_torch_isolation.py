@@ -76,7 +76,19 @@ def test_no_try_around_kernel_launch(path):
 
 
 # the port's command-line entry points, ``python -m scat_tpu_torch.<name>``
-ENTRY_POINTS = ("train", "train_coarse", "eval", "demo", "server")
+ENTRY_POINTS = ("train", "train_coarse", "eval", "demo", "server", "test")
+# the modules of the ViT, MANO and temporal slice, each under the checks
+# above
+SLICE_MODULES = ("assets.py", "models/mano.py", "models/vit.py",
+                 "models/helpers.py", "models/discriminator.py",
+                 "models/vibe_loss.py", "training/adversarial.py",
+                 "training/video_trainer.py", "evaluation/tester.py",
+                 "utils/smplx_glue.py", "test.py")
+
+
+@pytest.mark.parametrize("rel", SLICE_MODULES)
+def test_slice_modules_are_checked(rel):
+    assert os.path.join(PKG, rel) in _sources()
 
 
 @pytest.mark.parametrize("name", ENTRY_POINTS)

@@ -11,6 +11,7 @@ import os
 import re
 import tomllib
 
+import numpy as np
 import pytest
 
 from scat_tpu_torch.kernels import build
@@ -100,13 +101,41 @@ def test_port_scripts_are_named():
     assert set(_port_scripts()) == {
         "scat-tpu-torch-serve", "scat-tpu-torch-train",
         "scat-tpu-torch-train-coarse", "scat-tpu-torch-eval",
-        "scat-tpu-torch-demo"}
+        "scat-tpu-torch-demo", "scat-tpu-torch-test"}
     assert _port_scripts()["scat-tpu-torch-demo"] == "scat_tpu_torch.demo:main"
     assert _port_scripts()["scat-tpu-torch-train-coarse"] == \
         "scat_tpu_torch.train_coarse:main"
+    assert _port_scripts()["scat-tpu-torch-test"] == \
+        "scat_tpu_torch.test:main"
 
 
 @pytest.mark.parametrize("script", sorted(_port_scripts()))
 def test_port_script_resolves_to_a_callable(script):
     module, _, attr = _port_scripts()[script].partition(":")
     assert callable(getattr(importlib.import_module(module), attr))
+
+
+@pytest.mark.parametrize("where", ["env", "cwd"])
+def test_synthetic_mano_finds_hand_obj_as_find_asset(tmp_path, monkeypatch,
+                                                    where):
+    """The synthetic MANO reads the hand.obj that ``find_asset`` resolves:
+    ``$SCAT_EXTRA_DATA`` first, then ``./extra_data`` beside the run,
+    then the checkout's."""
+    from scat_tpu_torch import assets
+    folder = tmp_path / "extra_data"
+    folder.mkdir()
+    shipped = assets.load_obj_vertices()
+    with open(folder / "hand.obj", "w") as f:
+        for v in shipped * 2.0:
+            f.write("v %f %f %f\n" % tuple(v))
+        for face in assets.load_obj_faces():
+            f.write("f %d %d %d\n" % tuple(face + 1))
+    if where == "env":
+        monkeypatch.setenv("SCAT_EXTRA_DATA", str(folder))
+    else:
+        monkeypatch.delenv("SCAT_EXTRA_DATA", raising=False)
+        monkeypatch.chdir(tmp_path)
+    assert assets.find_asset("hand.obj") == str(folder / "hand.obj")
+    mano = assets.synthetic_mano(0)
+    assert mano.synthetic
+    np.testing.assert_allclose(mano.v_template, shipped * 2.0, atol=1e-6)
