@@ -39,7 +39,28 @@ Phases, in order; any failure raises and exits non-zero:
   4. serve    the HTTP front end answers POST /predict (also with
               micro-batching on) with exactly what predict returns, and
               GET /healthz;
-  5. train    the Trainer at the canonical run's configuration
+  5. export   the flagship (bf16, and a float32 copy, TF32 off) and
+              --net ViP (bf16) at full width exported by export_predictor
+              to build/ (export time and artifact size printed) and loaded
+              as ExportedPredictor: a fresh process serves the flagship's
+              artifact with no scat_tpu_torch.models module imported; each
+              program holds 3 attention_fwd nodes (ViP: 3 favor_stats and 3
+              favor_apply); warmup captures one CUDA graph per (bucket,
+              dtype), 14, counting 3 launches of each kernel in each
+              capture and in its eager warm-up run; the artifact against
+              the live predictor on uint8 requests of 1, 7, 64 and 150
+              crops and one float32 request (bf16: within 2% of the
+              largest magnitude, the gap printed; float32: 1e-4, joints_2d
+              1e-4 of their 112 pixels a unit); live and artifact in turns
+              on the same 6 x 640 window (ViP 3 x 256), p50 request latency
+              at buckets 1 and 64, the device idle share of a 256-crop
+              request each, and a profile of the replayed request that
+              counts the hand-written kernels (3 a chunk), the graph
+              launches (1 a chunk), no eager layer op and no counted
+              launch; scat_tpu_torch.server --serve_artifact in a process
+              of its own answers POST /predict as predict does, and GET
+              /healthz names the artifact;
+  6. train    the Trainer at the canonical run's configuration
               (script/ablation_pose.sh on the synthetic task: resnet50,
               bs 96, 224x224, 8 heads, iteration 3, mask_rate 0.2, bf16
               compute, Adam with the warmup, seed 0) for 3 epochs of 8
@@ -48,8 +69,13 @@ Phases, in order; any failure raises and exits non-zero:
               gradient norm against the plain attention path; a
               grad_accum 2 step; hand_net_final.pth served by
               HandPosePredictor; the eval step's PCK and MPJPE; then the
-              training rate, p50 step time and a profile;
-  6. stb      an STB tree written under build/ (two training and two
+              training rate, p50 step time and a profile; then 5 steps
+              with --debug True (its default), --profile_trace_dir and
+              --tensorboard True: the debug grid or matplotlib's skip
+              message, tensorboardX's events or its CSV-only message, and
+              a Chrome trace whose device kernels name both attention
+              kernels;
+  7. stb      an STB tree written under build/ (two training and two
               evaluation sequences of 96 smooth 640x480 PNG frames and
               their label pickles): which decoder serves (the native
               library or PIL) and the loader's ms per batch of 96 by
@@ -63,7 +89,7 @@ Phases, in order; any failure raises and exits non-zero:
               path: MPJPE within 1%, AUC within 1e-3 of its full scale)
               and its crops/s; predict_from_frames on 7 frames against
               frames_to_crops then predict;
-  7. datasets FreiHAND (224x224 JPEG), HO-3D (640x480 PNG), MHP (640x480
+  8. datasets FreiHAND (224x224 JPEG), HO-3D (640x480 PNG), MHP (640x480
               JPEG, data_15 webcam 1) and RHD (320x320 PNG) trees of 192
               samples written under build/ beside an STB tree: each
               loader's ms per batch of 96 by stage (host decode, labels,
@@ -80,7 +106,7 @@ Phases, in order; any failure raises and exits non-zero:
               STB's B1Counting and MHP's data_15_cam_1 (3 launches a frame,
               finite MPJPE, ACC and AUC, the same bounds against the plain
               path) and its frames/s;
-  8. group-norm  the flagship with --norm_layer group: requests of 1 and
+  9. group-norm  the flagship with --norm_layer group: requests of 1 and
               64 crops (3 launches a chunk, against the plain attention
               path within 2%), p50 chunk and request latencies at buckets
               1 and 64 beside BatchNorm's predictor; 8 synthetic training
@@ -88,7 +114,7 @@ Phases, in order; any failure raises and exits non-zero:
               step against the plain attention path) and the training
               rate, p50 step and device time a step beside the train
               phase's;
-  9. coarse   --net reg_transformer_coarse at the widths of
+  10. coarse   --net reg_transformer_coarse at the widths of
               script/ablation_pose.sh (resnet50, 21 tokens x 784, 8
               heads, depth 3, bf16, seed 0): requests of 1 and 64 crops
               and HTTP answers equal to predict; train_coarse's flag line
@@ -102,7 +128,7 @@ Phases, in order; any failure raises and exits non-zero:
               float32: 1e-5); the training rate and a profile; no
               attention-kernel launch anywhere (the coarse head's
               attention is the plain version: it returns P);
-  10. token-heads  backbone_hrnet (HRNet-W24, 56x56x128 read as 512 x
+  11. token-heads  backbone_hrnet (HRNet-W24, 56x56x128 read as 512 x
               28x28) and backbone_incepv3 (768x12x12 read as 192 x
               24x24), each to 128 tokens x 196, 8 heads, depth 3,
               iteration 3, seed 0, built by the factory on the plain
@@ -115,7 +141,7 @@ Phases, in order; any failure raises and exits non-zero:
               (3 + 3 launches; loss and gradient norm within 2%); device
               ms a forward and a forward+backward on each path, and the
               kernels' share of device time;
-  11. vit      --net ViT at the JAX package's defaults (224 px, 16x16
+  12. vit      --net ViT at the JAX package's defaults (224 px, 16x16
               patches, 197 tokens x 256, depth 3, 8 heads x 64, iteration
               1, bf16, seed 0; the plain attention, as in JAX): requests
               of 1, 7, 64 and 150 crops and HTTP equal to predict; the
@@ -127,7 +153,7 @@ Phases, in order; any failure raises and exits non-zero:
               the serving rate, p50 request latency at buckets 1 and 64,
               the training rate, p50 step and profiles; no attention-kernel
               launch;
-  12. mano     --net frankmocap (H3DW on resnet50, 224 px, bf16, the
+  13. mano     --net frankmocap (H3DW on resnet50, 224 px, bf16, the
               synthetic MANO of extra_data/hand.obj): rot_pose_beta_to_mesh
               in float32 on the card against the CPU at bs 96 within 1e-5
               (bf16 inputs decode in float32), its device ms and kernel
@@ -136,7 +162,7 @@ Phases, in order; any failure raises and exits non-zero:
               parameter files, the overlays or their skip message) and its
               images/s; the Evaluator through H3DWJointsEncoder on 2
               synthetic batches of 96;
-  13. video    VideoTrainer at the JAX package's defaults (resnet50 H3DW at
+  14. video    VideoTrainer at the JAX package's defaults (resnet50 H3DW at
               224 px, bf16; 16-frame windows at stride 8, 2 a step; GRU
               1024 x 2, attention pooling; VIBELossConfig()) for 2 epochs
               over 4 videos x 48 frames from seed 0: finite generator and
@@ -146,7 +172,7 @@ Phases, in order; any failure raises and exits non-zero:
               float32 (losses within 2%); sequences/s, p50 step, the
               synchronising calls of a step, a profile, and the step's
               parts (encoder, MANO decode, GRU, losses) each timed alone;
-  14. favor    the FAVOR+ stats and apply kernels against their plain
+  15. favor    the FAVOR+ stats and apply kernels against their plain
               versions at --net ViP's shapes (BH 4, 28, 256, 384 at
               T = 3137, e = 128, m = 64; T at chunk and tile edges; e 64
               / m 32) at rtol 1e-4 (atol 1e-5, times the largest
@@ -164,7 +190,7 @@ Phases, in order; any failure raises and exits non-zero:
               call computes FAVOR+, so no library time), each kernel's
               bound both as its tensor-core design's (bytes, and the
               bf16x3 products) and as the float32-operation figure;
-  15. vip-serve  the --net ViP predictor at full width (224 px, 3137
+  16. vip-serve  the --net ViP predictor at full width (224 px, 3137
               tokens x 512, 4 heads, depth 3, m 64, iteration 3, bf16,
               --use_pallas_favor True, weights from seed 0) serves uint8
               requests of 1, 7, 64 and 150 crops: 3 stats + 3 apply
@@ -173,17 +199,17 @@ Phases, in order; any failure raises and exits non-zero:
               model with the plain float32 FAVOR+ substituted (2%); the
               end-to-end rate, p50 request latency at buckets 1 and 64
               and a profile;
-  16. vip-train  the Trainer on --net ViP (bs 96, lr 5e-4, weights 1e5 /
+  17. vip-train  the Trainer on --net ViP (bs 96, lr 5e-4, weights 1e5 /
               10, bf16, dropout 0.1) for 3 epochs of 8 steps: 3 + 3
               launches a step, a falling loss; one step's loss and
               gradient norm against the plain float32 FAVOR+; remat_blocks
               against none (6 + 6 launches, the same loss and
               gradients); hand_net_final.pth served; the training rate,
               p50 step time and a profile;
-  17. vip-eval  the Evaluator on vip-train's hand_net_final.pth
+  18. vip-eval  the Evaluator on vip-train's hand_net_final.pth
               (synthetic batches): 3 + 3 FAVOR+ launches a batch and the
               file's frozen mains.{i}.w;
-  18. the card line, the kernels line, and the final
+  19. the card line, the kernels line, and the final
      {"ok": true, "device": ...} line.
 
 TF32 is off for the whole run (torch.backends.cuda.matmul.allow_tf32 and
@@ -220,6 +246,7 @@ from scat_tpu_torch.data.preprocess import color_jitter_np
 from scat_tpu_torch.evaluation import demo
 from scat_tpu_torch.evaluation.evaluator import Evaluator
 from scat_tpu_torch.evaluation.tester import Tester
+from scat_tpu_torch.export import ExportedPredictor, export_predictor, op_nodes
 from scat_tpu_torch.kernels import build
 from scat_tpu_torch import train_coarse
 from scat_tpu_torch.models import build_model, mano, performer, vibe_loss
@@ -727,12 +754,13 @@ def phase_slice(rng):
     return pred, crops
 
 
-def device_profile(tag, fn, what):
+def device_profile(tag, fn, what, check=None):
     """torch.profiler over ``fn()`` (which ends in a synchronize): wall
     time, the device's busy and idle share of it, each hand-written
     kernel's share of device time, and the top device operations (one
-    stream, so kernel times add up).  Returns the busy time in ms and its
-    share of the wall time in percent."""
+    stream, so kernel times add up).  ``check``, if given, is called with
+    every event of ``key_averages()`` (host and device).  Returns the
+    busy time in ms and its share of the wall time in percent."""
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
@@ -746,6 +774,8 @@ def device_profile(tag, fn, what):
               if e.device_type == torch.autograd.DeviceType.CUDA
               and e.self_device_time_total > 0
               and not getattr(e, "is_user_annotation", False)]
+    if check is not None:
+        check(list(prof.key_averages()))
     busy = sum(e.self_device_time_total for e in events)
     busy_pct = 100 * busy / wall_us
     shares = []
@@ -915,7 +945,62 @@ def phase_train(rng):
           f"{1e3 * err.mean():.2f} mm, PCK at 20..50 mm "
           f"{', '.join(f'{v:.2f}' for v in pck[:, -1])} %")
 
+    train_flags()
     return train_rate("train", state, trainer.train_step, batches)
+
+
+# the canonical flag line's --debug True (its default) with
+# --profile_trace_dir and --tensorboard True: 5 steps, the trace window
+# over steps 4 and 5
+FLAGS_TRAIN = dataclasses.replace(
+    TRAIN, debug=True, tensorboard=True, epoch=1, steps_per_epoch=5,
+    profile_trace_dir=os.path.join("build", "chip_smoke_trace"),
+    profile_trace_steps=2,
+    checkpoint_folder=os.path.join("build", "chip_smoke_flags"))
+
+
+def train_flags():
+    """The Trainer with --debug True, --profile_trace_dir and
+    --tensorboard True: the debug grid or matplotlib's skip message, a
+    Chrome trace whose device kernels include both attention kernels,
+    the events or tensorboardX's CSV-only message; 3 + 3 launches a
+    step."""
+    import io
+    trace = os.path.join(FLAGS_TRAIN.profile_trace_dir, "trace.json")
+    if os.path.exists(trace):
+        os.remove(trace)
+    reset_counts()
+    out = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        Trainer(FLAGS_TRAIN, image_size=IMAGE).train()
+    dt = time.perf_counter() - t0
+    text = out.getvalue()
+    fwd, bwd = flash_attention.launches, attention_bwd.launches
+    FWD.result["launches"] += fwd
+    BWD.result["launches"] += bwd
+    assert fwd == bwd == 3 * FLAGS_TRAIN.steps_per_epoch, (fwd, bwd)
+    grid = os.path.join("debug_img",
+                        f"debug_gt_pred_{FLAGS_TRAIN.debug_img}.png")
+    skipped = "matplotlib unavailable, skipping the debug grid" in text
+    assert "==== Visualize ====" in text and (skipped or
+                                              os.path.exists(grid)), text
+    csv_only = "tensorboardX is not installed; CSV only" in text
+    events = os.path.join(FLAGS_TRAIN.checkpoint_folder, "tb", "metrics")
+    assert csv_only or os.path.isdir(events), text
+    with open(trace) as f:
+        kernels = {e["name"] for e in json.load(f)["traceEvents"]
+                   if e.get("cat") == "kernel"}
+    named = {k: sorted(n for n in kernels if k in n)
+             for k in ("attention_fwd", "attention_bwd")}
+    assert all(named.values()), named
+    print(f"[train] --debug True --profile_trace_dir --tensorboard True, "
+          f"{FLAGS_TRAIN.steps_per_epoch} steps in {dt:.1f} s: debug grid "
+          f"{'skipped, no matplotlib' if skipped else grid}; "
+          f"{'CSV only, no tensorboardX' if csv_only else events}; "
+          f"{trace}: {len(kernels)} device kernel names, of them "
+          f"{[n[:40] for v in named.values() for n in v]}; launches "
+          f"{fwd} + {bwd}")
 
 
 def train_rate(tag, state, step, batches):
@@ -2897,6 +2982,264 @@ def phase_serve(pred, crops, tag="serve"):
     assert not any(t.is_alive() for t in threads), "server thread alive"
 
 
+# the export phase's artifacts go to build/, which .gitignore lists
+EXPORT_ROOT = os.path.join("build", "chip_smoke_export")
+REPO_ROOT = os.path.dirname(os.path.abspath(__file__))
+# host-side ops that run a model layer eagerly: a profile of a replayed
+# request holds none of them
+EAGER_LAYER_OPS = ("aten::conv2d", "aten::convolution", "aten::linear",
+                   "aten::batch_norm", "aten::layer_norm", "aten::addmm",
+                   "aten::mm", "aten::bmm", "aten::matmul",
+                   "scat_tpu_torch::attention_fwd",
+                   "scat_tpu_torch::favor_stats",
+                   "scat_tpu_torch::favor_apply")
+# a fresh process serves an artifact with no model module of the port
+# imported
+SERVE_WITHOUT_MODELS = """
+import sys
+import numpy as np
+from scat_tpu_torch.export import ExportedPredictor
+p = ExportedPredictor(sys.argv[1])
+out = p.predict(np.zeros((3, p.image_size, p.image_size, 3), np.uint8))
+bad = [m for m in sys.modules if m.startswith("scat_tpu_torch.models")]
+assert not bad, bad
+assert all(np.isfinite(v).all() for v in out.values())
+print("a fresh process served 3 crops, no scat_tpu_torch.models module "
+      "imported:", {k: v.shape for k, v in out.items()})
+"""
+
+
+def port_env():
+    return dict(os.environ, PYTHONPATH=REPO_ROOT, PYTHONUNBUFFERED="1")
+
+
+def export_and_load(tag, pred, path, net):
+    """export_predictor to ``path``, then ExportedPredictor from it, each
+    timed; the artifact's files and size printed."""
+    t0 = time.perf_counter()
+    export_predictor(pred, path, net=net)
+    dt = time.perf_counter() - t0
+    files = {f: os.path.getsize(os.path.join(path, f))
+             for f in sorted(os.listdir(path))}
+    print(f"[{tag}] exported {net} ({pred.model.compute_dtype}) in "
+          f"{dt:.1f} s: {sum(files.values()) / 1e6:.1f} MB "
+          f"{ {f: round(b / 1e6, 1) for f, b in files.items()} }")
+    t0 = time.perf_counter()
+    art = ExportedPredictor(path)
+    print(f"[{tag}] loaded in {time.perf_counter() - t0:.1f} s: manifest "
+          f"{art.manifest}")
+    return art
+
+
+def load_without_models(tag, path):
+    out = subprocess.run([sys.executable, "-c", SERVE_WITHOUT_MODELS, path],
+                         cwd=REPO_ROOT, env=port_env(), capture_output=True,
+                         text=True, timeout=600)
+    assert out.returncode == 0, out.stdout[-2000:] + out.stderr[-4000:]
+    print(f"[{tag}] {out.stdout.strip()}")
+
+
+def check_nodes(tag, art, want):
+    for name, module in art.programs.items():
+        got = op_nodes(module)
+        print(f"[{tag}] {name} program: scat_tpu_torch op nodes {got}")
+        assert got == want, (name, got, want)
+
+
+def check_captures(tag, art, per_forward):
+    """``warmup`` captures one graph per (bucket, dtype); each capture
+    and its eager warm-up run count ``per_forward`` launches of each
+    kernel, which are added to the kernels' launches."""
+    reset_counts()
+    t0 = time.perf_counter()
+    art.warmup()
+    dt = time.perf_counter() - t0
+    keys = sum(len(r.keys) for r in art._forwards.values())
+    assert keys == 2 * len(art._buckets), keys
+    counts = {k.name: k.wrapper.launches for k in KERNELS}
+    for k in KERNELS:
+        k.result["launches"] += k.wrapper.launches
+    print(f"[{tag}] warmup captured {keys} graphs (buckets "
+          f"{art._buckets} x uint8, float32) in {dt:.1f} s; launches "
+          f"counted {counts}: {per_forward} in each capture and in its "
+          f"eager warm-up run")
+    assert counts == {k.name: 2 * keys * per_forward.get(k.name, 0)
+                      for k in KERNELS}, counts
+
+
+def replayed_profile(tag, art, x, big, per_chunk):
+    """torch.profiler over one replayed request of ``x``: each kernel of
+    ``per_chunk`` (profile key -> device kernels a chunk) runs that many
+    times a chunk, one graph launch a chunk, and no model layer launches
+    eagerly; the counters count no replay.  Returns device_profile's
+    (busy ms, busy %)."""
+    chunks = n_chunks(x.shape[0], big)
+    reset_counts()
+
+    def check(events):
+        device = [e for e in events
+                  if e.device_type == torch.autograd.DeviceType.CUDA]
+        for key, n in per_chunk.items():
+            got = sum(e.count for e in device if key in e.key)
+            print(f"[{tag}] replayed {x.shape[0]} crops: {got} device "
+                  f"kernels named {key!r} ({chunks} chunks)")
+            assert got == n * chunks, (key, got, n * chunks)
+        graphs = sum(e.count for e in events if e.key == "cudaGraphLaunch")
+        eager = sorted({e.key for e in events if e.key in EAGER_LAYER_OPS})
+        print(f"[{tag}] cudaGraphLaunch x{graphs}; eager layer ops on the "
+              f"host: {eager or 'none'}")
+        assert graphs == chunks and not eager, (graphs, eager)
+
+    busy = device_profile(tag, lambda: art.predict(x),
+                          f"artifact, {x.shape[0]} crops in chunks of {big}",
+                          check=check)
+    counts = {k.name: k.wrapper.launches for k in KERNELS}
+    assert not any(counts.values()), counts
+    return busy
+
+
+def serving_pair(tag, live, art, rng, requests, crops, per_chunk):
+    """The live predictor and the artifact on the same weights and the
+    same window of back-to-back uint8 requests, in turns (live,
+    artifact, artifact, live): crops/s; the p50 request latency at
+    buckets 1 and 64 (20 requests each, in turns); the device busy and
+    idle share of one 256-crop request (the artifact's through
+    replayed_profile)."""
+    big = art._buckets[-1]
+    window = [rng.randint(0, 256, (crops, IMAGE, IMAGE, 3), dtype=np.uint8)
+              for _ in range(requests)]
+    preds = {"live": live, "artifact": art}
+    for p in preds.values():
+        p.predict(window[0])
+    n = requests * crops
+    for name in ("live", "artifact", "artifact", "live"):
+        t0 = time.perf_counter()
+        for x in window:
+            preds[name].predict(x)
+        dt = time.perf_counter() - t0
+        print(f"[{tag}] {name:8s} end to end: {requests} back-to-back "
+              f"requests of {crops} uint8 crops, {n} crops in "
+              f"{dt * 1e3:.1f} ms: {n / dt:.1f} crops/s")
+    for b in (1, big):
+        x = rng.randint(0, 256, (b, IMAGE, IMAGE, 3), dtype=np.uint8)
+        times = {name: [] for name in preds}
+        for _ in range(20):
+            for name, p in preds.items():
+                t0 = time.perf_counter()
+                p.predict(x)
+                times[name].append(time.perf_counter() - t0)
+        print(f"[{tag}] bucket {b:2d}: p50 request latency " + ", ".join(
+            f"{name} {np.median(t) * 1e3:.3f} ms"
+            for name, t in times.items()) + " (20 requests each)")
+    x = window[1][:256]
+    device_profile(tag, lambda: live.predict(x),
+                   f"live, 256 crops in chunks of {big}")
+    replayed_profile(tag, art, x, big, per_chunk)
+
+
+def serve_artifact_http(tag, art, path, crops):
+    """``python -m scat_tpu_torch.server --serve_artifact`` in a process
+    of its own answers POST /predict with exactly what the artifact's
+    predict returns, and names the artifact in GET /healthz."""
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "scat_tpu_torch.server", "--serve_artifact",
+         path, "--server_host", "127.0.0.1", "--server_port", "0"],
+        cwd=REPO_ROOT, env=port_env(), stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True)
+    # a server that never comes up is killed, which ends the read below
+    deadline = threading.Timer(600, proc.kill)
+    deadline.start()
+    try:
+        port, lines = None, []
+        for line in proc.stdout:
+            lines.append(line)
+            if line.startswith("serving on http://"):
+                port = int(line.split()[2].rsplit(":", 1)[1])
+                break
+        deadline.cancel()
+        assert port is not None, "".join(lines)[-4000:]
+        as_float = crops[7].astype(np.float32) / 127.5 - 1.0
+        for body in (crops[7], as_float, crops[1]):
+            got = _post(port, body)
+            want = art.predict(body)
+            for k in want:
+                np.testing.assert_allclose(got[k], want[k], rtol=1e-6,
+                                           atol=1e-6, err_msg=k)
+            print(f"[{tag}] scat_tpu_torch.server --serve_artifact: POST "
+                  f"/predict {list(body.shape)} {body.dtype} equals "
+                  f"predict")
+        conn = http.client.HTTPConnection("127.0.0.1", port, timeout=60)
+        conn.request("GET", "/healthz")
+        health = json.loads(conn.getresponse().read())
+        assert health["source"] == f"artifact:{path}", health
+        print(f"[{tag}] GET /healthz: {health}")
+    finally:
+        deadline.cancel()
+        proc.terminate()
+        proc.wait(timeout=60)
+
+
+def artifact_vs_live(tag, art, live, requests, bound=None, as_float=None):
+    """(what, got, want, bound) pairs of the artifact against the live
+    predictor on uint8 requests and one float32 request."""
+    pairs = []
+    for n, x in requests.items():
+        got, want = art.predict(x), live.predict(x)
+        check_output(got, n, root_centred=False)
+        pairs += [(f"artifact vs live, {n} uint8 crops, {k}", got[k],
+                   want[k], bound and bound[k]) for k in want]
+    if as_float is not None:
+        got, want = art.predict(as_float), live.predict(as_float)
+        pairs += [(f"artifact vs live, {len(as_float)} float32 crops, {k}",
+                   got[k], want[k], bound and bound[k]) for k in want]
+    return pairs
+
+
+def phase_export(rng):
+    """The flagship and ViP at full width served from artifacts written
+    by export_predictor (one CUDA graph per bucket and request dtype)
+    beside the live predictors on the same weights."""
+    crops = {n: rng.randint(0, 256, (n, IMAGE, IMAGE, 3)).astype(np.uint8)
+             for n in REQUESTS}
+    as_float = crops[7].astype(np.float32) / 127.5 - 1.0
+    # float32: 1e-4 of the joints (and of their pixels, 112 per unit)
+    f32_bound = {"camera": 1e-4, "joints_3d": 1e-4,
+                 "joints_2d": 1e-4 * IMAGE / 2}
+
+    live = HandPosePredictor.from_checkpoint(FLAGSHIP, image_size=IMAGE)
+    path = os.path.join(EXPORT_ROOT, "flagship")
+    art = export_and_load("export", live, path, FLAGSHIP.net)
+    f32 = dataclasses.replace(FLAGSHIP, compute_dtype="float32")
+    live32 = HandPosePredictor.from_checkpoint(f32, image_size=IMAGE)
+    art32 = export_and_load("export", live32,
+                            os.path.join(EXPORT_ROOT, "flagship_f32"),
+                            FLAGSHIP.net)
+    load_without_models("export", path)
+    check_nodes("export", art, {"attention_fwd": 3})
+    check_nodes("export", art32, {"attention_fwd": 3})
+    check_captures("export", art, {"attention_fwd": 3})
+    pairs = artifact_vs_live("export", art, live, crops, as_float=as_float)
+    pairs += artifact_vs_live("export", art32, live32, {7: crops[7]},
+                              f32_bound, as_float)
+    compare("export", pairs)
+    del art32, live32
+    serving_pair("export", live, art, rng, WINDOW_REQUESTS, WINDOW_CROPS,
+                 {"attention_fwd": 3})
+    serve_artifact_http("export", art, path, crops)
+    del art, live
+    torch.cuda.empty_cache()
+
+    live = HandPosePredictor.from_checkpoint(VIP, image_size=IMAGE)
+    path = os.path.join(EXPORT_ROOT, "vip")
+    art = export_and_load("export-vip", live, path, VIP.net)
+    check_nodes("export-vip", art, {"favor_stats": 3, "favor_apply": 3})
+    check_captures("export-vip", art, {"favor_stats": 3, "favor_apply": 3})
+    compare("export-vip", artifact_vs_live(
+        "export-vip", art, live, {n: crops[n] for n in (1, 7, 64)}))
+    serving_pair("export-vip", live, art, rng, VIP_WINDOW_REQUESTS,
+                 VIP_WINDOW_CROPS, {"favor_stats": 3, "favor_apply": 3})
+
+
 # a phase's inputs come from the phase named here, which a partial run
 # adds
 NEEDS = {"profile": "slice", "serve": "slice", "stb": "train",
@@ -2918,6 +3261,7 @@ def main(argv):
         ("slice", lambda: state.update(served=phase_slice(rng))),
         ("profile", lambda: phase_profile(state["served"][0], rng)),
         ("serve", lambda: phase_serve(*state.pop("served"))),
+        ("export", lambda: phase_export(rng)),
         ("train", lambda: state.update(synth=phase_train(rng))),
         ("stb", lambda: phase_stb(rng, state["synth"])),
         ("datasets", lambda: phase_datasets(rng)),

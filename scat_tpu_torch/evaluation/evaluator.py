@@ -20,8 +20,9 @@ eval.py:834,864-944): the last layer's head-0 attention of the batch's
 sample 1 (sample 0 in a batch of one), drawn per finger about its
 ground-truth 2D landmarks as ``{result_dir}/attn/{finger}/NNN.png``; the
 attention comes from the batch's one forward, and where cv2 is missing
-the dump is skipped with a message.  Not ported yet: multi-process
-evaluation (item 17) and the TensorBoard mirror (item 18).
+the dump is skipped with a message.  ``--tensorboard True`` mirrors
+``eval_metrics.csv`` as tensorboardX events under ``{result_dir}/tb``.
+Not ported yet: multi-process evaluation (item 17).
 """
 
 from __future__ import annotations
@@ -54,7 +55,6 @@ RNGE = np.arange(20, 51, 5)
 UNPORTED_FLAGS = (
     ("a multi-device --mesh_shape",
      lambda o: any(size not in (1, -1) for _, size in mesh_axes(o)), 17),
-    ("--tensorboard True", lambda o: o.tensorboard, 18),
 )
 
 
@@ -162,7 +162,8 @@ class Evaluator:
         if self.want_attn and not self.draw_attn:
             print("cv2 unavailable, skipping the attention dump; the "
                   "metrics are computed")
-        logger = MetricsLogger(self.result_dir, filename="eval_metrics.csv")
+        logger = MetricsLogger(self.result_dir, filename="eval_metrics.csv",
+                               tensorboard=self.opt.tensorboard)
         n_cols = len(RNGE) * 22
         pck_all = np.zeros((len(RNGE), 22))
         mpjpe_chunks = []

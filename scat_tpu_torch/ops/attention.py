@@ -34,10 +34,18 @@ in float32, rounded to bf16; the design notes are in
 tiles in ``csrc/attention.cuh``.  Their 16-byte copies need 16-byte
 aligned rows: an operand whose rows are not is copied first.
 
-``flash_attention`` launches the kernels for CUDA tensors and raises if
-it cannot; it never falls back.  CPU tensors take ``attention_reference``
-(and autograd through it), the plain version of the same math;
-``attention_bwd_reference`` is the plain version of the backward kernel.
+Both kernels are ``torch.library`` custom ops, ``scat_tpu_torch::
+attention_fwd`` and ``scat_tpu_torch::attention_bwd``: a CUDA
+implementation (the launch, its alignment copy and its counter), a CPU
+implementation (the plain version) and a fake that gives the outputs'
+shapes and strides without touching storage, so ``torch.export`` records
+them as nodes and a CUDA graph captures their launches.
+``flash_attention`` calls the forward op, through ``_FlashAttention``
+where autograd records; CUDA tensors launch the kernels or raise, it
+never falls back.  CPU tensors take ``attention_reference``: through
+the op where no gradient is recorded (serving, eval, export), by
+autograd through it where one is; ``attention_bwd_reference`` is the
+plain version of the backward kernel.
 The backward kernel is ``once_differentiable``: a second backward through
 it (the ``pl_reg`` path-length probe) raises, and the model factory
 routes ``pl_reg`` to the plain path as the JAX package does.  It takes
@@ -185,9 +193,18 @@ def _aligned(*ts: torch.Tensor):
                  for t in ts)
 
 
+def _heads_last(o: torch.Tensor) -> torch.Tensor:
+    """``o`` [B,H,N,D] copied into the layout the forward kernel writes:
+    [B,N,H,D] storage seen as [B,H,N,D]."""
+    return o.transpose(1, 2).contiguous().transpose(1, 2)
+
+
+@torch.library.custom_op("scat_tpu_torch::attention_fwd", mutates_args=(),
+                         device_types="cuda")
 def _attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                    scale: float) -> torch.Tensor:
     """The forward kernel on CUDA tensors (counted)."""
+    _check(q, k, v)
     q, k, v = _aligned(q, k, v)
     b, h, n, d = q.shape
     # O is stored [B,N,H,D] and returned as its [B,H,N,D] view, so that
@@ -205,16 +222,23 @@ def _attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return o
 
 
-def attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                  do: torch.Tensor, scale: float
-                  ) -> Tuple[torch.Tensor, ...]:
-    """(dQ, dK, dV) for the output gradient ``do``: the backward kernel
-    on CUDA tensors, the plain version on CPU tensors."""
-    if q.device.type == "cpu":
-        return attention_bwd_reference(q, k, v, do, scale)
-    if q.device.type != "cuda":
-        raise ValueError(f"attention_bwd runs on cuda or cpu tensors, "
-                         f"got {q.device}")
+@_attention_fwd.register_kernel("cpu")
+def _(q, k, v, scale):
+    return _heads_last(attention_reference(q, k, v, scale))
+
+
+@_attention_fwd.register_fake
+def _(q, k, v, scale):
+    b, h, n, d = q.shape
+    return q.new_empty((b, n, h, d)).permute(0, 2, 1, 3)
+
+
+@torch.library.custom_op("scat_tpu_torch::attention_bwd", mutates_args=(),
+                         device_types="cuda")
+def _attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                   do: torch.Tensor, scale: float
+                   ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The backward kernel on CUDA tensors (counted)."""
     if do.stride(-1) != 1:
         do = do.contiguous()
     _check(q, k, v, do)
@@ -233,9 +257,35 @@ def attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return grads
 
 
+@_attention_bwd.register_kernel("cpu")
+def _(q, k, v, do, scale):
+    return tuple(g.contiguous() for g in
+                 attention_bwd_reference(q, k, v, do, scale))
+
+
+@_attention_bwd.register_fake
+def _(q, k, v, do, scale):
+    return tuple(q.new_empty(q.shape) for _ in range(3))
+
+
+def _on_cuda_or_cpu(name: str, q: torch.Tensor) -> None:
+    if q.device.type not in ("cuda", "cpu"):
+        raise ValueError(f"{name} runs on cuda or cpu tensors, "
+                         f"got {q.device}")
+
+
+def attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                  do: torch.Tensor, scale: float
+                  ) -> Tuple[torch.Tensor, ...]:
+    """(dQ, dK, dV) for the output gradient ``do``: the backward kernel
+    on CUDA tensors, the plain version on CPU tensors."""
+    _on_cuda_or_cpu("attention_bwd", q)
+    return _attention_bwd(q, k, v, do, scale)
+
+
 class _FlashAttention(torch.autograd.Function):
-    """The ``_flash_core`` custom VJP: the forward kernel, and the
-    backward kernel recomputing P from the saved Q, K, V."""
+    """The ``_flash_core`` custom VJP: the forward op, and the backward
+    op recomputing P from the saved Q, K, V."""
 
     @staticmethod
     def forward(ctx, q, k, v, scale):
@@ -254,13 +304,12 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     scale: float) -> torch.Tensor:
     """Softmax attention on [B,H,N,D], differentiable; the kernels on
     CUDA tensors, the plain version on CPU tensors."""
-    if q.device.type == "cpu":
-        return attention_reference(q, k, v, scale)
-    if q.device.type != "cuda":
-        raise ValueError(f"flash_attention runs on cuda or cpu tensors, "
-                         f"got {q.device}")
-    _check(q, k, v)
-    return _FlashAttention.apply(q, k, v, scale)
+    _on_cuda_or_cpu("flash_attention", q)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        if q.device.type == "cpu":
+            return attention_reference(q, k, v, scale)
+        return _FlashAttention.apply(q, k, v, scale)
+    return _attention_fwd(q, k, v, scale)
 
 
 flash_attention.launches = 0

@@ -31,9 +31,15 @@ the JAX model casts them; the plain versions are IEEE float32, or
 float64 for float64 operands, the precision the bf16 kernels' split
 products are held to on the card), no max-subtraction stabiliser.
 
-``favor_attention_fused`` (and the wrappers ``favor_stats`` and
-``favor_apply``) launch the kernels for CUDA tensors and raise if they
-cannot; they never fall back.  CPU tensors take the plain versions.  The
+Both kernels are ``torch.library`` custom ops, ``scat_tpu_torch::
+favor_stats`` and ``scat_tpu_torch::favor_apply``: a CUDA implementation
+(the launch, the stats' split-T work buffer, the counter), a CPU
+implementation (the plain version) and a fake giving the outputs' shapes
+and strides, so ``torch.export`` records them as nodes and a CUDA graph
+captures their launches.  ``favor_attention_fused`` (and the wrappers
+``favor_stats`` and ``favor_apply``) call the ops: CUDA tensors launch
+the kernels or raise, never falling back; CPU tensors take the plain
+versions.  The
 backward recomputes by autograd through ``favor_attention`` at HIGHEST
 in float32, as the JAX package's ``_favor_bwd`` does; ``w`` gets no
 gradient.  The launch counters are ``favor_stats.launches`` and
@@ -247,6 +253,12 @@ def _on_cuda(name: str, *ts: torch.Tensor) -> None:
                          f"device, got {[str(t.device) for t in ts]}")
 
 
+def _on_cuda_or_cpu(name: str, x: torch.Tensor) -> None:
+    if x.device.type not in ("cuda", "cpu"):
+        raise ValueError(f"{name} runs on cuda or cpu tensors, got "
+                         f"{x.device}")
+
+
 def _check(ts, w: torch.Tensor) -> None:
     """Operands [B,H,T,e] of one shape and dtype (float32 or bfloat16),
     the head dimension contiguous; w float32 [m, e]; e <= 128, m <= 64."""
@@ -272,13 +284,17 @@ def _check(ts, w: torch.Tensor) -> None:
                          "be contiguous")
 
 
-def favor_stats(k: torch.Tensor, v: torch.Tensor, w: torch.Tensor
-                ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(sum_t phi(k) [B,H,m], phi(k)^T v [B,H,m,e]) float32 for k, v
-    [B,H,T,e]: the stats kernel on CUDA tensors, the plain version on CPU
-    tensors."""
-    if k.device.type == "cpu":
-        return favor_stats_reference(k, v, w)
+def _heads_last(y: torch.Tensor) -> torch.Tensor:
+    """``y`` [B,H,T,e] copied into the layout the apply kernel writes:
+    [B,T,H,e] storage seen as [B,H,T,e]."""
+    return y.transpose(1, 2).contiguous().transpose(1, 2)
+
+
+@torch.library.custom_op("scat_tpu_torch::favor_stats", mutates_args=(),
+                         device_types="cuda")
+def _favor_stats(k: torch.Tensor, v: torch.Tensor, w: torch.Tensor
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The stats kernel on CUDA tensors (counted)."""
     _on_cuda("favor_stats", k, v, w)
     _check((k, v), w)
     b, h, t, e = k.shape
@@ -302,13 +318,25 @@ def favor_stats(k: torch.Tensor, v: torch.Tensor, w: torch.Tensor
     return ksum, kptv
 
 
-def favor_apply(q: torch.Tensor, ksum: torch.Tensor, kptv: torch.Tensor,
-                w: torch.Tensor) -> torch.Tensor:
-    """phi(q) kptv / (phi(q) . ksum), float32 [B,H,T,e], for q [B,H,T,e]
-    and favor_stats' outputs: the apply kernel on CUDA tensors, the plain
-    version on CPU tensors."""
-    if q.device.type == "cpu":
-        return favor_apply_reference(q, ksum, kptv, w)
+@_favor_stats.register_kernel("cpu")
+def _(k, v, w):
+    return tuple(s.contiguous() for s in favor_stats_reference(k, v, w))
+
+
+@_favor_stats.register_fake
+def _(k, v, w):
+    b, h, _, e = k.shape
+    m = w.shape[0]
+    dtype = torch.promote_types(k.dtype, torch.float32)
+    return (k.new_empty((b, h, m), dtype=dtype),
+            k.new_empty((b, h, m, e), dtype=dtype))
+
+
+@torch.library.custom_op("scat_tpu_torch::favor_apply", mutates_args=(),
+                         device_types="cuda")
+def _favor_apply(q: torch.Tensor, ksum: torch.Tensor, kptv: torch.Tensor,
+                 w: torch.Tensor) -> torch.Tensor:
+    """The apply kernel on CUDA tensors (counted)."""
     _on_cuda("favor_apply", q, ksum, kptv, w)
     _check((q,), w)
     b, h, t, e = q.shape
@@ -334,6 +362,36 @@ def favor_apply(q: torch.Tensor, ksum: torch.Tensor, kptv: torch.Tensor,
     abi.raise_on(rc, _library(), "favor_apply")
     favor_apply.launches += 1
     return y
+
+
+@_favor_apply.register_kernel("cpu")
+def _(q, ksum, kptv, w):
+    return _heads_last(favor_apply_reference(q, ksum, kptv, w))
+
+
+@_favor_apply.register_fake
+def _(q, ksum, kptv, w):
+    b, h, t, e = q.shape
+    dtype = torch.promote_types(q.dtype, torch.float32)
+    return q.new_empty((b, t, h, e), dtype=dtype).permute(0, 2, 1, 3)
+
+
+def favor_stats(k: torch.Tensor, v: torch.Tensor, w: torch.Tensor
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(sum_t phi(k) [B,H,m], phi(k)^T v [B,H,m,e]) float32 for k, v
+    [B,H,T,e]: the stats kernel on CUDA tensors, the plain version on CPU
+    tensors."""
+    _on_cuda_or_cpu("favor_stats", k)
+    return _favor_stats(k, v, w)
+
+
+def favor_apply(q: torch.Tensor, ksum: torch.Tensor, kptv: torch.Tensor,
+                w: torch.Tensor) -> torch.Tensor:
+    """phi(q) kptv / (phi(q) . ksum), float32 [B,H,T,e], for q [B,H,T,e]
+    and favor_stats' outputs: the apply kernel on CUDA tensors, the plain
+    version on CPU tensors."""
+    _on_cuda_or_cpu("favor_apply", q)
+    return _favor_apply(q, ksum, kptv, w)
 
 
 class _FavorAttention(torch.autograd.Function):
@@ -365,13 +423,13 @@ def favor_attention_fused(q: torch.Tensor, k: torch.Tensor,
     values); returns float32 in q's shape, differentiable in q, k, v.
     CUDA tensors launch the kernels or raise, CPU tensors take the plain
     versions; other devices raise."""
-    if q.device.type not in ("cpu", "cuda"):
-        raise ValueError(f"favor_attention_fused runs on cuda or cpu "
-                         f"tensors, got {q.device}")
+    _on_cuda_or_cpu("favor_attention_fused", q)
     if q.dim() == 3:
-        return _FavorAttention.apply(q[:, None], k[:, None], v[:, None],
+        return favor_attention_fused(q[:, None], k[:, None], v[:, None],
                                      w)[:, 0]
-    return _FavorAttention.apply(q, k, v, w)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        return _FavorAttention.apply(q, k, v, w)
+    return favor_apply(q, *favor_stats(k, v, w), w)
 
 
 favor_stats.launches = 0

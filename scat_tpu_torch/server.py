@@ -3,7 +3,9 @@
 
 Wraps any predictor with a ``predict(images) -> dict`` contract and an
 ``image_size`` attribute, by default ``serving.HandPosePredictor`` on the
-CUDA device, in a stdlib-only threaded HTTP server.
+CUDA device, or with ``--serve_artifact DIR`` an
+``export.ExportedPredictor`` (one CUDA graph per bucket and request
+dtype), in a stdlib-only threaded HTTP server.
 
 Endpoints:
   GET  /healthz   liveness + model metadata
@@ -23,6 +25,7 @@ CLI:
       --net reg_transformer --iteration 3 --vit_heads 8 \
       --checkpoint_path_eval .../hand_net_final.pth
   (``--checkpoint_path_eval ''`` serves a seeded fresh init.)
+  python -m scat_tpu_torch.server --server_port 8080 --serve_artifact out/
 """
 
 from __future__ import annotations
@@ -260,8 +263,8 @@ def main(argv=None) -> None:
     peel.add_argument("--server_port", type=int, default=8080)
     peel.add_argument("--server_host", default="0.0.0.0")
     peel.add_argument("--serve_artifact", default="",
-                      help="serve an AOT export dir instead of a live "
-                           "checkpoint (not ported yet)")
+                      help="serve an export dir (scat_tpu_torch.export) "
+                           "instead of a live checkpoint")
     peel.add_argument("--batch_window_ms", type=float, default=0.0,
                       help="coalesce concurrent requests arriving "
                            "within this window into one device batch")
@@ -272,20 +275,23 @@ def main(argv=None) -> None:
         sys.argv[1:] if argv is None else argv)
 
     if server_opt.serve_artifact:
-        raise NotImplementedError(
-            "--serve_artifact needs export.py, which is not ported to "
-            "scat_tpu_torch yet (ROADMAP.md queue 1 item 16)")
-    opt = BaseOptions().parse(rest)
-    from scat_tpu_torch.serving import HandPosePredictor
-    predictor = HandPosePredictor.from_checkpoint(opt, device="cuda")
-    info = {"source": f"checkpoint:{opt.checkpoint_path_eval}",
-            "net": opt.net}
+        from scat_tpu_torch.export import load_artifact
+        predictor = load_artifact(server_opt.serve_artifact, device="cuda")
+        info = {"source": f"artifact:{server_opt.serve_artifact}",
+                "net": predictor.manifest["net"]}
+    else:
+        opt = BaseOptions().parse(rest)
+        from scat_tpu_torch.serving import HandPosePredictor
+        predictor = HandPosePredictor.from_checkpoint(opt, device="cuda")
+        info = {"source": f"checkpoint:{opt.checkpoint_path_eval}",
+                "net": opt.net}
 
     httpd = make_server(predictor, server_opt.server_host,
                         server_opt.server_port, info,
                         batch_window_ms=server_opt.batch_window_ms,
                         max_request_batch=server_opt.max_request_batch)
-    # run every bucket once before accepting traffic
+    # run every bucket once before accepting traffic (an artifact
+    # captures its CUDA graphs here)
     predictor.warmup()
     host, port = httpd.server_address[:2]
     print(f"serving on http://{host}:{port} "

@@ -16,8 +16,16 @@ Example:
 
 From whole frames: ``predict_from_frames(frames, joints_2d_hint)`` crops
 each hand about its rough 2D joints with one warp on the device, then
-predicts.  Not ported yet: ``mesh=`` data-parallel serving (ROADMAP.md
-queue 1 item 17).
+predicts.
+
+``serving_forward`` is the program that both serve: crops to camera,
+joints_3d and joints_2d; ``export.export_predictor`` records it with
+``torch.export``.  ``GraphRunner`` replays one CUDA graph per (bucket,
+request dtype) of such a program, the counterpart of the JAX package's
+one compiled program per bucket; ``export.ExportedPredictor`` serves
+through it.  This module imports the models only where a live
+predictor is built, so an artifact serves without them.  Not ported
+yet: ``mesh=`` data-parallel serving (ROADMAP.md queue 1 item 17).
 """
 
 from __future__ import annotations
@@ -33,10 +41,7 @@ from torch import nn
 from scat_tpu_torch.config import Options
 from scat_tpu_torch.data import preprocess
 from scat_tpu_torch.devices import resolve_device
-from scat_tpu_torch.models import build_model
-from scat_tpu_torch.models.factory import check_keypoint_head, compute_dtype
 from scat_tpu_torch.ops.geometry import batch_orth_proj_idrot, project_2d
-from scat_tpu_torch.training.steps import prediction
 from scat_tpu_torch.utils.checkpoint import load_weights
 
 
@@ -121,6 +126,90 @@ def run_bucketed(forward: Callable, x: np.ndarray, buckets, put: Callable,
             "joints_2d": np.concatenate(j2ds)[:n]}
 
 
+def serving_forward(model: nn.Module, images: torch.Tensor):
+    """The serving program: NHWC crops, uint8 [0,255] (normalised here,
+    ``/127.5 - 1``) or float32 [-1,1], -> (camera [B,3], joints_3d
+    [B,21,3], joints_2d [B,21,2]) of ``model`` in eval mode.  The
+    prediction is the first output of a tuple, as
+    ``training.steps.prediction`` reads it."""
+    if images.dtype == torch.uint8:
+        # uint8 requests normalise on the device: the host uploads 4x
+        # fewer bytes than float32 crops
+        images = images.float() / 127.5 - 1.0
+    outputs = model(images.permute(0, 3, 1, 2))
+    pred = outputs[0] if isinstance(outputs, tuple) else outputs
+    cam = pred[:, :3]
+    j3d = pred[:, 3:66].reshape(-1, 21, 3)
+    return cam, j3d, project_2d(batch_orth_proj_idrot(j3d, cam))
+
+
+class ServingForward(nn.Module):
+    """``serving_forward`` of ``model`` as a module, the form that
+    ``torch.export`` records."""
+
+    def __init__(self, model: nn.Module):
+        super().__init__()
+        self.model = model
+
+    def forward(self, images: torch.Tensor):
+        return serving_forward(self.model, images)
+
+
+class GraphRunner:
+    """Runs ``fn`` (CUDA tensor -> tuple of CUDA tensors) by replaying
+    one CUDA graph per input shape and dtype, each with a static input
+    buffer, captured on first use (or by ``capture``).  Before a capture
+    ``fn`` runs once eagerly on a side stream (library builds, cuDNN
+    and cuBLAS set-up happen there, not in the graph).  The graphs share
+    one memory pool: replays run in stream order, one at a time, so
+    their intermediates can share memory; each graph's static outputs
+    stay its own.
+
+    A call copies its input into the static buffer, replays, and
+    returns copies of the static outputs made on the device before the
+    call returns, so a later replay of the same graph cannot overwrite
+    what an earlier call handed out (``run_bucketed`` keeps several
+    chunks in flight).  A capture that fails raises.  Kernel launch
+    counters count the warm-up run and the capture, not replays."""
+
+    def __init__(self, fn: Callable, device: Union[str, torch.device]):
+        self._fn = fn
+        self.device = torch.device(device)
+        self._graphs: dict = {}
+        self._pool = None
+
+    @property
+    def keys(self) -> list:
+        """The (shape, dtype) of every captured graph."""
+        return list(self._graphs)
+
+    def capture(self, shape, dtype: torch.dtype):
+        """The graph for inputs of ``shape`` and ``dtype``, captured
+        now if it is not yet: (graph, static input, static outputs)."""
+        key = (tuple(shape), dtype)
+        if key not in self._graphs:
+            static = torch.zeros(key[0], dtype=dtype, device=self.device)
+            stream = torch.cuda.current_stream(self.device)
+            side = torch.cuda.Stream(self.device)
+            side.wait_stream(stream)
+            with torch.no_grad(), torch.cuda.stream(side):
+                self._fn(static)
+            stream.wait_stream(side)
+            if self._pool is None:
+                self._pool = torch.cuda.graph_pool_handle()
+            graph = torch.cuda.CUDAGraph()
+            with torch.no_grad(), torch.cuda.graph(graph, pool=self._pool):
+                outs = self._fn(static)
+            self._graphs[key] = (graph, static, tuple(outs))
+        return self._graphs[key]
+
+    def __call__(self, x: torch.Tensor) -> tuple:
+        graph, static, outs = self.capture(x.shape, x.dtype)
+        static.copy_(x)
+        graph.replay()
+        return tuple(o.clone() for o in outs)
+
+
 @dataclasses.dataclass
 class HandPosePredictor:
     model: nn.Module
@@ -138,6 +227,8 @@ class HandPosePredictor:
         ``.pth`` (loaded strictly: a ViP file must carry its frozen
         ``mains.{i}.w``), or an empty path for a fresh init seeded with
         ``opt.seed``."""
+        from scat_tpu_torch.models import build_model
+        from scat_tpu_torch.models.factory import compute_dtype
         device = resolve_device(device, "HandPosePredictor")
         model, _ = build_model(opt, image_size)
         load_weights(model, opt.checkpoint_path_eval, seed=opt.seed)
@@ -145,6 +236,7 @@ class HandPosePredictor:
         return cls(model=model, image_size=image_size, device=device)
 
     def __post_init__(self):
+        from scat_tpu_torch.models.factory import check_keypoint_head
         check_keypoint_head(self.model, "HandPosePredictor")
         self.device = torch.device(self.device)
         # NHWC crops permuted to NCHW are channels_last tensors; keeping
@@ -157,15 +249,7 @@ class HandPosePredictor:
 
     def _forward(self, images: torch.Tensor):
         with torch.inference_mode():
-            if images.dtype == torch.uint8:
-                # uint8 requests normalise on the device: the host
-                # uploads 4x fewer bytes than float32 crops
-                images = images.float() / 127.5 - 1.0
-            pred = prediction(self.model(images.permute(0, 3, 1, 2)))
-            cam = pred[:, :3]
-            j3d = pred[:, 3:66].reshape(-1, 21, 3)
-            j2d = project_2d(batch_orth_proj_idrot(j3d, cam))
-            return cam, j3d, j2d
+            return serving_forward(self.model, images)
 
     def _put(self, a: np.ndarray) -> torch.Tensor:
         # torch tensors are writable: copy a read-only request buffer

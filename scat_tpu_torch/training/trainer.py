@@ -21,10 +21,17 @@ the synthetic task (``--synthetic_data True``, the JAX
 package's ``data/synthetic.py``) or on the mix of ``--stage`` 1-6
 (``--synthetic_data False --data_dir <STB tree>``, the other datasets'
 trees beside it: FreiHAND, HO-3D, STB, MHP, RHD), whose loaders run
-behind ``data/prefetch.prefetch_to_device``.  Flags whose feature is not
-ported raise and name their ROADMAP.md item (``UNPORTED_FLAGS``); none is
-ignored.  ``--donate_state`` has nothing to do: the state is
-updated in place.
+behind ``data/prefetch.prefetch_to_device``.
+
+``--debug True`` (the default) saves sample 0's GT/pred grid every 100
+batches as ``debug_img/debug_gt_pred_{--debug_img}.png``
+(``viz/draw.debug_pred_gt``; skipped with a message where matplotlib
+is missing); ``--profile_trace_dir`` writes a ``torch.profiler`` Chrome
+trace of ``--profile_trace_steps`` steps from the 3rd
+(``utils/profiling.TraceWindow``); ``--tensorboard True`` mirrors the
+CSV as tensorboardX events.  Flags whose feature is not ported raise
+and name their ROADMAP.md item (``UNPORTED_FLAGS``); none is ignored.
+``--donate_state`` has nothing to do: the state is updated in place.
 """
 
 from __future__ import annotations
@@ -46,15 +53,13 @@ from scat_tpu_torch.training import schedule, steps
 from scat_tpu_torch.training.state import TrainState
 from scat_tpu_torch.utils import checkpoint as ckpt_lib
 from scat_tpu_torch.utils.logging import MetricsLogger
+from scat_tpu_torch.utils.profiling import TraceWindow
 
 # (flag, test on the options, ROADMAP.md queue 1 item that ports it)
 UNPORTED_FLAGS = (
-    ("--debug True (the debug grid of viz/)", lambda o: o.debug, 18),
     ("--param_sharding fsdp", lambda o: o.param_sharding == "fsdp", 17),
     ("a multi-device --mesh_shape",
      lambda o: any(size not in (1, -1) for _, size in mesh_axes(o)), 17),
-    ("--profile_trace_dir", lambda o: bool(o.profile_trace_dir), 18),
-    ("--tensorboard True", lambda o: o.tensorboard, 18),
 )
 
 
@@ -180,10 +185,32 @@ class Trainer:
     def model(self):
         return self.state.model
 
+    def _debug_visualize(self, batch, stats) -> None:
+        """The GT/pred grid of sample 0 (reference train.py:211-222): its
+        crop back to uint8, its GT joints sliced from the label row (105
+        wide, or 166 with the 61 MANO parameters first), the step's
+        sample-0 predictions, saved under ``--debug_img``."""
+        from scat_tpu_torch.viz import draw
+        print("==== Visualize ====")
+        image = draw.unnormalize_image(batch["image"][0].float().cpu().numpy())
+        label = batch["label"][0].float().cpu().numpy()
+        off = 0 if label.shape[0] == 105 else 61
+        gt_3d = label[off:off + 63].reshape(21, 3)
+        gt_2d = label[off + 63:off + 105].reshape(21, 2)
+        pred_3d = stats["pred0_3d"].float().cpu().numpy().reshape(21, 3)
+        pred_2d = stats["pred0_2d"].float().cpu().numpy().reshape(21, 2)
+        draw.debug_pred_gt(image, gt_2d, gt_3d, pred_2d, pred_3d,
+                           self.opt.debug_img)
+
     def train(self) -> None:
         opt = self.opt
         log_every = max(opt.log_every, 1)
-        logger = MetricsLogger(opt.checkpoint_folder)
+        logger = MetricsLogger(opt.checkpoint_folder,
+                               tensorboard=opt.tensorboard)
+        # --profile_trace_dir: one steady-state trace (the reference's
+        # t0..t6 wall clocks are taken and never reported,
+        # train.py:128-208)
+        trace = TraceWindow(opt.profile_trace_dir, opt.profile_trace_steps)
         global_step = self.state.step
         for epoch in range(self.epoches):
             # loss_pl accumulates over the whole epoch and prints raw, as
@@ -213,6 +240,12 @@ class Trainer:
                                             stats["loss_2d"]])
                     loss_pl += stats["loss_pl"]
                     window_steps += 1
+                    trace.step(global_step, stats["loss"])
+                if opt.debug and i % 100 == 0:
+                    # one grid a firing, of the tuple's last member (the
+                    # reference overwrites one PNG per member, so only
+                    # the last survives)
+                    self._debug_visualize(batch, stats)
                 if i % log_every == 0:
                     total, l3d, l2d = running.tolist()  # waits for the step
                     pl = float(loss_pl)
@@ -241,6 +274,7 @@ class Trainer:
             if epoch % opt.checkpoint_every_epochs == 0:
                 ckpt_lib.save_state(opt.checkpoint_folder, self.state)
         print("Finished Training")
+        trace.stop()
         logger.close()
         ckpt_lib.save_state(opt.checkpoint_folder, self.state,
                             ckpt_lib.FINAL_NAME)

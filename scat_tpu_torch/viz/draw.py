@@ -1,22 +1,30 @@
-"""Skeleton plots, feature-map tiles and the video export of the demo,
-and the coarse head's attention maps (the part of
-``scat_tpu/viz/draw.py:19-204,236-250`` that ``evaluation/demo.py`` and
-``evaluation/evaluator.py`` call).
+"""Skeleton plots, the trainer's debug grid, heatmap overlays,
+feature-map tiles, the coarse head's attention maps and the video export
+(the port's own copy of ``scat_tpu/viz/draw.py``).
 
 Reference data_utils/draw_3d_joints.py (``plot_2d_hand``, the
-per-finger bone colours of eval.py:62-67), the feature-map tiles of
-eval.py:519-536, the attention lines of eval.py:864-944 and
-``generate_video`` (eval.py:72-86).  matplotlib and cv2 are imported
-where they are used, so the module imports without them; the demo and
-the Evaluator skip their pictures where they are missing.
+per-finger bone colours of eval.py:62-67, the debug grid
+``debug_pred_gt`` :215-236, the heatmap overlay ``vis_heatmap``
+:242-286, ``fig2data``, ``draw_3d_skeleton`` :163-198,
+``debug_dataset`` :201-213), the feature-map tiles of eval.py:519-536,
+the attention lines of eval.py:864-944 and ``generate_video``
+(eval.py:72-86).  matplotlib and cv2 are imported where they are used,
+so the module imports without them: the figures of matplotlib
+(``debug_pred_gt``, ``draw_3d_skeleton``, ``debug_dataset``) are
+skipped with a message and return None where it is missing, and the
+demo and the Evaluator skip their pictures where cv2 is.
 """
 
 from __future__ import annotations
 
 import glob
 import os
+from typing import Optional
 
 import numpy as np
+import torch
+
+from scat_tpu_torch.ops.heatmap import heatmap_to_coords
 
 # per-finger joint colours (reference eval.py:62-67)
 color_hand_joints = [[1.0, 0.0, 0.0],
@@ -35,6 +43,21 @@ color_hand_joints = [[1.0, 0.0, 0.0],
 # eval.py:50-61)
 jointsMapSMPLXToSimple = [0, 13, 14, 15, 20, 1, 2, 3, 16, 4, 5, 6, 17,
                           10, 11, 12, 19, 7, 8, 9, 18]
+
+
+
+def _plt(what: str):
+    """matplotlib's pyplot on the Agg backend, or None (with a message
+    that ``what`` is skipped) where matplotlib is not installed."""
+    try:
+        import matplotlib
+        matplotlib.use("Agg")
+        import matplotlib.pyplot as plt
+    except ImportError as e:
+        print(f"matplotlib unavailable, skipping {what}: {e}")
+        return None
+    return plt
+
 
 BONES = [(0, 1), (1, 2), (2, 3), (3, 4),
          (0, 5), (5, 6), (6, 7), (7, 8),
@@ -94,6 +117,40 @@ def plot_3d_hand(ax, pose_cam_xyz):
 def unnormalize_image(img_float: np.ndarray) -> np.ndarray:
     """[-1, 1] -> uint8 (reference train.py:215)."""
     return np.clip(img_float * 127.5 + 127.5, 0, 255).astype(np.uint8)
+
+
+def debug_pred_gt(image, gt_joints_2d, gt_joints_3d, pred_joints_2d,
+                  pred_joints_3d, name, out_dir="debug_img"
+                  ) -> Optional[str]:
+    """The 2x2 GT/pred grid that the trainer saves every 100 steps as
+    ``{out_dir}/debug_gt_pred_{name}.png`` (reference
+    draw_3d_joints.py:215-236); None where matplotlib is missing."""
+    plt = _plt("the debug grid")
+    if plt is None:
+        return None
+    os.makedirs(out_dir, exist_ok=True)
+    fig = plt.figure()
+    ax1 = fig.add_subplot(221)
+    ax2 = fig.add_subplot(222)
+    ax3 = fig.add_subplot(223, projection="3d")
+    ax4 = fig.add_subplot(224, projection="3d")
+    if image is not None:
+        ax1.imshow(image)
+        ax2.imshow(image)
+    remap = jointsMapSMPLXToSimple
+    plot_2d_hand(ax1, gt_joints_2d[remap], order="uv")
+    ax1.set_xlabel("ground truth 2d joints", fontsize=10)
+    plot_2d_hand(ax2, pred_joints_2d[remap], order="uv")
+    ax2.set_xlabel("predict 2d joints", fontsize=10)
+    plot_3d_hand(ax3, gt_joints_3d[remap])
+    ax3.set_xlabel("ground truth 3d joints", fontsize=10)
+    plot_3d_hand(ax4, pred_joints_3d[remap])
+    ax4.set_xlabel("predict 3d joints", fontsize=10)
+    path = os.path.join(out_dir, f"debug_gt_pred_{name}.png")
+    print(f"saving debug image: debug_gt_pred_{name}.png ...")
+    fig.savefig(path)
+    plt.close("all")
+    return path
 
 
 def feature_map_tiles(feat_visual_nhwc: np.ndarray, out_size: int = 224
@@ -173,3 +230,80 @@ def generate_video(pth: str, out_pth: str, fps: int = 30):
         out.write(cv2.imread(f))
     out.release()
     return path
+
+
+def vis_heatmap(img_float: np.ndarray, heatmap: np.ndarray,
+                pred_ht: np.ndarray, out_path: str) -> np.ndarray:
+    """GT and predicted heatmaps [J,56,56] over a [-1, 1] 224x224 crop,
+    one row per joint, each with its coordinate (``heatmap_to_coords``)
+    as a dot, written to ``out_path`` (reference
+    draw_3d_joints.py:242-286)."""
+    import cv2
+    img = cv2.cvtColor(unnormalize_image(img_float), cv2.COLOR_RGB2BGR)
+    rows = []
+    for i in range(heatmap.shape[0]):
+        pair = []
+        for hm in (heatmap[i], pred_ht[i]):
+            coord = heatmap_to_coords(torch.as_tensor(hm)[None])[0].numpy()
+            h = np.maximum(hm, 0)
+            h = h / (h.max() if h.max() > 0 else 1.0)
+            h = cv2.applyColorMap(np.uint8(255 * h), cv2.COLORMAP_JET)
+            over = cv2.resize(h, (224, 224)) * 0.2 + img
+            cv2.circle(over, (int(coord[0]) * 4, int(coord[1]) * 4), 2,
+                       (0, 0, 0), thickness=-1)
+            pair.append(over)
+        rows.append(np.hstack(pair))
+    out = np.vstack(rows)
+    cv2.imwrite(out_path, out)
+    return out
+
+
+def fig2data(fig) -> np.ndarray:
+    """A matplotlib figure's pixels, HxWx4 RGBA uint8 (reference
+    draw_3d_joints.py ``fig2data``)."""
+    fig.canvas.draw()
+    w, h = fig.canvas.get_width_height()
+    buf = np.frombuffer(fig.canvas.buffer_rgba(), dtype=np.uint8)
+    return buf.reshape(h, w, 4).copy()
+
+
+def draw_3d_skeleton(pose_cam_xyz: np.ndarray, image_size=(224, 224)
+                     ) -> Optional[np.ndarray]:
+    """A 3D skeleton figure of ``image_size`` pixels, as RGBA (reference
+    draw_3d_joints.py:163-198); None where matplotlib is missing."""
+    plt = _plt("the 3D skeleton")
+    if plt is None:
+        return None
+    fig = plt.figure()
+    fig.set_size_inches(image_size[0] / fig.dpi, image_size[1] / fig.dpi,
+                        forward=True)
+    ax = fig.add_subplot(111, projection="3d")
+    plot_3d_hand(ax, pose_cam_xyz)
+    ax.view_init(elev=-85, azim=-75)
+    ret = fig2data(fig)
+    plt.close(fig)
+    return ret
+
+
+def debug_dataset(image, joints_2d, joints_3d, out_path="dataset_debug"
+                  ) -> Optional[str]:
+    """A loader's sample as three panels: the image, the image with its 2D
+    joints, the 3D joints (reference draw_3d_joints.py:201-213); None
+    where matplotlib is missing."""
+    plt = _plt("the dataset debug plot")
+    if plt is None:
+        return None
+    remap = jointsMapSMPLXToSimple
+    fig = plt.figure()
+    ax1 = fig.add_subplot(131)
+    ax2 = fig.add_subplot(132)
+    ax3 = fig.add_subplot(133, projection="3d")
+    ax1.imshow(image)
+    ax2.imshow(image)
+    plot_2d_hand(ax2, np.asarray(joints_2d)[remap], order="uv")
+    plot_3d_hand(ax3, np.asarray(joints_3d)[remap])
+    ax2.axis("off")
+    print("saving debug dataset image...")
+    fig.savefig(out_path)
+    plt.close(fig)
+    return out_path

@@ -1,6 +1,7 @@
-"""The port's CUDA kernels, and its loaders, stage-2 mix, Evaluator,
-demo, GroupNorm flagship, coarse head, 128-token heads, ViT, MANO decode
-and adversarial step, on the card (marker ``cuda``; skipped without a
+"""The port's CUDA kernels and their custom ops, and its loaders,
+stage-2 mix, Evaluator, demo, GroupNorm flagship, coarse head, 128-token
+heads, ViT, MANO decode, adversarial step and a served artifact's CUDA
+graphs, on the card (marker ``cuda``; skipped without a
 CUDA device).
 
 This file imports neither JAX nor the JAX package, so it also runs on a
@@ -652,3 +653,78 @@ def test_adversarial_step_on_card(cuda):
         assert torch.isfinite(v).all(), k
     assert any(not torch.equal(p, b)
                for p, b in zip(disc.parameters(), before))
+
+
+def _op_operands(name, device):
+    """Operands of one custom op at the serving paths' widths (float32):
+    attention [4, 8, 21, 64] as strided views, FAVOR+ [2, 4, 300, 128],
+    m 64, as the Performer block passes them."""
+    if name.startswith("attention"):
+        q, k, v = _qkv((4, 8, 21, 64), torch.float32, device)
+        do = torch.from_numpy(np.random.RandomState(5).randn(
+            4, 21, 8, 64).astype(np.float32)).to(device).permute(0, 2, 1, 3)
+        return (q, k, v, 0.125) if name == "attention_fwd" else \
+            (q, k, v, do, 0.125)
+    q, k, v, w = _favor_operands(2, 4, 300, 128, 64, torch.float32, device)
+    if name == "favor_stats":
+        return k, v, w
+    return (q, *favor.favor_stats(k, v, w), w)
+
+
+@pytest.mark.parametrize("name", ["attention_fwd", "attention_bwd",
+                                  "favor_stats", "favor_apply"])
+def test_custom_op_cuda_matches_its_cpu_implementation(cuda, name):
+    """torch.ops.scat_tpu_torch.<name> on CUDA tensors (the kernel)
+    against the same op on the tensors' CPU copies (the plain version),
+    in the same output layout, float32, TF32 off."""
+    op = getattr(torch.ops.scat_tpu_torch, name)
+    args = _op_operands(name, cuda)
+    got = op(*args)
+    want = op(*(a.cpu() if torch.is_tensor(a) else a for a in args))
+    got, want = (tuple(x) if isinstance(x, (tuple, list)) else (x,)
+                 for x in (got, want))
+    for g, w in zip(got, want):
+        assert g.is_cuda and g.shape == w.shape and g.stride() == w.stride()
+        if name.startswith("attention"):
+            torch.testing.assert_close(g.cpu(), w, atol=2e-5, rtol=0)
+        else:
+            torch.testing.assert_close(
+                g.cpu(), w, rtol=FAVOR_RTOL,
+                atol=FAVOR_ATOL * max(1.0, float(w.abs().max())))
+
+
+def test_graph_replay_matches_eager(cuda):
+    """A small flagship (resnet18, 64 px, float32) served from its
+    artifact through one CUDA graph per bucket equals the live predictor;
+    the attention op is captured (3 launches counted a capture, none a
+    replay); check_graph_consistency holds on the card."""
+    import tempfile
+
+    from scat_tpu_torch.export import ExportedPredictor, export_predictor
+    from scat_tpu_torch.serving import HandPosePredictor, serving_forward
+    from scat_tpu_torch.utils.debugging import check_graph_consistency
+
+    model = EncoderTransformer(torch.from_numpy(assets.load_mean_params()),
+                               iteration=1, heads=2, token_dim=64,
+                               backbone="resnet18", use_kernel=True)
+    checkpoint.init_weights(model, seed=0)
+    live = HandPosePredictor(model=model, image_size=64, max_batch=8,
+                             device=cuda)
+    x = np.random.RandomState(6).randint(0, 256, (13, 64, 64, 3)).astype(
+        np.uint8)
+    with tempfile.TemporaryDirectory() as path:
+        export_predictor(live, path)
+        art = ExportedPredictor(path)
+        before = flash_attention.launches
+        got = art.predict(x)
+        # 13 crops are two chunks of bucket 8: one graph (bucket 8,
+        # uint8), its eager warm-up run and its capture counted
+        assert flash_attention.launches == before + 6
+        again = art.predict(x)
+        assert flash_attention.launches == before + 6
+    want = live.predict(x)
+    for k in want:
+        np.testing.assert_array_equal(got[k], again[k])
+        np.testing.assert_allclose(got[k], want[k], atol=1e-5, rtol=0)
+    images = torch.from_numpy(x[:8]).to(cuda)
+    check_graph_consistency(lambda t: serving_forward(live.model, t), images)

@@ -199,8 +199,7 @@ def test_injected_dataset_refuses_a_name(tmp_path, state_dict, batches,
 
 
 @pytest.mark.parametrize("flags,item", [
-    pytest.param(dict(mesh_shape="data:4"), 17, id="flags1-17"),
-    pytest.param(dict(tensorboard=True), 18, id="flags2-18")])
+    pytest.param(dict(mesh_shape="data:4"), 17, id="flags1-17")])
 def test_unported_flags_name_their_item(tmp_path, flags, item):
     with pytest.raises(NotImplementedError, match=f"item {item}"):
         evaluator.Evaluator(_opt(tmp_path, **flags), device="cpu")

@@ -76,14 +76,17 @@ def test_no_try_around_kernel_launch(path):
 
 
 # the port's command-line entry points, ``python -m scat_tpu_torch.<name>``
-ENTRY_POINTS = ("train", "train_coarse", "eval", "demo", "server", "test")
-# the modules of the ViT, MANO and temporal slice, each under the checks
-# above
+ENTRY_POINTS = ("train", "train_coarse", "eval", "demo", "server", "test",
+                "export")
+# the modules of the ViT, MANO and temporal slice, and of the serving
+# artifact and the training utilities, each under the checks above
 SLICE_MODULES = ("assets.py", "models/mano.py", "models/vit.py",
                  "models/helpers.py", "models/discriminator.py",
                  "models/vibe_loss.py", "training/adversarial.py",
                  "training/video_trainer.py", "evaluation/tester.py",
-                 "utils/smplx_glue.py", "test.py")
+                 "utils/smplx_glue.py", "test.py", "export.py",
+                 "utils/profiling.py", "utils/debugging.py",
+                 "viz/render.py", "models/config_test.py")
 
 
 @pytest.mark.parametrize("rel", SLICE_MODULES)

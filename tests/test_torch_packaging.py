@@ -101,12 +101,15 @@ def test_port_scripts_are_named():
     assert set(_port_scripts()) == {
         "scat-tpu-torch-serve", "scat-tpu-torch-train",
         "scat-tpu-torch-train-coarse", "scat-tpu-torch-eval",
-        "scat-tpu-torch-demo", "scat-tpu-torch-test"}
+        "scat-tpu-torch-demo", "scat-tpu-torch-test",
+        "scat-tpu-torch-export"}
     assert _port_scripts()["scat-tpu-torch-demo"] == "scat_tpu_torch.demo:main"
     assert _port_scripts()["scat-tpu-torch-train-coarse"] == \
         "scat_tpu_torch.train_coarse:main"
     assert _port_scripts()["scat-tpu-torch-test"] == \
         "scat_tpu_torch.test:main"
+    assert _port_scripts()["scat-tpu-torch-export"] == \
+        "scat_tpu_torch.export:main"
 
 
 @pytest.mark.parametrize("script", sorted(_port_scripts()))

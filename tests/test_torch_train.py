@@ -502,9 +502,8 @@ def test_trainer_needs_cuda_by_default(tmp_path, monkeypatch):
 
 
 @pytest.mark.parametrize("flags,item", [
-    (dict(debug=True), 18),
-    (dict(param_sharding="fsdp"), 17), (dict(mesh_shape="data:4"), 17),
-    (dict(profile_trace_dir="/x"), 18), (dict(tensorboard=True), 18)])
+    pytest.param(dict(param_sharding="fsdp"), 17, id="flags1-17"),
+    pytest.param(dict(mesh_shape="data:4"), 17, id="flags2-17")])
 def test_unported_flags_name_their_item(tmp_path, flags, item):
     with pytest.raises(NotImplementedError, match=f"item {item}"):
         Trainer(_train_opt(tmp_path, **flags), device="cpu", image_size=32)
