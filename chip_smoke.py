@@ -209,7 +209,29 @@ Phases, in order; any failure raises and exits non-zero:
   18. vip-eval  the Evaluator on vip-train's hand_net_final.pth
               (synthetic batches): 3 + 3 FAVOR+ launches a batch and the
               file's frozen mains.{i}.w;
-  19. the card line, the kernels line, and the final
+  19. parallel  parallel/ in an NCCL group of one process: the Trainer at
+              the canonical run's widths (bs 96, bf16) under data:1 (DDP,
+              BatchNorm over the group), --param_sharding fsdp (FSDP2) and
+              data:1,model:1 (the Megatron split of the transformer's
+              pairs), 3 steps each on the plain trainer's weights and
+              batches: 3 + 3 attention launches a step, each loss within
+              2% of the plain trainer's; --net ViP at full width through
+              pipeline_apply at pipe:1, one step of 2 microbatches of 16
+              (3 + 3 FAVOR+ launches a microbatch; loss and gradient norm
+              within 2% of the blocks in sequence); the Evaluator at
+              data:1 and a mesh= predictor over the card, the numbers of
+              the same without a mesh;
+  20. files    validate_data --n 4 on the card on written STB, FreiHAND,
+              HO-3D and MHP trees of 8 samples (RHD's written K is the
+              identity: its report is the rhd-projection error);
+              convert --direction to_pth of train's hand_net_final.pth
+              (every tensor equal) and flax_from_state_dict and back; a
+              --vit_heads 4 .pth loaded into the flagship with the JAX
+              package's WARNING line and served (3 launches), a bare
+              torchvision ResNet .pth refused as an architecture
+              mismatch; the export phase's flagship artifact: one
+              weights.npz, its size and load time, 0.0 from live serving;
+  21. the card line, the kernels line, and the final
      {"ok": true, "device": ...} line.
 
 TF32 is off for the whole run (torch.backends.cuda.matmul.allow_tf32 and
@@ -1044,7 +1066,7 @@ def train_rate(tag, state, step, batches):
     return {"rate": rate, "p50": p50, "idle": idle, "busy": busy / 3}
 
 
-def write_stb_tree(root, rng):
+def write_stb_tree(root, rng, frames=None):
     """An STB tree under ``root`` as the loader reads it (no STB file is
     in the repository): the two training and the two evaluation
     sequences of STB_FRAMES 640x480 frames, smooth images (as
@@ -1052,16 +1074,17 @@ def write_stb_tree(root, rng):
     label pickles {"handPara": [3,21,N]} of hands 500-600 mm in front of
     the camera, in mm."""
     from PIL import Image
+    frames = frames or STB_FRAMES
     y, x = np.mgrid[0:stb.FRAME_H, 0:stb.FRAME_W]
     os.makedirs(os.path.join(root, "labels"))
     for s, seq in enumerate(STB_TRAIN_SEQS + STB_EVAL_SEQS):
         os.makedirs(os.path.join(root, seq))
-        hand = (rng.rand(3, 21, STB_FRAMES) * 100
+        hand = (rng.rand(3, 21, frames) * 100
                 + np.array([0.0, 0.0, 500.0])[:, None, None])
         with open(os.path.join(root, "labels", f"{seq}_SK.pkl"), "wb") as f:
             pickle.dump({"handPara": hand}, f)
-        for i in range(STB_FRAMES):
-            k = s * STB_FRAMES + i
+        for i in range(frames):
+            k = s * frames + i
             img = np.stack([(x * 3 + k) % 256, (y * 5 + 7 * k) % 256,
                             (x + y + 3 * k) % 256], -1).astype(np.uint8)
             Image.fromarray(img).save(
@@ -1266,11 +1289,10 @@ def frame(h, w, k):
                      (x + y + 3 * k) % 256], -1).astype(np.uint8)
 
 
-def write_frei_tree(root, rng):
+def write_frei_tree(root, rng, n=DATASET_SAMPLES):
     """FreiHAND beside the STB tree: 224x224 JPEG frames and
     training_{K,xyz,mano}.json, hands 0.5 m from the camera."""
     from PIL import Image
-    n = DATASET_SAMPLES
     rgb = os.path.join(root, "FreiHAND", "training", "rgb")
     os.makedirs(rgb)
     labels = {"K": np.tile([[480.0, 0, 112], [0, 480.0, 112], [0, 0, 1]],
@@ -1286,7 +1308,7 @@ def write_frei_tree(root, rng):
             os.path.join(rgb, f"{i:08d}.jpg"))
 
 
-def write_ho3d_tree(root, rng):
+def write_ho3d_tree(root, rng, n=DATASET_SAMPLES):
     """HO-3D beside the STB tree: train/{seq}/rgb 640x480 PNG frames and
     meta pickles (MANO-order joints in OpenGL camera coordinates, 0.55 m
     away), two sequences."""
@@ -1296,7 +1318,7 @@ def write_ho3d_tree(root, rng):
         meta = os.path.join(root, "HO3D", "train", seq, "meta")
         os.makedirs(rgb)
         os.makedirs(meta)
-        for i in range(DATASET_SAMPLES // 2):
+        for i in range(n // 2):
             with open(os.path.join(meta, f"{i:04d}.pkl"), "wb") as f:
                 pickle.dump({"handJoints3D": rng.uniform(-0.06, 0.06, (21, 3))
                              + [0, 0, -0.55],
@@ -1307,7 +1329,7 @@ def write_ho3d_tree(root, rng):
                 os.path.join(rgb, f"{i:04d}.png"), compress_level=1)
 
 
-def write_mhp_tree(root, rng):
+def write_mhp_tree(root, rng, n=DATASET_SAMPLES):
     """MHP beside the STB tree: annotated_frames/data_15 of webcam 1,
     640x480 JPEG frames with world joints (mm) 0.6 m from the camera,
     and its rvec/tvec (the rig's DEFAULT_K)."""
@@ -1320,7 +1342,7 @@ def write_mhp_tree(root, rng):
                         ("tvec", np.array([0.0, 0.0, 50.0]))):
         with open(os.path.join(calib, f"{name}.pkl"), "wb") as f:
             pickle.dump(value.astype(np.float32), f)
-    for i in range(DATASET_SAMPLES):
+    for i in range(n):
         Image.fromarray(frame(480, 640, i)).save(
             os.path.join(frames, f"{i}_webcam_1.jpg"))
         joints = rng.randn(21, 3) * 30.0 + [0, 0, 600.0]
@@ -1329,7 +1351,7 @@ def write_mhp_tree(root, rng):
                          for j, (x, y, z) in enumerate(joints))
 
 
-def write_rhd_tree(root, rng):
+def write_rhd_tree(root, rng, n=DATASET_SAMPLES):
     """RHD beside the STB tree: training/color 320x320 PNG frames whose
     two hands are both visible (the left one mirrored by the loader), so
     DATASET_SAMPLES samples, and anno_training.pickle."""
@@ -1337,7 +1359,7 @@ def write_rhd_tree(root, rng):
     color = os.path.join(root, "RHD", "training", "color")
     os.makedirs(color)
     anno = {}
-    for i in range(DATASET_SAMPLES // 2):
+    for i in range(n // 2):
         Image.fromarray(frame(320, 320, i)).save(
             os.path.join(color, f"{i:05d}.png"), compress_level=1)
         uv = rng.uniform(80, 240, (42, 2))
@@ -3240,10 +3262,352 @@ def phase_export(rng):
                  VIP_WINDOW_CROPS, {"favor_stats": 3, "favor_apply": 3})
 
 
+def free_port() -> int:
+    import socket
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+# a train step's loss after the first: Adam's first update is lr *
+# sign(g), and a near-zero gradient whose bf16 round-off differs flips
+# its weight's step, so later losses drift (1.6% at step 2 under DDP on an
+# H100 80GB HBM3 at 700 W); the first step, on the same weights, is held
+# at 1e-3
+LATER_STEP_REL = 5e-2
+
+
+def grad_norm(model) -> float:
+    """The global gradient norm of ``model``, FSDP's shards gathered."""
+    total = 0.0
+    for p in model.parameters():
+        if p.grad is not None:
+            g = p.grad.full_tensor() if hasattr(p.grad, "full_tensor") \
+                else p.grad
+            total += float(g.float().square().sum())
+    return total ** 0.5
+
+
+def train_losses(trainer, batches, shard=lambda b: b):
+    """(losses, the first step's gradient norm, the mean ms of the steps
+    after the first, each synchronised) of train steps on ``batches``."""
+    losses, norm, ms = [], None, []
+    for b in batches:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        losses.append(float(trainer.train_step(trainer.state,
+                                               shard(b))["loss"]))
+        ms.append((time.perf_counter() - t0) * 1e3)
+        if norm is None:
+            norm = grad_norm(trainer.state.model)
+    return losses, norm, float(np.mean(ms[1:]))
+
+
+def mesh_steps(tag, opt, batches, want):
+    """3 train steps of the Trainer of ``opt`` on ``batches`` (this rank's
+    rows of each, the whole batch at world 1): 3 + 3 attention launches
+    a step; the first step's loss within 1e-3 and its gradient norm
+    within BF16_REL of the plain trainer's on the same weights, the later
+    losses within LATER_STEP_REL."""
+    from scat_tpu_torch.parallel.mesh import shard_batch
+    trainer = Trainer(opt, image_size=IMAGE)
+    assert trainer.mesh is not None and trainer.state.mesh is not None
+    reset_counts()
+    got, norm, ms = train_losses(trainer, batches,
+                                 lambda b: shard_batch(trainer.mesh, b))
+    fwd, bwd = flash_attention.launches, attention_bwd.launches
+    want_losses, want_norm, want_ms = want
+    gaps = [abs(g - w) / abs(w) for g, w in zip(got, want_losses)]
+    norm_gap = abs(norm - want_norm) / want_norm
+    print(f"[parallel] {tag}: {ms:.1f} ms a step after the first (the "
+          f"plain trainer's {want_ms:.1f}, x{ms / want_ms:.2f}); "
+          f"losses {[round(x, 3) for x in got]} against the plain "
+          f"trainer's {[round(x, 3) for x in want_losses]} (relative gaps "
+          f"{', '.join(f'{g:.2e}' for g in gaps)}); first step's gradient "
+          f"norm {norm:.4f} against {want_norm:.4f} ({norm_gap:.2e}); "
+          f"attention_fwd launches {fwd}, attention_bwd {bwd}")
+    assert fwd == bwd == 3 * len(batches), (fwd, bwd)
+    assert gaps[0] <= 1e-3 and norm_gap <= BF16_REL, (gaps, norm_gap)
+    assert max(gaps[1:]) <= LATER_STEP_REL, gaps
+    FWD.result["launches"] += fwd
+    BWD.result["launches"] += bwd
+    step_profile(f"parallel {tag}", trainer,
+                 lambda: shard_batch(trainer.mesh, batches[0]))
+
+
+def step_profile(tag, trainer, batch_fn):
+    """One more train step under torch.profiler: the device's busy and
+    idle share, and the host's side: the collectives issued and the
+    host operations that take the most self time."""
+    counts = {}
+
+    def host(events):
+        top = sorted((e for e in events
+                      if e.device_type == torch.autograd.DeviceType.CPU),
+                     key=lambda e: -e.self_cpu_time_total)[:6]
+        counts["collectives"] = sum(
+            e.count for e in events
+            if e.device_type == torch.autograd.DeviceType.CPU
+            and e.key.startswith(("c10d::", "nccl:")))
+        counts["top"] = [(e.key[:40], e.count,
+                          round(e.self_cpu_time_total / 1e3, 3))
+                         for e in top]
+
+    def step():
+        trainer.train_step(trainer.state, batch_fn())
+        torch.cuda.synchronize()
+
+    step()
+    device_profile(tag, step, "one train step", host)
+    print(f"[{tag}] host: {counts['collectives']} collective calls; top "
+          f"self-time host ops (name, calls, ms) {counts['top']}")
+
+
+def vip_loss(model, x, mesh=None, microbatches=2):
+    """The surrogate pred.float().square().mean() of ViP on ``x``, its
+    blocks run in sequence or through pipeline_apply over ``mesh``."""
+    from scat_tpu_torch.parallel import pipeline
+    with model._autocast("cuda"):
+        tok = model.embed(x)
+        if mesh is None:
+            for block in model.mains:
+                tok = block(tok)
+        else:
+            tok = pipeline.pipeline_apply(lambda blk, t: blk(t), model.mains,
+                                          tok, mesh, microbatches)
+    return model.readout(tok)[0].float().square().mean()
+
+
+def vip_pipeline_step(rng, mesh):
+    """ViP at full width through pipeline_apply at pipe:1 for one step
+    (2 microbatches of 16): 3 + 3 FAVOR+ launches a microbatch, the loss
+    and the gradient norm within BF16_REL of the blocks in sequence."""
+    model, _ = build_model(VIP, IMAGE)
+    checkpoint.init_weights(model, seed=0)
+    model = model.cuda().train().set_compute_dtype(torch.bfloat16)
+    x = torch.from_numpy(rng.uniform(-1, 1, (32, 3, IMAGE, IMAGE)).astype(
+        np.float32)).cuda()
+    out = {}
+    for name, m in (("sequence", None), ("pipeline", mesh)):
+        model.zero_grad(set_to_none=True)
+        reset_counts()
+        t0 = time.perf_counter()
+        loss = vip_loss(model, x, m)
+        loss.backward()
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        norm = float(torch.sqrt(sum(p.grad.float().square().sum()
+                                    for p in model.parameters()
+                                    if p.grad is not None)))
+        out[name] = (float(loss), norm, favor_stats.launches,
+                     favor_apply.launches)
+        print(f"[parallel] ViP {name} (pipe:1, 2 microbatches of 16): "
+              f"loss {float(loss):.6f}, gradient norm {norm:.4f}, "
+              f"favor_stats launches {favor_stats.launches}, favor_apply "
+              f"{favor_apply.launches}, {dt * 1e3:.1f} ms")
+    (la, na, _, _), (lb, nb, st, ap) = out["sequence"], out["pipeline"]
+    assert st == ap == 3 * 2, (st, ap)
+    assert abs(lb - la) <= BF16_REL * abs(la) and \
+        abs(nb - na) <= BF16_REL * na, out
+    STATS.result["launches"] += st
+    APPLY.result["launches"] += ap
+    torch.optim.Adam(model.parameters(), lr=5e-4).step()
+
+
+def phase_parallel(rng):
+    """parallel/ on one card: an NCCL group of one process.  The flagship
+    at full width (bs 96, bf16) under data:1 (DDP and BatchNorm over the
+    group), --param_sharding fsdp and model:1 (the Megatron split), 3
+    steps each against the plain trainer's steps on the same weights and
+    batches; ViP through pipeline_apply at pipe:1; the Evaluator and a
+    mesh= predictor at data:1 against the same without a mesh."""
+    import torch.distributed as dist
+    from scat_tpu_torch.parallel import mesh as mesh_lib
+    card = card_line()
+    opt = dataclasses.replace(
+        TRAIN, epoch=1, steps_per_epoch=3,
+        checkpoint_folder=os.path.join("build", "chip_smoke_parallel"))
+    plain = Trainer(opt, image_size=IMAGE)
+    assert plain.mesh is None
+    batches = list(plain.train_loader)
+    want = train_losses(plain, batches)
+    step_profile("parallel plain trainer", plain, lambda: batches[0])
+    # FSDP2 shards contiguous parameters: its reference holds the
+    # convolution weights in NCHW storage too (cuDNN's bf16 algorithms
+    # differ by layout, by 3.8% of the first step's gradient norm on an
+    # H100 80GB HBM3 at 700 W)
+    plain = Trainer(opt, image_size=IMAGE)
+    with torch.no_grad():
+        for p in plain.state.model.parameters():
+            p.data = p.data.contiguous()
+    want_nchw = train_losses(plain, batches)
+    del plain
+    ev_opt = dataclasses.replace(
+        opt, steps_per_epoch=2,
+        result_dir=os.path.join("build", "chip_smoke_parallel_eval"))
+    ev_want = Evaluator(ev_opt, image_size=IMAGE).eval()
+    crops = rng.randint(0, 256, (70, IMAGE, IMAGE, 3)).astype(np.uint8)
+    live = HandPosePredictor.from_checkpoint(FLAGSHIP, image_size=IMAGE)
+    pred_want = live.predict(crops)
+    del live
+    torch.cuda.empty_cache()
+
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:"
+                            f"{free_port()}", rank=0, world_size=1)
+    try:
+        for tag, kw, ref in (
+                ("data:1 (DDP)", dict(mesh_shape="data:1"), want),
+                ("data:1 --param_sharding fsdp (NCHW weights on both "
+                 "sides)", dict(mesh_shape="data:1", param_sharding="fsdp"),
+                 want_nchw),
+                ("data:1,model:1 (Megatron)",
+                 dict(mesh_shape="data:1,model:1"), want)):
+            mesh_steps(tag, dataclasses.replace(opt, **kw), batches, ref)
+            torch.cuda.empty_cache()
+        vip_pipeline_step(rng, mesh_lib.make_mesh((("pipe", 1),)))
+        torch.cuda.empty_cache()
+        reset_counts()
+        ev = Evaluator(dataclasses.replace(ev_opt, mesh_shape="data:1"),
+                       image_size=IMAGE)
+        assert ev.mesh is not None
+        got = ev.eval()
+        fwd = flash_attention.launches
+        print(f"[parallel] Evaluator at data:1: MPJPE {got['mpjpe_mm']:.4f} "
+              f"mm, AUC {got['auc']:.5f} (without a mesh "
+              f"{ev_want['mpjpe_mm']:.4f}, {ev_want['auc']:.5f}); "
+              f"attention_fwd launches {fwd}")
+        assert fwd == 3 * 2, fwd
+        FWD.result["launches"] += fwd
+        assert got["mpjpe_mm"] == ev_want["mpjpe_mm"] and \
+            np.array_equal(got["pck"], ev_want["pck"]), (got, ev_want)
+    finally:
+        mesh_lib.release_mesh()
+        dist.destroy_process_group()
+    mesh = mesh_lib.make_mesh((("data", 1),), devices=["cuda"])
+    pred = HandPosePredictor.from_checkpoint(FLAGSHIP, image_size=IMAGE,
+                                             mesh=mesh)
+    reset_counts()
+    got = pred.predict(crops)
+    fwd = flash_attention.launches
+    gap = max(float(np.abs(got[k] - pred_want[k]).max()) for k in got)
+    print(f"[parallel] mesh= predictor at data:1, 70 crops: largest "
+          f"difference from the predictor without a mesh {gap}; "
+          f"attention_fwd launches {fwd} ({card})")
+    assert gap == 0.0 and fwd == 3 * n_chunks(70, pred._buckets[-1]), fwd
+    FWD.result["launches"] += fwd
+
+
+def capture_stdout(fn, *args):
+    """(fn(*args), what it printed), the output echoed."""
+    import io
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        out = fn(*args)
+    print(buf.getvalue(), end="")
+    return out, buf.getvalue()
+
+
+def phase_files(rng):
+    """The file tools on the card: validate_data --n 4 on written trees,
+    convert's round trips, a partial .pth served with the JAX package's
+    warning, and the export phase's artifact: one weights file, its
+    size and load time, and no difference from live serving."""
+    from scat_tpu_torch import convert, validate_data
+    from scat_tpu_torch.utils import weights
+    card = card_line()
+    os.makedirs("build", exist_ok=True)
+    with tempfile.TemporaryDirectory(prefix="files_", dir="build") as root:
+        write_stb_tree(os.path.join(root, "STB"), rng, frames=8)
+        for writer in (write_frei_tree, write_ho3d_tree, write_mhp_tree,
+                       write_rhd_tree):
+            writer(root, rng, n=8)
+        for sub in ("STB", "FreiHAND", "HO3D", "MHP"):
+            t0 = time.perf_counter()
+            rc, text = capture_stdout(validate_data.main, [
+                "--data_dir", os.path.join(root, sub), "--n", "4", "--out",
+                os.path.join(root, "crops")])
+            print(f"[files] validate_data {sub} --n 4 on the card: rc {rc} "
+                  f"in {time.perf_counter() - t0:.1f} s")
+            assert rc == 0 and "wrote 4 debug crops" in text, text
+        report = validate_data.validate_rhd(os.path.join(root, "RHD"))
+        print(f"[files] validate_data RHD: {report.codes()} (the written "
+              "tree's K is the identity, its uv_vis drawn apart)")
+        assert report.codes("error") == ["rhd-projection"], report.codes()
+
+    path = os.path.join(TRAIN.checkpoint_folder, checkpoint.FINAL_NAME)
+    bare = os.path.join("build", "chip_smoke_files", "bare.pth")
+    t0 = time.perf_counter()
+    n = convert.to_pth(dataclasses.replace(TRAIN, checkpoint_path_eval=path),
+                       bare)
+    trained = torch.load(path, map_location="cpu",
+                         weights_only=True)["state_dict"]
+    sd = torch.load(bare, weights_only=True)
+    assert n == len(sd) == len(trained) and all(
+        torch.equal(sd[k], trained[k]) for k in trained)
+    trees = weights.flax_from_state_dict("reg_transformer", sd)
+    back = weights.state_dict_from_flax(trees["params"], trees["batch_stats"])
+    assert all(torch.equal(back[k], sd[k]) for k in sd
+               if not k.endswith("num_batches_tracked")), "flax round trip"
+    print(f"[files] convert --direction to_pth of {path}: {n} tensors, "
+          "equal to the trained ones; flax_from_state_dict and back: "
+          f"equal ({time.perf_counter() - t0:.1f} s)")
+
+    donor, _ = build_model(dataclasses.replace(FLAGSHIP, vit_heads=4), IMAGE)
+    checkpoint.init_weights(donor, seed=4)
+    partial = os.path.join("build", "chip_smoke_files", "heads4.pth")
+    torch.save(donor.state_dict(), partial)
+    pred, text = capture_stdout(
+        HandPosePredictor.from_checkpoint,
+        dataclasses.replace(FLAGSHIP, checkpoint_path_eval=partial), IMAGE)
+    assert "WARNING: only " in text, text
+    crops = rng.randint(0, 256, (7, IMAGE, IMAGE, 3)).astype(np.uint8)
+    reset_counts()
+    out = pred.predict(crops)
+    check_output(out, 7)
+    assert flash_attention.launches == 3, flash_attention.launches
+    FWD.result["launches"] += flash_attention.launches
+    print("[files] the partial .pth (a --vit_heads 4 file) served on the "
+          "card: finite outputs, 3 attention_fwd launches")
+    bad = os.path.join("build", "chip_smoke_files", "resnet.pth")
+    torch.save({k[len("main_encoder."):]: v for k, v in
+                donor.state_dict().items() if k.startswith("main_encoder.")},
+               bad)
+    try:
+        HandPosePredictor.from_checkpoint(
+            dataclasses.replace(FLAGSHIP, checkpoint_path_eval=bad), IMAGE)
+        raise AssertionError("a bare ResNet file loaded into the flagship")
+    except ValueError as e:
+        assert "architecture mismatch" in str(e), e
+    print("[files] a bare torchvision ResNet .pth raises the architecture "
+          "mismatch, as the JAX package's loader does")
+    del pred, donor
+
+    path = os.path.join(EXPORT_ROOT, "flagship")
+    files = {f: os.path.getsize(os.path.join(path, f))
+             for f in sorted(os.listdir(path))}
+    assert [f for f in files if not f.endswith(".pt2")] == [
+        "manifest.json", "weights.npz"], files
+    t0 = time.perf_counter()
+    art = ExportedPredictor(path)
+    load_s = time.perf_counter() - t0
+    live = HandPosePredictor.from_checkpoint(FLAGSHIP, image_size=IMAGE)
+    gaps = []
+    for n_crops in (7, 64):
+        x = rng.randint(0, 256, (n_crops, IMAGE, IMAGE, 3)).astype(np.uint8)
+        got, want = art.predict(x), live.predict(x)
+        gaps += [float(np.abs(got[k] - want[k]).max()) for k in want]
+    print(f"[files] the flagship artifact: {sum(files.values()) / 1e6:.1f} "
+          f"MB, weights.npz {files['weights.npz'] / 1e6:.1f} MB, loaded in "
+          f"{load_s:.2f} s; largest difference from live serving on 7 and "
+          f"64 crops {max(gaps)} ({card})")
+    assert max(gaps) == 0.0, gaps
+
+
 # a phase's inputs come from the phase named here, which a partial run
 # adds
-NEEDS = {"profile": "slice", "serve": "slice", "stb": "train",
-         "group-norm": "train", "vip-eval": "vip-train"}
+NEEDS = {"profile": ("slice",), "serve": ("slice",), "stb": ("train",),
+         "group-norm": ("train",), "vip-eval": ("vip-train",),
+         "files": ("train", "export")}
 
 
 def main(argv):
@@ -3274,14 +3638,16 @@ def main(argv):
         ("favor", phase_favor_kernels),
         ("vip-serve", lambda: phase_vip_serve(rng)),
         ("vip-train", lambda: state.update(vip=phase_vip_train(rng))),
-        ("vip-eval", lambda: phase_vip_eval(*state["vip"]))]
+        ("vip-eval", lambda: phase_vip_eval(*state["vip"])),
+        ("parallel", lambda: phase_parallel(rng)),
+        ("files", lambda: phase_files(rng))]
     names = [name for name, _ in phases]
     chosen = set(argv) or set(names)
     unknown = chosen - set(names)
     if unknown:
         sys.exit(f"chip_smoke.py: unknown phase(s) {sorted(unknown)}; the "
                  f"phases are {', '.join(names)}")
-    chosen |= {"build"} | {NEEDS[n] for n in chosen if n in NEEDS}
+    chosen |= {"build"} | {need for n in chosen for need in NEEDS.get(n, ())}
     for k in KERNELS:
         k.result["launches"] = 0
     for name, fn in phases:

@@ -8,9 +8,10 @@ for Hopper (``csrc/``, built at first use by ``kernels/build.py``).
 The layout mirrors ``scat_tpu`` module for module, so the counterpart of
 a JAX module is found by path.  Weights use the reference SCAT torch key
 layout (``main_encoder.layer1.0.conv1.weight``,
-``transformer.layers.{i}.0.fn.fn.to_qkv.weight``), so reference ``.pth``
-files and ``utils.weights.state_dict_from_flax`` output both load with
-``load_state_dict(strict=True)``.
+``transformer.layers.{i}.0.fn.fn.to_qkv.weight``), so
+``utils.weights.state_dict_from_flax`` output loads with
+``load_state_dict(strict=True)`` and a reference ``.pth`` loads as the
+JAX package loads it (``utils.checkpoint.load_pth``).
 
 The package imports nothing of ``jax``, ``flax`` or ``scat_tpu``; it
 keeps its own copies of the framework-free modules it needs.  Importing

@@ -38,8 +38,16 @@ def load_rgb(path: str) -> np.ndarray:
 
 def _process_topology() -> Tuple[int, int]:
     """(process index, process count): (0, 1) unless torch.distributed
-    is initialised."""
+    is initialised.  Under the port's mesh (``parallel/mesh.make_mesh``)
+    they are the ``data`` coordinate and size, so that each data rank
+    reads and decodes only its share, and the ranks of one data
+    coordinate (``model``, ``seq`` and ``pipe`` peers) the same rows."""
     import torch.distributed as dist
+
+    from scat_tpu_torch.parallel.mesh import DATA_AXIS, active_mesh
+    mesh = active_mesh()
+    if mesh is not None:
+        return mesh.coord(DATA_AXIS), mesh.size(DATA_AXIS)
     if dist.is_available() and dist.is_initialized():
         return dist.get_rank(), dist.get_world_size()
     return 0, 1

@@ -56,10 +56,12 @@ class PrefetchIterator:
     are)."""
 
     def __init__(self, iterable: Iterable, depth: int = 2,
-                 device: Optional[torch.device] = None):
+                 device: Optional[torch.device] = None,
+                 shard: Optional[Callable] = None):
         self._iterable = iterable
         self._depth = max(depth, 1)
         self._device = None if device is None else torch.device(device)
+        self._shard = shard
 
     def __len__(self) -> int:
         return len(self._iterable)
@@ -95,6 +97,8 @@ class PrefetchIterator:
                         if device is not None:
                             batch = map_batch(
                                 batch, lambda t: to_device(t, device))
+                        if self._shard is not None:
+                            batch = self._shard(batch)
                         if cuda:
                             event = torch.cuda.Event()
                             event.record(stream)
@@ -129,8 +133,13 @@ class PrefetchIterator:
             stop.set()
 
 
-def prefetch_to_device(iterable: Iterable, device=None, depth: int = 2
+def prefetch_to_device(iterable: Iterable, device=None, depth: int = 2,
+                       shard: Optional[Callable] = None
                        ) -> PrefetchIterator:
     """Prefetch ``iterable`` and stage its batches on ``device`` in the
-    background thread, so the consumer only ever sees batches there."""
-    return PrefetchIterator(iterable, depth=depth, device=device)
+    background thread, so the consumer only ever sees batches there;
+    ``shard`` (this rank's rows of a global batch under a mesh,
+    ``parallel/mesh.shard_batch``; JAX ``prefetch.py:84-97``) runs in
+    the thread too."""
+    return PrefetchIterator(iterable, depth=depth, device=device,
+                            shard=shard)

@@ -17,9 +17,10 @@ kp_3d)`` (eval.py:616,634), which ``SequenceLoader`` serves from arrays
 and ``data/mhp.MHPSequence`` from an MHP tree.
 
 ``DemoRunner(opt, device=None)`` runs on the CUDA device unless the
-caller asks for another; weights load strictly from
-``--checkpoint_path_eval`` (or a seeded fresh init for ""), as the
-Evaluator loads them, or from an injected ``state_dict``.
+caller asks for another; weights load from ``--checkpoint_path_eval``
+(partially where the file holds part of the model, as the JAX package
+loads it: ``utils/checkpoint.load_pth``; or a seeded fresh init for ""),
+as the Evaluator loads them, or from an injected ``state_dict``.
 """
 
 from __future__ import annotations

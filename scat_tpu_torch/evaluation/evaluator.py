@@ -13,7 +13,8 @@ model is built with ``for_keypoints=True``, as the JAX package's is:
 ``--net frankmocap`` evaluates through ``H3DWJointsEncoder`` (its MANO
 decode in the forward); the 61-dim 128-token heads are refused.  Weights
 come from ``--checkpoint_path_eval`` (a reference-keyed ``.pth``, loaded
-strictly: a ViP file carries its frozen ``mains.{i}.w``) or from an
+as the JAX package loads it, ``utils/checkpoint.load_pth``: a partial
+file warns, a ViP file carries its frozen ``mains.{i}.w``) or from an
 injected ``state_dict``.  With ``--net reg_transformer_coarse --debug
 True`` each batch also writes the attention dump (reference
 eval.py:834,864-944): the last layer's head-0 attention of the batch's
@@ -22,7 +23,15 @@ ground-truth 2D landmarks as ``{result_dir}/attn/{finger}/NNN.png``; the
 attention comes from the batch's one forward, and where cv2 is missing
 the dump is skipped with a message.  ``--tensorboard True`` mirrors
 ``eval_metrics.csv`` as tensorboardX events under ``{result_dir}/tb``.
-Not ported yet: multi-process evaluation (item 17).
+
+Under ``torchrun`` (one process a device, ``--mesh_shape``;
+``parallel/mesh.py``) every rank evaluates its rows of the ``data``
+axis (a loader reads only those, ``data/common``; of an injected
+dataset's global batch the rank takes them), and the Procrustes-aligned
+joints, labels and valid flags are gathered (JAX ``evaluator.py:127-128,
+177-185``), so the per-batch PCK,
+the per-sample MPJPE and the final numbers are those of the global batch
+on every rank, computed once; process 0 prints, logs and draws.
 """
 
 from __future__ import annotations
@@ -37,25 +46,19 @@ import numpy as np
 import torch
 
 from scat_tpu_torch.config import BaseOptions, Options
-from scat_tpu_torch.data.common import _process_topology
 from scat_tpu_torch.data.prefetch import map_batch, prefetch_to_device, \
     to_device
 from scat_tpu_torch.devices import resolve_device
 from scat_tpu_torch.models import build_model
 from scat_tpu_torch.models.factory import check_keypoint_head, compute_dtype
 from scat_tpu_torch.ops import metrics as metrics_lib
+from scat_tpu_torch.parallel import mesh as mesh_lib
 from scat_tpu_torch.training import steps
-from scat_tpu_torch.training.trainer import make_dataset, mesh_axes
+from scat_tpu_torch.training.trainer import make_dataset
 from scat_tpu_torch.utils import checkpoint as ckpt_lib
 from scat_tpu_torch.utils.logging import MetricsLogger
 
 RNGE = np.arange(20, 51, 5)
-
-# (flag, test on the options, ROADMAP.md queue 1 item that ports it)
-UNPORTED_FLAGS = (
-    ("a multi-device --mesh_shape",
-     lambda o: any(size not in (1, -1) for _, size in mesh_axes(o)), 17),
-)
 
 
 def save_pck_curve(rnge: np.ndarray, pck_curve: np.ndarray, path: str):
@@ -95,17 +98,13 @@ class Evaluator:
     def __init__(self, opt: Options, image_size: int = 224,
                  dataset: Optional[Iterable] = None,
                  state_dict: Optional[dict] = None, device=None):
-        for what, hit, item in UNPORTED_FLAGS:
-            if hit(opt):
-                raise NotImplementedError(
-                    f"{what} is not ported to the scat_tpu_torch Evaluator "
-                    f"yet (ROADMAP.md queue 1 item {item})")
-        if _process_topology()[1] > 1:
-            raise NotImplementedError(
-                "multi-process evaluation is not ported to scat_tpu_torch "
-                "yet (ROADMAP.md queue 1 item 17)")
         self.opt = opt
         self.device = resolve_device(device, "the Evaluator")
+        self.mesh = mesh_lib.make_mesh(mesh_lib.mesh_axes(opt),
+                                       device_type=self.device.type)
+        if self.mesh is not None and self.device.type == "cuda":
+            self.device = mesh_lib.rank_device("cuda")
+        self.is_main = mesh_lib.is_main_process()
         self.batch_size = opt.batch_size
         self.result_dir = opt.result_dir
         os.makedirs(self.result_dir, exist_ok=True)
@@ -127,11 +126,36 @@ class Evaluator:
             self.model, pck_range=tuple(int(r) for r in RNGE),
             flat_compat=opt.compat_pck_flat, return_attn=self.want_attn)
 
+    def _eval_global(self, batch: dict) -> dict:
+        """The eval step under a mesh on this rank's rows (a loader's
+        batch, or its rows of an injected global batch), then the aligned
+        joints, labels and valid flags of every rank gathered and the
+        metrics of the global batch."""
+        group = self.mesh.data_group
+        if self.dataset is None:
+            n = batch["label"].shape[0] * self.mesh.size("data")
+        else:
+            n = batch["label"].shape[0]
+            batch = mesh_lib.shard_batch(self.mesh, batch)
+        valid = batch.get("valid")
+        if valid is None:
+            valid = metrics_lib.valid_sample_mask(batch["image"])
+        out = self.eval_step(batch)
+        aligned, label, valid = (
+            mesh_lib.gather_rows(group, t)[:n]
+            for t in (out["pred_joints_3d"], batch["label"], valid.float()))
+        pck, err = steps.keypoint_metrics(
+            aligned, label, valid,
+            pck_range=tuple(int(r) for r in RNGE),
+            flat_compat=self.opt.compat_pck_flat)
+        return dict(out, pck=pck, mpjpe_per_sample=err, valid=valid,
+                    pred_joints_3d=aligned)
+
     def _maybe_dump_attention(self, batch: dict, out: dict, n: int) -> None:
         """The coarse head's attention dump of batch ``n`` (the JAX
         package's ``evaluator.py:99-134``): one sample's [H,N,N] and its
         label row reach the host."""
-        if not self.draw_attn:
+        if not self.draw_attn or not self.is_main:
             return
         attn = out["attn"]
         idx = min(1, attn.shape[0] - 1)   # the reference samples index 1
@@ -162,7 +186,9 @@ class Evaluator:
         if self.want_attn and not self.draw_attn:
             print("cv2 unavailable, skipping the attention dump; the "
                   "metrics are computed")
-        logger = MetricsLogger(self.result_dir, filename="eval_metrics.csv",
+        main = self.is_main
+        logger = MetricsLogger(self.result_dir if main else None,
+                               filename="eval_metrics.csv",
                                tensorboard=self.opt.tensorboard)
         n_cols = len(RNGE) * 22
         pck_all = np.zeros((len(RNGE), 22))
@@ -172,7 +198,10 @@ class Evaluator:
             n += 1
             t0 = time.time()
             batch = map_batch(batch, lambda t: to_device(t, self.device))
-            out = self.eval_step(batch)
+            if self.mesh is None:
+                out = self.eval_step(batch)
+            else:
+                out = self._eval_global(batch)
             self._maybe_dump_attention(batch, out, n)
             # the one host read of the batch: PCK, per-sample MPJPE, valid
             host = torch.cat([out["pck"].reshape(-1).float(),
@@ -182,11 +211,12 @@ class Evaluator:
             err, valid = np.split(host[n_cols:], 2)
             valid = valid.astype(bool)
             fps = self.batch_size / (time.time() - t0)
-            print(f"FPS: {fps:.2f}")
             pck_all += pck
             auc = _auc(pck[:, -1])
-            print("AUC: {}.".format(auc))
-            print("@50: {}.".format(pck[-1, -1]))
+            if main:
+                print(f"FPS: {fps:.2f}")
+                print("AUC: {}.".format(auc))
+                print("@50: {}.".format(pck[-1, -1]))
             logger.log(n, {"fps": fps, "auc": auc, "pck_at_50": pck[-1, -1],
                            "mpjpe_mm": (1000 * err[valid].mean()
                                         if valid.any() else float("nan"))})
@@ -196,12 +226,13 @@ class Evaluator:
                 else np.zeros((0,), np.float32))
         mpjpe_mean = float(errs.mean()) if errs.size else 0.0
         auc = _auc(pck_all[:, -1])
-        save_pck_curve(RNGE, pck_all[:, -1],
-                       os.path.join(self.result_dir, "PCK.png"))
-        print("*** Final Results ***")
-        print()
-        print("MPJPE: " + str(1000 * mpjpe_mean))
-        print("AUC: " + str(auc))
+        if main:
+            save_pck_curve(RNGE, pck_all[:, -1],
+                           os.path.join(self.result_dir, "PCK.png"))
+            print("*** Final Results ***")
+            print()
+            print("MPJPE: " + str(1000 * mpjpe_mean))
+            print("AUC: " + str(auc))
         logger.log(n, {"fps": float("nan"), "auc": auc,
                        "pck_at_50": pck_all[-1, -1],
                        "mpjpe_mm": 1000 * mpjpe_mean})

@@ -14,8 +14,9 @@ matplotlib the overlay is skipped with a message, as ``PCK.png`` is.
 decode is commented out (test.py:343) and crashes as shipped.
 ``Tester(opt, device=None)`` runs on the CUDA device unless the caller
 asks for another; weights come from ``--checkpoint_path_eval`` (a
-reference-keyed H3DW ``.pth``, strictly; "" for a fresh init seeded with
-``--seed``) or an injected ``state_dict``.
+reference-keyed H3DW ``.pth``, loaded by ``utils/checkpoint.load_pth``;
+"" for a fresh init seeded with ``--seed``) or an injected
+``state_dict``.
 """
 
 from __future__ import annotations

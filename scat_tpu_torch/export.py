@@ -5,22 +5,31 @@
 float32 NHWC crops -> camera, joints_3d, joints_2d) of a
 ``HandPosePredictor`` with ``torch.export`` and a symbolic batch
 dimension (1 to the predictor's ``max_batch``), once per request dtype,
-into a directory:
+into a directory, as the JAX package's ``export.py:3-13`` lays it out:
 
     manifest.json         format, image size, max batch, dtypes, the
-                          device type exported for, net, compute dtype
+                          device type exported for, net, compute dtype,
+                          the bit-cast keys of the weights
     forward_uint8.pt2     the program for [b, S, S, 3] uint8 requests
     forward_float32.pt2   ... for float32 requests already in [-1, 1]
+    weights.npz           the model's state_dict under its flat reference
+                          keys; bf16 tensors bit-cast to uint16, as the
+                          JAX package's ``_BITCAST`` stores them
 
-The weights live in each program's state; no weights file sits beside
-them (each program carries its own copy).  The hand-written kernels are
+The programs take the weights as an input (``torch.func.functional_call``
+of the model on a dict of tensors), so no program carries a copy: the
+model's non-persistent buffers (the sinusoidal encoding, the mean
+parameters) are the programs' constants, as the JAX package bakes its
+constants into its programs.  The hand-written kernels are
 the custom ops ``scat_tpu_torch::attention_fwd``, ``::favor_stats`` and
 ``::favor_apply``, recorded as nodes of the programs
 (``ops/attention.py``, ``ops/favor.py``).
 
 ``ExportedPredictor`` (``load_artifact``) serves the directory WITHOUT
 importing any model module of the port: the artifact carries the
-program, and only the ops that it names are imported.  Its ``predict``
+program, and only the ops that it names are imported.  It reads
+``weights.npz`` once, onto the device, and hands the same tensors to
+both programs and to their CUDA graphs.  Its ``predict``
 has ``HandPosePredictor.predict``'s contract (bucketing, padding, the
 bounded in-flight window of ``serving.run_bucketed``).  On CUDA each
 (bucket, request dtype) is one CUDA graph (``serving.GraphRunner``),
@@ -37,6 +46,7 @@ CLI (on the CUDA device; ``--device cpu`` asks for the CPU):
 
 from __future__ import annotations
 
+import functools
 import json
 import os
 from typing import Dict, Optional, Union
@@ -52,7 +62,11 @@ from scat_tpu_torch.serving import (GraphRunner, ServingForward,
                                     frames_to_crops, run_bucketed)
 
 MANIFEST = "manifest.json"
-FORMAT = "scat_tpu_torch.export/1"
+WEIGHTS = "weights.npz"
+FORMAT = "scat_tpu_torch.export/2"
+# numpy's .npz has no bfloat16: such tensors ship bit-cast to a
+# same-width integer and are restored by key (the JAX package's _BITCAST)
+BITCAST = {torch.bfloat16: (torch.int16, "uint16")}
 DTYPES = {"uint8": torch.uint8, "float32": torch.float32}
 # torch.export takes sizes 0 and 1 for constants; the example batch is 2,
 # and the program's batch range starts at 1
@@ -61,6 +75,56 @@ EXAMPLE_BATCH = 2
 
 def program_path(path: str, dtype_name: str) -> str:
     return os.path.join(path, f"forward_{dtype_name}.pt2")
+
+
+class _Functional(torch.nn.Module):
+    """``serving_forward`` of a model whose state_dict is the first input:
+    the form in which a program takes its weights instead of holding
+    them.  The model is not a submodule, so ``torch.export`` lifts none
+    of its tensors."""
+
+    def __init__(self, model: torch.nn.Module):
+        super().__init__()
+        object.__setattr__(self, "_serving", ServingForward(model).eval())
+
+    def forward(self, weights: Dict[str, torch.Tensor], images):
+        return torch.func.functional_call(
+            self._serving, {f"model.{k}": v for k, v in weights.items()},
+            (images,))
+
+
+def save_weights(state_dict: Dict[str, torch.Tensor], path: str
+                 ) -> Dict[str, str]:
+    """``state_dict`` as one ``.npz`` under its keys; returns the
+    bit-cast keys and their dtype names."""
+    arrays, bitcast = {}, {}
+    for k, v in state_dict.items():
+        v = v.detach().cpu().contiguous()
+        if v.dtype in BITCAST:
+            as_int, _ = BITCAST[v.dtype]
+            bitcast[k] = str(v.dtype).replace("torch.", "")
+            v = v.view(as_int)
+        arrays[k] = v.numpy()
+    with open(path, "wb") as f:
+        np.savez(f, **arrays)
+    return bitcast
+
+
+def load_weights_npz(path: str, bitcast: Dict[str, str],
+                     device: torch.device) -> Dict[str, torch.Tensor]:
+    """The tensors of ``save_weights``'s file on ``device``, 4-d ones
+    channels_last as the live predictor holds its convolution weights."""
+    out = {}
+    with np.load(path) as z:
+        for k in z.files:
+            t = torch.from_numpy(z[k])
+            if k in bitcast:
+                t = t.view(getattr(torch, bitcast[k]))
+            t = t.to(device)
+            if t.dim() == 4:
+                t = t.contiguous(memory_format=torch.channels_last)
+            out[k] = t
+    return out
 
 
 def export_predictor(predictor, out_dir: str,
@@ -74,15 +138,21 @@ def export_predictor(predictor, out_dir: str,
                          f"{predictor.max_batch}")
     os.makedirs(out_dir, exist_ok=True)
     size = predictor.image_size
-    module = ServingForward(predictor.model).eval()
+    module = _Functional(predictor.model)
+    weights = dict(predictor.model.state_dict())
     batch = torch.export.Dim("batch", min=1, max=predictor.max_batch)
     for name, dtype in DTYPES.items():
         example = torch.zeros((EXAMPLE_BATCH, size, size, 3), dtype=dtype,
                               device=predictor.device)
         with torch.no_grad():
-            program = torch.export.export(module, (example,),
-                                          dynamic_shapes=({0: batch},))
+            program = torch.export.export(
+                module, (weights, example),
+                dynamic_shapes=({k: None for k in weights}, {0: batch}))
+        # the saved program would carry its example inputs, the weights
+        # among them
+        program.example_inputs = None
         torch.export.save(program, program_path(out_dir, name))
+    bitcast = save_weights(weights, os.path.join(out_dir, WEIGHTS))
     manifest = {
         "format": FORMAT,
         "image_size": size,
@@ -92,6 +162,8 @@ def export_predictor(predictor, out_dir: str,
         "net": net,
         "compute_dtype": str(getattr(predictor.model, "compute_dtype",
                                      torch.float32)).replace("torch.", ""),
+        "weights": WEIGHTS,
+        "bitcast": bitcast,
     }
     with open(os.path.join(out_dir, MANIFEST), "w") as f:
         json.dump(manifest, f, indent=1)
@@ -141,14 +213,19 @@ class ExportedPredictor:
         self.image_size = int(manifest["image_size"])
         self.max_batch = int(manifest["max_batch"])
         self._buckets = bucket_ladder(self.max_batch)
+        self.weights = load_weights_npz(
+            os.path.join(path, manifest["weights"]), manifest["bitcast"],
+            self.device)
         self.programs = {name: torch.export.load(
             program_path(path, name)).module() for name in manifest["dtypes"]}
+        forwards = {name: functools.partial(module, self.weights)
+                    for name, module in self.programs.items()}
         if self.device.type == "cuda":
-            self._forwards = {name: GraphRunner(module, self.device)
-                              for name, module in self.programs.items()}
+            self._forwards = {name: GraphRunner(fn, self.device)
+                              for name, fn in forwards.items()}
         else:
-            self._forwards = {name: _eager(module)
-                              for name, module in self.programs.items()}
+            self._forwards = {name: _eager(fn)
+                              for name, fn in forwards.items()}
 
     def _forward_of(self, x: np.ndarray):
         name = "uint8" if x.dtype == np.uint8 else "float32"

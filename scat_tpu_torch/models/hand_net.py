@@ -66,6 +66,7 @@ from torch import nn
 
 from scat_tpu_torch.models import mano as mano_lib
 from scat_tpu_torch.models import resnet as resnet_lib
+from scat_tpu_torch.ops import widen
 from scat_tpu_torch.models.transformer import (
     PyramidTransformer, PyramidTransformerAttn, random_token_mask,
     sinusoidal_position_encoding)
@@ -204,7 +205,7 @@ class EncoderTransformer(_TokenEncoder):
                 x.to(self.conv1x1_channel_reduction.weight.dtype))
             feat_visual = self.conv1x1_channel_reduction(x2)
             out = self.transformer(self._tokens(feat_visual, token_mask))
-            feat_out = out.reshape(out.shape[0], -1).float()  # [B,63]
+            feat_out = widen(out.reshape(out.shape[0], -1))  # [B,63]
         pl_grad = self._pl_probe(feat_out, feat_visual)
 
         mean = self.mean_params.expand(x.shape[0], 66)
@@ -249,7 +250,7 @@ class EncoderTransformerCoarse(_TokenEncoder):
             feat_visual = self.conv1x1_channel_reduction(x2)
             out, attn = self.transformer(self._tokens(feat_visual,
                                                       token_mask))
-            feat_out = out.reshape(out.shape[0], -1).float()
+            feat_out = widen(out.reshape(out.shape[0], -1))
         # the probe differentiates feat_out only: attn's cotangent is zero
         pl_grad = self._pl_probe(feat_out, feat_visual)
 
@@ -321,7 +322,7 @@ class _TokenRegressorHead(_TokenEncoder):
             fmap = self.conv1x1_channel_reduction(
                 _reinterpret_channels(fmap, self.new_c))
             out = self.transformer(self._tokens(fmap, token_mask))
-            feat = out.mean(dim=1).float()  # [B,3]
+            feat = widen(out.mean(dim=1))  # [B,3]
         pred = self.mean_params.expand(x.shape[0], 61)
         for _ in range(self.iteration):
             pred = pred + self.regressor(torch.cat([feat, pred], 1))
@@ -425,7 +426,7 @@ class H3DWEncoder(nn.Module):
                             enabled=on):
             main_feat = self.main_encoder(
                 x.to(self.main_encoder.conv1.weight.dtype))[0]
-        feat = self.feat_encoder(main_feat.float())
+        feat = self.feat_encoder(widen(main_feat))
         pred = self.mean_params.expand(x.shape[0], MANO_PARAMS)
         for _ in range(self.ITERATIONS):
             pred = pred + self.regressor(torch.cat([feat, pred], 1))

@@ -29,6 +29,14 @@ package casts q, k, v to float32 first), otherwise ``favor_attention``
 runs in the operands' promoted dtype with autocast off; both return
 float32.
 
+Over a ``seq`` mesh axis (``set_seq_parallel``; JAX
+``performer.py:129-140, 209``) each rank runs its slice of the tokens;
+the blocks take the plain FAVOR+ path there, whose two cross-token
+moments, sum_t phi(k) and phi(k)^T v, are summed over the axis, as is
+the tokens' mean.  ``embed`` and ``readout`` are the forward's two ends,
+around the blocks (``parallel/pipeline.pipeline_apply`` stages the
+blocks between them).
+
 Dropout (0.1 after ``proj`` and after the MLP) applies in training only.
 Its keep-masks are inputs of the forward (``dropout_masks``), drawn by
 ``train_inputs`` from the train state's generator, so that a block
@@ -48,7 +56,10 @@ from torch.utils.checkpoint import checkpoint
 
 # flax's nn.Dropout with its keep-mask given (the pyramid's, shared)
 from scat_tpu_torch.models.transformer import dropout as _dropout
+from scat_tpu_torch.ops import widen
 from scat_tpu_torch.ops.favor import favor_attention, favor_attention_fused
+from scat_tpu_torch.parallel.mesh import all_reduce_sum
+from scat_tpu_torch.parallel.sharding_rules import shard_tokens, token_mean
 
 LN_EPS = 1e-6
 Masks = Tuple[torch.Tensor, torch.Tensor]
@@ -73,6 +84,7 @@ class PerformerBlock(nn.Module):
                                  nn.Linear(4 * emb, emb))
         self.register_buffer(
             "w", torch.randn(int(emb_s * kernel_ratio), emb_s))
+        self.sp = None   # a SeqParallel: the block sees its rank's tokens
 
     def forward(self, x: torch.Tensor,
                 masks: Optional[Masks] = None) -> torch.Tensor:
@@ -83,7 +95,14 @@ class PerformerBlock(nn.Module):
         # [B,T,H,3e] -> k, q, v as strided [B,H,T,e] views, no copy
         kqv = self.kqv(y.to(self.kqv.weight.dtype)).permute(0, 2, 1, 3)
         k, q, v = kqv.split(self.emb_s, dim=-1)
-        if self.use_kernel:
+        if self.sp is not None:
+            # the fused kernels take every token; over a seq axis the
+            # plain path sums its two moments there, as the JAX package
+            # takes its einsum path (performer.py:129-135)
+            group = self.sp.group
+            attn = favor_attention(q, k, v, self.w, self.favor_precision,
+                                   lambda t: all_reduce_sum(t, group))
+        elif self.use_kernel:
             attn = favor_attention_fused(q, k, v, self.w)
         else:
             attn = favor_attention(q, k, v, self.w, self.favor_precision)
@@ -122,6 +141,18 @@ class ViP(nn.Module):
         self.register_buffer(
             "mean_params", torch.as_tensor(mean_params, dtype=torch.float32)
             .reshape(-1)[:out_dim].clone(), persistent=False)
+        self.sp = None
+
+    def set_seq_parallel(self, sp) -> "ViP":
+        """Split the token stream over a ``seq`` axis
+        (``parallel.sharding_rules.SeqParallel`` of size > 1; None for
+        none): each rank runs its tokens through the blocks, whose
+        FAVOR+ moments and the tokens' mean sum over the axis (JAX
+        ``performer.py:129-140, 209``)."""
+        self.sp = None if sp is None else sp.of_tokens(self.tokens)
+        for block in self.mains:
+            block.sp = self.sp
+        return self
 
     def init_weights(self, generator: torch.Generator) -> None:
         """The JAX package's init (performer.py:74-92, 116-119, 194-200):
@@ -181,32 +212,51 @@ class ViP(nn.Module):
             tuple(torch.rand(shape, generator=generator, device=device)
                   < keep for _ in range(2)) for _ in self.mains]}
 
+    def embed(self, x: torch.Tensor) -> torch.Tensor:
+        """NCHW crops -> the token stream [B, T, emb] that enters the
+        blocks (patches, their embedding, the position embedding, the cls
+        token; under a ``seq`` axis, this rank's tokens).  Call it inside
+        ``_autocast``, as ``forward`` does."""
+        b, c, height, width = x.shape
+        p = self.patch_pix
+        patches = x.reshape(b, c, height // p, p, width // p, p).permute(
+            0, 2, 4, 1, 3, 5).reshape(b, self.tokens - 1, c * p * p)
+        tok = self.patch_emb(patches.to(self.patch_emb.weight.dtype))
+        tok = tok + self.pos_emb
+        tok = torch.cat([self.cls_token.expand(b, -1, -1), tok], dim=1)
+        return shard_tokens(tok, self.sp)
+
+    def readout(self, tok: torch.Tensor):
+        """The blocks' output -> ``(pred [B,66], feat [B,emb])``: the
+        tokens' mean and ``iteration`` refinements from the mean
+        template."""
+        feat = widen(token_mean(tok, self.sp, self.tokens))
+        pred = self.mean_params.expand(tok.shape[0], -1)
+        for _ in range(self.iteration):
+            pred = pred + self.head(torch.cat([feat, pred], dim=1))
+        return pred, feat
+
     def forward(self, x: torch.Tensor,
                 dropout_masks: Optional[Sequence[Masks]] = None):
         """``x`` NCHW crops; ``dropout_masks``: per block, the two keep
         masks of ``train_inputs`` (drawn here from the global generator
         when omitted in training)."""
-        b, c, height, width = x.shape
-        p = self.patch_pix
+        b = x.shape[0]
         if self.training and self.dropout > 0 and dropout_masks is None:
             dropout_masks = self.train_inputs(
                 b, device=x.device)["dropout_masks"]
         if not self.training:
             dropout_masks = None
+        if self.sp is not None and dropout_masks is not None:
+            # this rank's tokens of the masks drawn for all
+            dropout_masks = [tuple(shard_tokens(m, self.sp) for m in pair)
+                             for pair in dropout_masks]
         with self._autocast(x.device.type):
-            patches = x.reshape(b, c, height // p, p, width // p, p).permute(
-                0, 2, 4, 1, 3, 5).reshape(b, self.tokens - 1, c * p * p)
-            tok = self.patch_emb(patches.to(self.patch_emb.weight.dtype))
-            tok = tok + self.pos_emb
-            tok = torch.cat([self.cls_token.expand(b, -1, -1), tok], dim=1)
+            tok = self.embed(x)
             for i, block in enumerate(self.mains):
                 masks = None if dropout_masks is None else dropout_masks[i]
                 if self.remat and torch.is_grad_enabled():
                     tok = checkpoint(block, tok, masks, use_reentrant=False)
                 else:
                     tok = block(tok, masks)
-        feat = tok.mean(dim=1).float()
-        pred = self.mean_params.expand(b, -1)
-        for _ in range(self.iteration):
-            pred = pred + self.head(torch.cat([feat, pred], dim=1))
-        return pred, feat
+        return self.readout(tok)

@@ -23,8 +23,11 @@ from __future__ import annotations
 from typing import Callable, List, Sequence, Type, Union
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 from torch import nn
+
+from scat_tpu_torch.ops import widen
 
 
 class BatchNorm2d(nn.BatchNorm2d):
@@ -42,11 +45,25 @@ class BatchNorm2d(nn.BatchNorm2d):
     ``t = (1-m)*old + m*var*n/(n-1)`` (a copy, because autograd saves the
     tensor it is given), and ``((n-1)*t + (1-m)*old) / n = (1-m)*old +
     m*var`` is flax's value.  Both terms are positive, so the correction
-    loses no precision."""
+    loses no precision.
+
+    ``process_group`` (set by ``parallel.mesh.sync_batch_norm``): over a
+    group of several ranks the training statistics are those of the
+    global batch, as GSPMD computes them (``scat_tpu/parallel/mesh.py:
+    11-12``): sum x, sum x^2 and the count in float32 through one
+    differentiable all-reduce, then flax's ``E[x^2] - E[x]^2`` clamped at
+    0 (``use_fast_variance``).  The running statistics take the same
+    global values on every rank.  With no group, or a group of one rank,
+    the fused local path runs."""
+
+    process_group = None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if not self.training:
             return super().forward(x)
+        group = self.process_group
+        if group is not None and dist.get_world_size(group) > 1:
+            return self._global_batch_norm(x)
         self.num_batches_tracked.add_(1)
         t = self.running_var.clone()
         y = F.batch_norm(x, self.running_mean, t, self.weight, self.bias,
@@ -56,6 +73,31 @@ class BatchNorm2d(nn.BatchNorm2d):
             self.running_var.mul_((1.0 - self.momentum) / n).add_(
                 t, alpha=(n - 1) / n)
         return y
+
+    def _global_batch_norm(self, x: torch.Tensor) -> torch.Tensor:
+        from scat_tpu_torch.parallel.mesh import all_reduce_sum
+        self.num_batches_tracked.add_(1)
+        c = x.shape[1]
+        xf = widen(x)
+        dims = (0, 2, 3)
+        count = xf.new_full((1,), x.numel() // c)
+        sums = all_reduce_sum(torch.cat([xf.sum(dims), (xf * xf).sum(dims),
+                                         count]), self.process_group)
+        mean = sums[:c] / sums[-1]
+        var = (sums[c:2 * c] / sums[-1] - mean * mean).clamp(min=0.0)
+        with torch.no_grad():
+            m = self.momentum
+            self.running_mean.mul_(1.0 - m).add_(mean.detach(), alpha=m)
+            self.running_var.mul_(1.0 - m).add_(var.detach(), alpha=m)
+        scale = self.weight * torch.rsqrt(var + self.eps)
+        # the bias enters through a product: a [1,C,1,1] output's gradient
+        # summed to [C] is that gradient itself, which the residual add
+        # also hands to the other branch's BatchNorm, and two .grad
+        # sharing one tensor would count a second micro-step twice
+        shift = self.bias * torch.ones_like(self.bias) - mean * scale
+        y = torch.addcmul(shift[None, :, None, None], xf,
+                          scale[None, :, None, None])
+        return y.to(x.dtype)
 
 
 class GroupNorm(nn.GroupNorm):
@@ -73,7 +115,7 @@ class GroupNorm(nn.GroupNorm):
         super().__init__(min(32, channels), channels, eps=1e-5)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return F.group_norm(x.float(), self.num_groups, self.weight,
+        return F.group_norm(widen(x), self.num_groups, self.weight,
                             self.bias, self.eps).to(x.dtype)
 
 
@@ -197,7 +239,7 @@ class ResNet(nn.Module):
         x4 = self.layer4(x3)
         # global average pool + relu + fc1 + relu (reference :155-160)
         feat = torch.relu(self.fc1(torch.relu(x4.mean(dim=(2, 3)))))
-        return feat.float(), x1, x2, x3, x4
+        return widen(feat), x1, x2, x3, x4
 
 
 _ARCHS = {

@@ -37,6 +37,12 @@ post-norm is float32, as flax's LayerNorm output promotes the sum; each
 FeedForward rounds its input to its weights' dtype, as flax's Dense does.
 
 ``random_token_mask`` is the port of ``transformer.py:206-220``.
+
+Under a mesh (``parallel/sharding_rules.py``): ``tp_group`` set on an
+Attention or FeedForward makes it one rank's slice of a Megatron pair
+(its heads, its hidden units; the row Linear's output summed over the
+group before its bias), and ``sp`` set on an Attention gathers K and V
+over the ``seq`` axis, so that its local queries attend to every token.
 """
 
 from __future__ import annotations
@@ -46,10 +52,13 @@ from typing import Optional
 import torch
 from torch import nn
 
+from scat_tpu_torch.ops import widen
 # the plain version of the attention math; the JAX package calls it
 # mha_reference (scat_tpu/models/transformer.py:29-46)
 from scat_tpu_torch.ops.attention import attention_reference as mha_reference
 from scat_tpu_torch.ops.attention import flash_attention
+from scat_tpu_torch.parallel.sharding_rules import (gather_tokens, tp_copy,
+                                                    tp_reduce)
 
 LN_EPS = 1e-6
 
@@ -82,7 +91,7 @@ class PreNorm(nn.Module):
         # LayerNorm in float32 (its parameters stay float32 under either
         # compute-dtype scheme); the output is rounded to the compute dtype
         # for the layer it feeds, as flax's bf16 Dense rounds its input
-        return self.fn(self.norm(x.float()).to(x.dtype), **kw)
+        return self.fn(self.norm(widen(x)).to(x.dtype), **kw)
 
 
 class Attention(nn.Module):
@@ -106,6 +115,8 @@ class Attention(nn.Module):
         self.to_qkv = nn.Linear(dim, inner * 3, bias=False)
         # a Sequential for the reference's key ``to_out.0``
         self.to_out = nn.Sequential(nn.Linear(inner, dim))
+        self.tp_group = None    # parallel.sharding_rules.shard_transformer
+        self.sp = None          # a SeqParallel: the token-split stream
 
     def forward(self, x: torch.Tensor, return_attn: bool = False,
                 keep: Optional[torch.Tensor] = None):
@@ -116,18 +127,30 @@ class Attention(nn.Module):
         # a float32 residual stream (ViT's first layer) is rounded to the
         # weights' dtype, as flax's Dense rounds its input
         x = x.to(self.to_qkv.weight.dtype)
+        if self.tp_group is not None:
+            x = tp_copy(x, self.tp_group)
         # [B,N,3,H,Dh] -> three [B,H,N,Dh] views, no copy
         q, k, v = self.to_qkv(x).view(
             b, n, 3, self.heads, self.dim_head).permute(2, 0, 3, 1, 4)
         attn = None
+        if self.sp is not None:
+            k = gather_tokens(k, self.sp, self.sp.total)
+            v = gather_tokens(v, self.sp, self.sp.total)
         if return_attn:
             out, attn = mha_reference(q, k, v, self.scale, return_attn=True)
-        elif self.use_kernel:
+        elif self.use_kernel and self.sp is None:
             out = flash_attention(q, k, v, self.scale)
         else:
             out = mha_reference(q, k, v, self.scale)
         out = out.transpose(1, 2).reshape(b, n, self.heads * self.dim_head)
-        out = dropout(self.to_out(out), keep, self.dropout)
+        if self.tp_group is None:
+            out = self.to_out(out)
+        else:
+            lin = self.to_out[0]
+            out = tp_reduce(nn.functional.linear(out, lin.weight),
+                            self.tp_group)
+            out = out + lin.bias.to(out.dtype)
+        out = dropout(out, keep, self.dropout)
         return (out, attn) if return_attn else out
 
 
@@ -141,11 +164,18 @@ class FeedForward(nn.Module):
         out = dim // 2 if out_dim is None else out_dim
         self.net = nn.Sequential(nn.Linear(dim, hidden_dim), nn.GELU(),
                                  nn.Linear(hidden_dim, out))
+        self.tp_group = None    # parallel.sharding_rules.shard_transformer
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         # a float32 residual stream (the coarse head's) is rounded to the
         # weights' dtype, as flax's Dense rounds its input
-        return self.net(x.to(self.net[0].weight.dtype))
+        x = x.to(self.net[0].weight.dtype)
+        if self.tp_group is None:
+            return self.net(x)
+        h = self.net[1](self.net[0](tp_copy(x, self.tp_group)))
+        second = self.net[2]
+        y = tp_reduce(nn.functional.linear(h, second.weight), self.tp_group)
+        return y + second.bias.to(y.dtype)
 
 
 class PyramidTransformer(nn.Module):
@@ -191,7 +221,7 @@ class PostNorm(nn.Module):
         self.norm = nn.LayerNorm(dim, eps=LN_EPS)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.norm(x.float())
+        return self.norm(widen(x))
 
 
 class PyramidTransformerAttn(nn.Module):

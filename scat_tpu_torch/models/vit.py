@@ -13,9 +13,10 @@ refinements ``pred += head(cat(feat, pred))`` from the mean template's
 first ``num_classes`` entries.  No root-centring.  ``forward`` returns
 ``(pred [B,num_classes], feat [B,3])``.  Keys: ``patch_to_embedding``,
 ``cls_token``, ``pos_embedding``, ``transformer.layers.*`` (the
-pyramid's), ``head.0``.  The JAX package anchors the token stream to a
-``seq`` mesh axis (``shard_tokens``), an identity without a mesh; the
-port has no mesh yet (ROADMAP.md queue 1 item 17).
+pyramid's), ``head.0``.  Over a ``seq`` mesh axis
+(``set_seq_parallel``; the JAX package's ``shard_tokens`` anchors,
+``vit.py:68-75``) each rank runs its slice of the tokens, the attentions
+gather K and V over the axis, and the tokens' mean sums there.
 
 Compute dtype, as in the JAX package: ``patch_to_embedding`` and the
 transformer's Linear layers compute in the compute dtype
@@ -45,6 +46,8 @@ from torch import nn
 
 from scat_tpu_torch.models.transformer import (LN_EPS, Attention, Residual,
                                                PyramidTransformer, dropout)
+from scat_tpu_torch.ops import widen
+from scat_tpu_torch.parallel.sharding_rules import shard_tokens, token_mean
 
 
 class ViT(nn.Module):
@@ -72,6 +75,18 @@ class ViT(nn.Module):
         self.register_buffer(
             "mean_params", torch.as_tensor(mean_params, dtype=torch.float32)
             .reshape(-1)[:num_classes].clone(), persistent=False)
+        self.sp = None
+
+    def set_seq_parallel(self, sp) -> "ViT":
+        """Split the token stream over a ``seq`` axis
+        (``parallel.sharding_rules.SeqParallel``, None for none): each
+        rank runs its tokens, the attentions gather K and V, and the
+        tokens' mean sums over the axis (JAX ``vit.py:68-75``)."""
+        self.sp = None if sp is None else sp.of_tokens(self.tokens)
+        for m in self.transformer.modules():
+            if hasattr(m, "sp"):
+                m.sp = self.sp
+        return self
 
     def set_compute_dtype(self, dtype: torch.dtype) -> "ViT":
         """Compute the patch embedding and the transformer in ``dtype``
@@ -140,9 +155,18 @@ class ViT(nn.Module):
             # the float32 cls token and position embedding promote the
             # stream to float32, as in the JAX package
             x = torch.cat([self.cls_token.expand(b, -1, -1), x], dim=1)
-            x = dropout(x + self.pos_embedding, emb_mask, self.emb_dropout)
+            x = x + self.pos_embedding
+            if self.sp is not None:
+                # this rank's tokens, and of the masks drawn for all
+                x = shard_tokens(x, self.sp)
+                if emb_mask is not None:
+                    emb_mask = shard_tokens(emb_mask, self.sp)
+                if dropout_masks is not None:
+                    dropout_masks = [shard_tokens(m, self.sp)
+                                     for m in dropout_masks]
+            x = dropout(x, emb_mask, self.emb_dropout)
             x = self.transformer(x, dropout_masks)
-            feat = x.mean(dim=1).float()
+            feat = widen(token_mean(x, self.sp, self.tokens))
         pred = self.mean_params.expand(b, -1)
         for _ in range(self.iteration):
             pred = pred + self.head(torch.cat([feat, pred], dim=1))

@@ -52,9 +52,10 @@ import contextlib
 import ctypes
 import functools
 import math
-from typing import Tuple
+from typing import Callable, Optional, Tuple
 
 import torch
+from scat_tpu_torch.ops import widen
 from torch.autograd.function import once_differentiable
 
 from scat_tpu_torch.kernels import abi, build
@@ -135,24 +136,23 @@ def favor_features(x: torch.Tensor, w: torch.Tensor,
 
 
 def favor_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                    w: torch.Tensor, precision: str = "highest"
-                    ) -> torch.Tensor:
+                    w: torch.Tensor, precision: str = "highest",
+                    moment_sum: Optional[Callable] = None) -> torch.Tensor:
     """Linear-time attention over [..., T, d]: qp (kp^T v) / (qp sum_t kp)
     (reference vision_performer.py:45-53), in the inputs' promoted dtype
-    with autocast off."""
+    with autocast off.  ``moment_sum``: applied to the two cross-token
+    moments, sum_t kp and kp^T v (sequence parallelism: their sum over
+    the ``seq`` axis, JAX ``performer.py:129-135``)."""
     feat_p, con_p = favor_precisions(precision)
+    keep = (lambda t: t) if moment_sum is None else moment_sum
     with torch.autocast(q.device.type, enabled=False):
         qp = favor_features(q, w, feat_p)
         kp = favor_features(k, w, feat_p)
-        d = _dot("...tm,...m->...t", qp, kp.sum(dim=-2), con_p)[..., None]
-        kptv = _dot("...tn,...tm->...nm", v, kp, con_p)
+        d = _dot("...tm,...m->...t", qp, keep(kp.sum(dim=-2)),
+                 con_p)[..., None]
+        kptv = keep(_dot("...tn,...tm->...nm", v, kp, con_p))
         y = _dot("...tm,...nm->...tn", qp, kptv, con_p)
         return y / d
-
-
-def _wide(x: torch.Tensor) -> torch.Tensor:
-    """x in float32, or float64 if it is float64."""
-    return x.to(torch.promote_types(x.dtype, torch.float32))
 
 
 def _prm(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
@@ -170,8 +170,8 @@ def favor_stats_reference(k: torch.Tensor, v: torch.Tensor,
     v [..., m, e]) in float32 (float64 for float64 operands) for k, v
     [..., T, e]."""
     with torch.autocast(k.device.type, enabled=False):
-        kp = _prm(_wide(k), _wide(w))
-        return kp.sum(dim=-2), _dot("...tm,...te->...me", kp, _wide(v),
+        kp = _prm(widen(k), widen(w))
+        return kp.sum(dim=-2), _dot("...tm,...te->...me", kp, widen(v),
                                     "highest")
 
 
@@ -181,7 +181,7 @@ def favor_apply_reference(q: torch.Tensor, ksum: torch.Tensor,
     """The apply kernel's plain version: phi(q) kptv / (phi(q) . ksum),
     float32 (float64 for float64 operands) [..., T, e]."""
     with torch.autocast(q.device.type, enabled=False):
-        qp = _prm(_wide(q), _wide(w))
+        qp = _prm(widen(q), widen(w))
         d = _dot("...tm,...m->...t", qp, ksum, "highest")[..., None]
         return _dot("...tm,...me->...te", qp, kptv, "highest") / d
 

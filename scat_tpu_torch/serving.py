@@ -24,8 +24,14 @@ joints_3d and joints_2d; ``export.export_predictor`` records it with
 request dtype) of such a program, the counterpart of the JAX package's
 one compiled program per bucket; ``export.ExportedPredictor`` serves
 through it.  This module imports the models only where a live
-predictor is built, so an artifact serves without them.  Not ported
-yet: ``mesh=`` data-parallel serving (ROADMAP.md queue 1 item 17).
+predictor is built, so an artifact serves without them.
+
+``mesh=`` (a one-process ``parallel.mesh.make_mesh(..., devices=[...])``,
+JAX ``serving.py:140-224``): data-parallel serving.  The predictor holds
+one replica of the model on each device of the ``data`` axis, every
+bucket is a multiple of the axis size (the ladder starts there), and
+each padded bucket is split across the replicas, which run at once and
+whose outputs are gathered on the first device.
 """
 
 from __future__ import annotations
@@ -63,10 +69,10 @@ def pick_bucket(n: int, buckets) -> int:
     return buckets[-1]
 
 
-def bucket_ladder(max_batch: int) -> list:
-    """Power-of-two bucket sizes from 1, the top clamped to
+def bucket_ladder(max_batch: int, base: int = 1) -> list:
+    """Power-of-two bucket sizes from ``base``, the top clamped to
     ``max_batch``."""
-    buckets = [1]
+    buckets = [min(base, max_batch)]
     while buckets[-1] < max_batch:
         buckets.append(min(buckets[-1] * 2, max_batch))
     return buckets
@@ -216,26 +222,32 @@ class HandPosePredictor:
     image_size: int = 224
     max_batch: int = 64
     device: Union[str, torch.device] = "cuda"
+    mesh: Optional[object] = None   # parallel.mesh.Mesh over devices
 
     @classmethod
     def from_checkpoint(cls, opt: Options, image_size: int = 224,
-                        device: Union[str, torch.device, None] = None
-                        ) -> "HandPosePredictor":
+                        device: Union[str, torch.device, None] = None,
+                        mesh=None) -> "HandPosePredictor":
         """The predictor of ``opt`` (``--net reg_transformer``,
         ``reg_transformer_coarse``, ``ViT`` or ``ViP``) on ``device``
-        (default ``cuda``; the CPU only when asked for).  Weights come from ``opt.checkpoint_path_eval``: a reference
-        ``.pth`` (loaded strictly: a ViP file must carry its frozen
-        ``mains.{i}.w``), or an empty path for a fresh init seeded with
-        ``opt.seed``."""
+        (default ``cuda``; the CPU only when asked for), or on the first
+        device of ``mesh``.  Weights come from ``opt.checkpoint_path_eval``:
+        a reference ``.pth`` (``utils/checkpoint.load_pth``: a partial file
+        warns, a ViP file must carry its frozen ``mains.{i}.w``), or an
+        empty path for a fresh init seeded with ``opt.seed``."""
         from scat_tpu_torch.models import build_model
         from scat_tpu_torch.models.factory import compute_dtype
-        device = resolve_device(device, "HandPosePredictor")
+        device = resolve_device(device if mesh is None else mesh.devices[0],
+                                "HandPosePredictor")
         model, _ = build_model(opt, image_size)
         load_weights(model, opt.checkpoint_path_eval, seed=opt.seed)
         model.cast_compute(compute_dtype(opt))
-        return cls(model=model, image_size=image_size, device=device)
+        return cls(model=model, image_size=image_size, device=device,
+                   mesh=mesh)
 
     def __post_init__(self):
+        import copy
+
         from scat_tpu_torch.models.factory import check_keypoint_head
         check_keypoint_head(self.model, "HandPosePredictor")
         self.device = torch.device(self.device)
@@ -243,13 +255,38 @@ class HandPosePredictor:
         # the weights channels_last too lets cuDNN run NHWC convolutions
         self.model = self.model.to(
             self.device, memory_format=torch.channels_last).eval()
-        # power-of-two bucket sizes up to max_batch: at most
-        # log2(max_batch)+1 distinct batch shapes reach the device
-        self._buckets = bucket_ladder(self.max_batch)
+        self._replicas = [self.model]
+        base = 1
+        if self.mesh is not None:
+            if self.mesh.rank is not None:
+                raise ValueError(
+                    "HandPosePredictor(mesh=) takes a one-process mesh of "
+                    "devices, make_mesh(..., devices=[...])")
+            n = self.mesh.size("data")
+            devices = self.mesh.devices[:n]
+            if devices[0] != self.device:
+                raise ValueError(f"the predictor's device {self.device} is "
+                                 f"not the mesh's first, {devices[0]}")
+            self._replicas += [copy.deepcopy(self.model).to(d)
+                               for d in devices[1:]]
+            if self.max_batch % n:
+                self.max_batch = max(self.max_batch // n, 1) * n
+            base = n
+        # power-of-two bucket sizes (multiples of the data-axis size) up
+        # to max_batch: at most log2(max_batch)+1 batch shapes
+        self._buckets = bucket_ladder(self.max_batch, base)
 
     def _forward(self, images: torch.Tensor):
         with torch.inference_mode():
-            return serving_forward(self.model, images)
+            if len(self._replicas) == 1:
+                return serving_forward(self.model, images)
+            # each replica takes its rows of the padded bucket; the
+            # devices run at once, the outputs meet on the first
+            outs = [serving_forward(m, x.to(next(m.parameters()).device))
+                    for m, x in zip(self._replicas,
+                                    images.chunk(len(self._replicas)))]
+            return tuple(torch.cat([o[i].to(self.device) for o in outs])
+                         for i in range(3))
 
     def _put(self, a: np.ndarray) -> torch.Tensor:
         # torch tensors are writable: copy a read-only request buffer

@@ -11,7 +11,7 @@ the JAX package the schedule is a function of the step, applied per step
 
 from __future__ import annotations
 
-from typing import Callable, Tuple
+from typing import Callable, Optional, Tuple
 
 import torch
 from torch import nn
@@ -30,7 +30,8 @@ def warmup_schedule(steps_per_epoch: int, warmup_epochs: int = 15
 
 def make_optimizer(model: nn.Module, base_lr: float, steps_per_epoch: int,
                    warmup_epochs: int = 15, b1: float = 0.9,
-                   b2: float = 0.999, freeze_backbone: bool = False
+                   b2: float = 0.999, freeze_backbone: bool = False,
+                   foreach: Optional[bool] = None
                    ) -> Tuple[torch.optim.Adam,
                               torch.optim.lr_scheduler.LambdaLR]:
     """Adam (torch's defaults, reference train.py:60) with the warmup.
@@ -38,10 +39,13 @@ def make_optimizer(model: nn.Module, base_lr: float, steps_per_epoch: int,
     ``freeze_backbone`` is the reference's declared-but-unwired
     ``--freeze`` (config.py:45), as the JAX package wires it: the
     parameters under ``main_encoder`` get no updates (they are left out
-    of the optimizer); their BatchNorm statistics still update."""
+    of the optimizer); their BatchNorm statistics still update.
+    ``foreach=False``: one parameter at a time (FSDP's sharded and
+    replicated parameters cannot meet in one multi-tensor op)."""
     params = [p for name, p in model.named_parameters()
               if not (freeze_backbone and name.startswith("main_encoder."))]
-    opt = torch.optim.Adam(params, lr=base_lr, betas=(b1, b2), eps=1e-8)
+    opt = torch.optim.Adam(params, lr=base_lr, betas=(b1, b2), eps=1e-8,
+                           foreach=foreach)
     sched = torch.optim.lr_scheduler.LambdaLR(
         opt, warmup_schedule(steps_per_epoch, warmup_epochs))
     return opt, sched

@@ -12,6 +12,7 @@ crop affines and warps them inside the step.
 
 from __future__ import annotations
 
+import contextlib
 from typing import Callable, Dict, Optional, Sequence, Tuple
 
 import torch
@@ -59,22 +60,52 @@ def forward_loss(model: nn.Module, images: torch.Tensor,
                  l_weight_3d: float, l_weight_2d: float,
                  pl_reg: bool = False,
                  pl_mean: Optional[torch.Tensor] = None,
-                 ema_reset_compat: bool = True, **model_inputs):
+                 ema_reset_compat: bool = True, group=None,
+                 **model_inputs):
     """The model in its current mode on NHWC ``images`` (with
     ``model_inputs``, e.g. ``token_mask=`` or ``dropout_masks=``), and
-    the SCAT loss: ``(breakdown, new_pl_mean, joints3d, joints2d_px)``."""
+    the SCAT loss: ``(breakdown, new_pl_mean, joints3d, joints2d_px)``;
+    over ``group`` (a mesh's ``data`` axis) the terms are this rank's
+    shares of the global batch's."""
     outputs = model(images.permute(0, 3, 1, 2), **model_inputs)
     _, j3d, j2d = predictions_to_keypoints(prediction(outputs))
     breakdown, new_pl = losses_lib.scat_loss(
         j3d.reshape(-1, 63), j2d.reshape(-1, 42), labels, l_weight_3d,
         l_weight_2d, valid=valid, pl_grad=outputs[-1] if pl_reg else None,
-        pl_mean_state=pl_mean, ema_reset_compat=ema_reset_compat)
+        pl_mean_state=pl_mean, ema_reset_compat=ema_reset_compat,
+        group=group)
     return breakdown, new_pl, j3d, j2d
+
+
+def shard_inputs(inputs, index: int, count: int):
+    """This rank's rows (``index`` of ``count``) of the random inputs drawn
+    for a global microbatch: every tensor with a batch axis (2-d and
+    up; the flagship's token mask is one for the whole batch)."""
+    if count == 1:
+        return inputs
+    if isinstance(inputs, dict):
+        return {k: shard_inputs(v, index, count) for k, v in inputs.items()}
+    if isinstance(inputs, (list, tuple)):
+        return type(inputs)(shard_inputs(v, index, count) for v in inputs)
+    if inputs.dim() < 2:
+        return inputs
+    m = inputs.shape[0] // count
+    return inputs[index * m:(index + 1) * m]
+
+
+def _no_sync(forward: nn.Module, last: bool):
+    """Skip the gradient reduction of a micro-step but the last: DDP's
+    ``no_sync``; FSDP2's ``set_requires_gradient_sync``."""
+    if hasattr(forward, "no_sync"):
+        return contextlib.nullcontext() if last else forward.no_sync()
+    if hasattr(forward, "set_requires_gradient_sync"):
+        forward.set_requires_gradient_sync(last)
+    return contextlib.nullcontext()
 
 
 def make_train_step(l_weight_3d: float, l_weight_2d: float,
                     pl_reg: bool = False, ema_reset_compat: bool = True,
-                    grad_accum: int = 1
+                    grad_accum: int = 1, mesh=None
                     ) -> Callable[[TrainState, Batch], Dict[str, torch.Tensor]]:
     """The train step for a state whose model has the ``(pred,
     feat_visual[, attn][, pl_grad])`` output contract: one forward and backward
@@ -86,13 +117,33 @@ def make_train_step(l_weight_3d: float, l_weight_2d: float,
     by its share of the batch's valid samples, so that part of the
     summed gradient equals the full-batch gradient; the PL term is
     weighted 1/A, and BN statistics, the PL EMA and the token masks
-    thread through the microbatches in turn, as in the JAX package."""
+    thread through the microbatches in turn, as in the JAX package.
+
+    Under a ``mesh`` (``parallel/mesh.py``) the batch is this rank's rows
+    (``mesh.shard_batch``), the forward runs through ``state.forward``
+    (DDP or FSDP), the random inputs are drawn for the global
+    microbatch and sliced, each term is this rank's share of the global
+    batch's (multiplied by ``mesh.loss_scale()`` for the backward), a
+    micro-step but the last skips the gradient reduction, and the stats
+    are the global batch's."""
     if grad_accum < 1:
         raise ValueError(f"grad_accum must be >= 1, got {grad_accum}")
+    group = None if mesh is None else mesh.data_group
+    d = 1 if mesh is None else mesh.size("data")
+    rank = 0 if mesh is None else mesh.coord("data")
+    scale = 1.0 if mesh is None else mesh.loss_scale()
+
+    def global_sum(x: torch.Tensor) -> torch.Tensor:
+        if group is None:
+            return x
+        x = x.detach().clone()
+        torch.distributed.all_reduce(x, group=group)
+        return x
 
     def train_step(state: TrainState, batch: Batch
                    ) -> Dict[str, torch.Tensor]:
         model = state.model
+        forward = state.forward
         model.train()
         images, labels = batch["image"], batch["label"]
         valid = batch.get("valid")
@@ -103,31 +154,38 @@ def make_train_step(l_weight_3d: float, l_weight_2d: float,
             raise ValueError(f"batch size {n} is not divisible by "
                              f"--grad_accum {grad_accum}")
         m = n // grad_accum
-        sv_total = valid.sum().clamp(min=1.0)
+        sv_total = global_sum(valid.sum()).clamp(min=1.0)
         state.optimizer.zero_grad(set_to_none=True)
         sums = torch.zeros(4, device=labels.device)
         pl_mean = state.pl_mean
         pred0 = None
         for i in range(grad_accum):
             sl = slice(i * m, (i + 1) * m)
-            bd, pl_mean, j3d, j2d = forward_loss(
-                model, images[sl], labels[sl], valid[sl], l_weight_3d,
-                l_weight_2d, pl_reg, pl_mean, ema_reset_compat,
-                **train_inputs(model, m, state.generator))
-            if grad_accum == 1:
-                total, parts = bd.total, (bd.total, bd.l_3d, bd.l_2d,
-                                          bd.l_pl)
-            else:
-                w = valid[sl].sum() / sv_total
-                w_pl = 1.0 / grad_accum
-                pl_part = losses_lib.PL_WEIGHT * bd.l_pl
-                total = w * (bd.total - pl_part) + w_pl * pl_part
-                parts = (total, w * bd.l_3d, w * bd.l_2d, w_pl * bd.l_pl)
-            total.backward()
+            inputs = shard_inputs(train_inputs(model, m * d, state.generator),
+                                  rank, d)
+            with _no_sync(forward, i == grad_accum - 1):
+                bd, pl_mean, j3d, j2d = forward_loss(
+                    forward, images[sl], labels[sl], valid[sl], l_weight_3d,
+                    l_weight_2d, pl_reg, pl_mean, ema_reset_compat, group,
+                    **inputs)
+                if grad_accum == 1:
+                    total, parts = bd.total, (bd.total, bd.l_3d, bd.l_2d,
+                                              bd.l_pl)
+                else:
+                    w = global_sum(valid[sl].sum()) / sv_total
+                    w_pl = 1.0 / grad_accum
+                    pl_part = losses_lib.PL_WEIGHT * bd.l_pl
+                    total = w * (bd.total - pl_part) + w_pl * pl_part
+                    parts = (total, w * bd.l_3d, w * bd.l_2d,
+                             w_pl * bd.l_pl)
+                (total * scale if mesh is not None else total).backward()
             sums += torch.stack(parts).detach()
             pl_mean = pl_mean.detach()
             if pred0 is None:
                 pred0 = (j3d[0].detach(), j2d[0].detach())
+        if state.reduce_gradients is not None:
+            state.reduce_gradients()
+        sums = global_sum(sums)
         state.optimizer.step()
         state.scheduler.step()
         state.step += 1
@@ -173,6 +231,21 @@ def make_fused_preprocess_train_step(
     return train_step
 
 
+def keypoint_metrics(aligned: torch.Tensor, labels: torch.Tensor,
+                     valid: torch.Tensor,
+                     pck_range: Sequence[float] =
+                     metrics_lib.DEFAULT_PCK_RANGE_MM,
+                     flat_compat: bool = True
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(PCK over ``pck_range``, per-sample MPJPE) of Procrustes-aligned
+    joints [B,21,3] against the labels' 3D joints (the evaluator runs it
+    on the gathered global batch under a mesh)."""
+    gt3d = losses_lib.split_labels(labels).joints_3d.reshape(-1, 21, 3)
+    pck = metrics_lib.cal_pck(aligned, gt3d, pck_range,
+                              flat_compat=flat_compat, valid=valid)
+    return pck, metrics_lib.mpjpe(aligned, gt3d)
+
+
 def make_eval_step(model: nn.Module,
                    pck_range: Sequence[float] =
                    metrics_lib.DEFAULT_PCK_RANGE_MM,
@@ -198,9 +271,8 @@ def make_eval_step(model: nn.Module,
             gt3d = losses_lib.split_labels(labels).joints_3d.reshape(-1, 21,
                                                                      3)
             aligned = procrustes.similarity_align(j3d, gt3d)
-            pck = metrics_lib.cal_pck(aligned, gt3d, pck_range,
-                                      flat_compat=flat_compat, valid=valid)
-            err = metrics_lib.mpjpe(aligned, gt3d)
+            pck, err = keypoint_metrics(aligned, labels, valid, pck_range,
+                                        flat_compat)
         model.train(was_training)
         out = {"pck": pck, "mpjpe_per_sample": err, "valid": valid,
                "pred_joints_3d": aligned, "pred_joints_2d": j2d}

@@ -29,9 +29,21 @@ batches as ``debug_img/debug_gt_pred_{--debug_img}.png``
 is missing); ``--profile_trace_dir`` writes a ``torch.profiler`` Chrome
 trace of ``--profile_trace_steps`` steps from the 3rd
 (``utils/profiling.TraceWindow``); ``--tensorboard True`` mirrors the
-CSV as tensorboardX events.  Flags whose feature is not ported raise
-and name their ROADMAP.md item (``UNPORTED_FLAGS``); none is ignored.
-``--donate_state`` has nothing to do: the state is updated in place.
+CSV as tensorboardX events.  ``--donate_state`` has nothing to do: the
+state is updated in place.
+
+Under ``torchrun`` (one process a device) ``--mesh_shape`` lays the
+processes out (``parallel/mesh.py``): each rank trains on its rows of
+the ``data`` axis, which the loaders of a real dataset read and decode
+alone (``data/common``: the ranks of one ``data`` coordinate read the
+same rows; the synthetic task and an injected dataset give the global
+batch, of which each rank takes its rows), with DDP (or
+``--param_sharding fsdp``, FSDP2) and BatchNorm over the global batch;
+a ``model`` axis splits the transformer's Megatron pairs, a ``seq`` axis
+the token stream of ViP and ViT (the other nets run it replicated, as
+the JAX package's do), and a ``pipe`` axis runs replicated, as the JAX
+package's train step does.  Process 0 prints, logs and writes the
+checkpoints, which every rank gathers to the global layout.
 """
 
 from __future__ import annotations
@@ -49,36 +61,16 @@ from scat_tpu_torch.data.synthetic import SyntheticDataset
 from scat_tpu_torch.devices import resolve_device
 from scat_tpu_torch.models import build_model
 from scat_tpu_torch.models.factory import MANO_PARAM_NETS, compute_dtype
+from scat_tpu_torch.parallel import mesh as mesh_lib
+from scat_tpu_torch.parallel import sharding_rules
 from scat_tpu_torch.training import schedule, steps
 from scat_tpu_torch.training.state import TrainState
 from scat_tpu_torch.utils import checkpoint as ckpt_lib
 from scat_tpu_torch.utils.logging import MetricsLogger
 from scat_tpu_torch.utils.profiling import TraceWindow
 
-# (flag, test on the options, ROADMAP.md queue 1 item that ports it)
-UNPORTED_FLAGS = (
-    ("--param_sharding fsdp", lambda o: o.param_sharding == "fsdp", 17),
-    ("a multi-device --mesh_shape",
-     lambda o: any(size not in (1, -1) for _, size in mesh_axes(o)), 17),
-)
-
-
-def mesh_axes(opt: Options):
-    """``--mesh_shape`` as ((name, size), ...), -1 = every device."""
-    axes = []
-    for part in opt.mesh_shape.split(","):
-        name, _, n = part.partition(":")
-        axes.append((name.strip(), int(n) if n else -1))
-    return tuple(axes)
-
-
 def check_flags(opt: Options) -> None:
-    """Raise on a flag the port does not carry yet, naming its item."""
-    for what, hit, item in UNPORTED_FLAGS:
-        if hit(opt):
-            raise NotImplementedError(
-                f"{what} is not ported to scat_tpu_torch yet "
-                f"(ROADMAP.md queue 1 item {item})")
+    """Raise on a flag value the trainer cannot run."""
     if opt.param_sharding not in ("replicated", "fsdp"):
         raise ValueError(f"--param_sharding {opt.param_sharding!r}: "
                          "expected 'replicated' or 'fsdp'")
@@ -93,11 +85,12 @@ def make_dataset(opt: Options, image_size: int, training: bool = True,
     """The batches of ``opt`` on ``device``: the synthetic task, the
     training mix of ``--stage``, or the evaluation set of
     ``--eval_dataset`` (STB, frei or ho3d), each at this process's share
-    of ``--batch_size``."""
+    of ``--batch_size`` (the synthetic task: the global batch, which it
+    renders on the card, so that every mesh trains on the same rows)."""
     lbs = local_batch_size(opt.batch_size)
     if opt.synthetic_data:
         return SyntheticDataset(
-            lbs, num_batches=opt.steps_per_epoch or 16, seed=opt.seed,
+            opt.batch_size, num_batches=opt.steps_per_epoch or 16, seed=opt.seed,
             image_size=image_size,
             mean_params=assets.load_mean_params(outside=opt.outside),
             layout=opt.synthetic_layout, device=resolve_device(device))
@@ -119,6 +112,39 @@ def make_dataset(opt: Options, image_size: int, training: bool = True,
     return get_loader_STB_eval(opt, device=device)
 
 
+def parallelize(state: TrainState, mesh: mesh_lib.Mesh, opt: Options,
+                steps_per_epoch: int,
+                tp_min_elems: int = sharding_rules.TP_MIN_ELEMS) -> None:
+    """Lay a (restored) train state over ``mesh`` in place: the ``model``
+    axis's Megatron split, the ``seq`` axis's token split, then DDP or
+    FSDP (``--param_sharding fsdp``) over the replicas.  The optimizer is
+    rebuilt over the resulting parameters and takes the global-layout
+    moments sliced as its parameters are."""
+    model = state.model
+    opt_sd, sched_sd = state.optimizer.state_dict(), \
+        state.scheduler.state_dict()
+    if mesh_lib.MODEL_AXIS in mesh.axis_names:
+        sharding_rules.shard_transformer(model, mesh, tp_min_elems)
+    sp = sharding_rules.seq_parallel(mesh)
+    if sp is not None and hasattr(model, "set_seq_parallel"):
+        model.set_seq_parallel(sp)
+    fsdp = opt.param_sharding == "fsdp"
+    if fsdp:
+        state.reduce_gradients = mesh_lib.fsdp_state(mesh, model)
+    else:
+        state.wrapped = mesh_lib.replicate_state(mesh, model)
+    foreach = False if fsdp else None
+    state.optimizer, state.scheduler = schedule.make_optimizer(
+        model, opt.lr, steps_per_epoch, warmup_epochs=15,
+        freeze_backbone=opt.freeze, foreach=foreach)
+    if opt_sd["state"]:
+        mesh_lib.shard_optimizer_state(model, state.optimizer, opt_sd)
+        for group in state.optimizer.param_groups:
+            group["foreach"] = foreach
+    state.scheduler.load_state_dict(sched_sd)
+    state.mesh = mesh
+
+
 def _sync(device: torch.device) -> None:
     if device.type == "cuda":
         torch.cuda.synchronize(device)
@@ -132,6 +158,11 @@ class Trainer:
         check_flags(opt)
         self.opt = opt
         self.device = resolve_device(device, "the trainer")
+        self.mesh = mesh_lib.make_mesh(mesh_lib.mesh_axes(opt),
+                                       device_type=self.device.type)
+        if self.mesh is not None and self.device.type == "cuda":
+            self.device = mesh_lib.rank_device("cuda")
+        self.is_main = mesh_lib.is_main_process()
         self.batch_size = opt.batch_size
         self.epoches = opt.epoch
         self.pl = opt.pl_reg
@@ -165,6 +196,9 @@ class Trainer:
 
         self.train_loader = dataset if dataset is not None else \
             make_dataset(opt, image_size, device=self.device)
+        # the batches that hold every rank's rows (the rest are this
+        # rank's already)
+        self._global_batches = dataset is not None or opt.synthetic_data
         steps_per_epoch = len(self.train_loader)
         print("batch num", steps_per_epoch)
         optimizer, scheduler = schedule.make_optimizer(
@@ -176,10 +210,12 @@ class Trainer:
         if opt.resume:
             self.success_load = ckpt_lib.restore_state(opt.checkpoint_hand,
                                                        self.state)
+        if self.mesh is not None:
+            parallelize(self.state, self.mesh, opt, steps_per_epoch)
         self.train_step = steps.make_train_step(
             opt.l_weight_3d, opt.l_weight_2d, pl_reg=self.pl,
             ema_reset_compat=opt.compat_pl_ema_reset,
-            grad_accum=opt.grad_accum)
+            grad_accum=opt.grad_accum, mesh=self.mesh)
 
     @property
     def model(self):
@@ -205,12 +241,19 @@ class Trainer:
     def train(self) -> None:
         opt = self.opt
         log_every = max(opt.log_every, 1)
-        logger = MetricsLogger(opt.checkpoint_folder,
+        main = self.is_main
+        logger = MetricsLogger(opt.checkpoint_folder if main else None,
                                tensorboard=opt.tensorboard)
         # --profile_trace_dir: one steady-state trace (the reference's
         # t0..t6 wall clocks are taken and never reported,
         # train.py:128-208)
-        trace = TraceWindow(opt.profile_trace_dir, opt.profile_trace_steps)
+        trace = TraceWindow(opt.profile_trace_dir if main else None,
+                            opt.profile_trace_steps)
+
+        def shard(b):
+            if not self._global_batches:
+                return b
+            return mesh_lib.shard_batch(self.mesh, b, opt.grad_accum)
         global_step = self.state.step
         for epoch in range(self.epoches):
             # loss_pl accumulates over the whole epoch and prints raw, as
@@ -226,8 +269,13 @@ class Trainer:
             # renders on the card in the step's stream
             loader = self.train_loader
             if not isinstance(loader, SyntheticDataset):
-                loader = prefetch_to_device(loader, self.device)
+                # under a mesh the thread also takes this rank's rows
+                # of a global batch
+                loader = prefetch_to_device(loader, self.device,
+                                            shard=shard)
             for i, batches in enumerate(loader):
+                if isinstance(loader, SyntheticDataset):
+                    batches = shard(batches)
                 # ConcatDataset yields one batch of each member: one step
                 # each, as the reference's inner loop (train.py:136-138)
                 if isinstance(batches, dict):
@@ -241,7 +289,7 @@ class Trainer:
                     loss_pl += stats["loss_pl"]
                     window_steps += 1
                     trace.step(global_step, stats["loss"])
-                if opt.debug and i % 100 == 0:
+                if opt.debug and main and i % 100 == 0:
                     # one grid a firing, of the tuple's last member (the
                     # reference overwrites one PNG per member, so only
                     # the last survives)
@@ -252,10 +300,11 @@ class Trainer:
                     dt = time.perf_counter() - t_window
                     # stdout divides by log_every like the reference
                     # (train.py:231-232); the CSV by the true step count
-                    print("[%d, %5d] loss: %.3f, 3d loss: %.3f, "
-                          "2d loss: %.3f, pose length reg: %.3f"
-                          % (epoch + 1, i + 1, total / log_every,
-                             l3d / log_every, l2d / log_every, pl))
+                    if main:
+                        print("[%d, %5d] loss: %.3f, 3d loss: %.3f, "
+                              "2d loss: %.3f, pose length reg: %.3f"
+                              % (epoch + 1, i + 1, total / log_every,
+                                 l3d / log_every, l2d / log_every, pl))
                     logger.log(global_step, {
                         "epoch": epoch + 1,
                         "loss": total / window_steps,
@@ -270,10 +319,12 @@ class Trainer:
                     t_window = time.perf_counter()
             _sync(self.device)
             dt = time.perf_counter() - t_epoch
-            print(f"epoch {epoch + 1}: {n_samples / dt:.1f} samples/s")
+            if main:
+                print(f"epoch {epoch + 1}: {n_samples / dt:.1f} samples/s")
             if epoch % opt.checkpoint_every_epochs == 0:
                 ckpt_lib.save_state(opt.checkpoint_folder, self.state)
-        print("Finished Training")
+        if main:
+            print("Finished Training")
         trace.stop()
         logger.close()
         ckpt_lib.save_state(opt.checkpoint_folder, self.state,

@@ -12,11 +12,19 @@ Weights, ``load_weights(model, path, seed)``:
     ``ViP.init_weights``), so a fresh port model is scaled like a fresh
     JAX one.
   * ``*.pth``: a reference-keyed state_dict (or ``{"state_dict": ...}``)
-    read with ``torch.load(weights_only=True)`` and loaded with
-    ``strict=True``; only the reference's positional-encoding buffer,
-    which the port recomputes, is dropped.  A missing file raises, as
-    in the JAX package: a typo must not serve random weights, and a ViP
-    file without its frozen projections ``mains.{i}.w`` must not load.
+    read with ``torch.load(weights_only=True)`` and merged non-strictly,
+    with the JAX package's semantics (``_load_pth_into``,
+    ``scat_tpu/utils/checkpoint.py:78-112``; ``load_pth``): the layout
+    is detected as ``torch_import.import_torch_auto`` detects it, every
+    tensor whose name and shape match lands, a partial merge prints the
+    JAX package's ``WARNING: only M/N checkpoint tensors matched`` line
+    and keeps the fresh initialisation for the rest, and zero matches
+    raise its "architecture mismatch" error.  A missing file raises, as
+    in the JAX package: a typo must not serve random weights.  A ViP
+    file loads strictly: its frozen projections ``mains.{i}.w`` are
+    buffers of the port's model, and one without them is refused (the
+    JAX package refuses every ViP ``.pth`` on this path, as its
+    importer cannot place the constants).
 
 Train state, ``save_state``/``restore_state``: one ``torch.save`` of
 ``TrainState.state_dict()`` (model, optimizer, schedule, generator,
@@ -35,6 +43,7 @@ from __future__ import annotations
 
 import math
 import os
+import re
 
 import torch
 from torch import nn
@@ -82,11 +91,12 @@ def init_weights(model: nn.Module, seed: int = 0) -> None:
                 nn.init.normal_(p, generator=gen)
 
 
-def load_weights(model: nn.Module, path: str, seed: int = 0) -> None:
-    """Fill ``model`` from ``path`` (see the module docstring)."""
+def load_weights(model: nn.Module, path: str, seed: int = 0) -> int:
+    """Fill ``model`` from ``path`` (see the module docstring); returns
+    the number of tensors merged (0 for a fresh init)."""
     if not path:
         init_weights(model, seed)
-        return
+        return 0
     if not path.endswith(".pth"):
         raise ValueError(
             f"{path}: scat_tpu_torch reads reference-keyed .pth "
@@ -94,7 +104,20 @@ def load_weights(model: nn.Module, path: str, seed: int = 0) -> None:
     apath = os.path.abspath(path)
     if not os.path.exists(apath):
         raise FileNotFoundError(f"torch checkpoint {apath} does not exist")
-    load_state_dict(model, _read(apath))
+    sd = _read(apath)
+    if not covers(sd.get("state_dict", sd), model):
+        # what the file does not hold keeps a seeded fresh init
+        init_weights(model, seed)
+    return load_pth(model, sd, apath)
+
+
+def covers(sd: dict, model: nn.Module) -> bool:
+    """Whether ``sd`` holds every tensor of ``model``'s state_dict, by
+    name and shape (a full file: no fresh init is left to draw)."""
+    own = {_canonical(k): tuple(v.shape) for k, v in sd.items()
+           if torch.is_tensor(v)}
+    return all(own.get(_canonical(k)) == tuple(v.shape)
+               for k, v in model.state_dict().items())
 
 
 def load_state_dict(model: nn.Module, sd: dict) -> None:
@@ -106,6 +129,97 @@ def load_state_dict(model: nn.Module, sd: dict) -> None:
                           strict=True)
 
 
+def detect_layout(sd: dict) -> str:
+    """The layout of a reference state_dict, detected as the JAX
+    package's ``torch_import.import_torch_auto`` detects it
+    (``torch_import.py:483-541``): "vit", "encoder" (EncoderTransformer,
+    plain or coarse, and the HRNet and Inception encoders), "h3dw",
+    "hrnet", "inception" or "resnet" (the bare backbones); "vip" for a
+    ViP file.  An unknown layout raises the JAX package's error."""
+    ks = list(sd)
+    if "patch_emb.weight" in sd:
+        return "vip"
+    if "patch_to_embedding.weight" in sd and any(
+            k.startswith("transformer.layers.") for k in ks):
+        return "vit"
+    if any(k.startswith("transformer.layers") for k in ks):
+        return "encoder"
+    if any(k.startswith("feat_encoder.") for k in ks):
+        return "h3dw"
+    for prefix, layout in (("stage2.", "hrnet"), ("Mixed_5b", "inception"),
+                           ("layer1.", "resnet")):
+        if any(k.startswith(prefix) for k in ks):
+            return layout
+    raise ValueError("unrecognized torch checkpoint layout: "
+                     + ", ".join(sorted(ks)[:5]))
+
+
+# a pyramid layer's FeedForward is ``{L}.{i}.fn.net`` behind its PreNorm
+# and ``{L}.{i}.net`` on the final layer; the JAX package's importer maps
+# both to one flax module (``ff_{i}``), so a file of another depth merges
+# its FeedForward weights there
+_FF = re.compile(r"^(.*transformer\.layers\.\d+\.\d+)\.fn\.net\.")
+
+
+def _canonical(key: str) -> str:
+    return _FF.sub(r"\1.net.", key)
+
+
+def portable_keys(sd: dict) -> list:
+    """The tensors of a file that the JAX package's merge counts against
+    (``_load_pth_into``): weights, biases, BN statistics and the mask
+    token, less the positional encoding."""
+    return [k for k in sd
+            if k.endswith((".weight", ".bias", ".running_mean",
+                           ".running_var"))
+            and "positionalEncoding" not in k] \
+        + (["mask_token"] if "mask_token" in sd else [])
+
+
+def load_pth(model: nn.Module, sd: dict, path: str = "checkpoint") -> int:
+    """Merge a reference state_dict into ``model`` with the JAX package's
+    semantics (module docstring); returns the merged count, which
+    counts what the JAX package's importer counts (the BN step counters
+    load but are not counted)."""
+    sd = sd.get("state_dict", sd)
+    if detect_layout(sd) == "vip":
+        missing = [k for k in model.state_dict() if k.endswith(".w")
+                   and k.startswith("mains.") and k not in sd]
+        if missing:
+            # the strict load's error type, with the JAX package's words
+            # (torch_import.import_torch_auto)
+            raise RuntimeError(
+                "ViP checkpoints carry the frozen FAVOR+ features in "
+                f"mains.{{i}}.w; {path} lacks {', '.join(missing)}")
+        load_state_dict(model, sd)
+        merged = sum(1 for k in sd if not k.endswith("num_batches_tracked"))
+        print(f"torch checkpoint: merged {merged} tensors from {path}")
+        return merged
+    own = {_canonical(k): (k, v) for k, v in model.state_dict().items()}
+    picked, merged = {}, 0
+    for k, v in sd.items():
+        if k == PE_KEY or not torch.is_tensor(v):
+            continue
+        hit = own.get(_canonical(k))
+        if hit is not None and tuple(hit[1].shape) == tuple(v.shape):
+            picked[hit[0]] = v
+            merged += not k.endswith("num_batches_tracked")
+    if merged == 0:
+        raise ValueError(
+            f"{path}: no tensor of the torch checkpoint matched the "
+            "built model — architecture mismatch "
+            f"(checkpoint keys: {sorted(sd)[:4]}...)")
+    portable = portable_keys(sd)
+    if merged < len(portable):
+        print(f"WARNING: only {merged}/{len(portable)} checkpoint "
+              f"tensors matched the model (shape/arch mismatch — check "
+              "--vit_heads/--vit_depth/--net against the checkpoint); "
+              "unmatched weights keep their fresh initialization")
+    model.load_state_dict(picked, strict=False)
+    print(f"torch checkpoint: merged {merged} tensors from {path}")
+    return merged
+
+
 def _read(path: str) -> dict:
     sd = torch.load(path, map_location="cpu", weights_only=True)
     if not isinstance(sd, dict):
@@ -114,11 +228,16 @@ def _read(path: str) -> dict:
 
 
 def save_state(folder: str, state, name: str = PERIODIC_NAME) -> str:
-    """Atomic full-state save; returns the path."""
-    os.makedirs(folder, exist_ok=True)
+    """Atomic full-state save; returns the path.  Under a mesh every rank
+    gathers (``TrainState.state_dict``) and process 0 writes."""
     path = os.path.abspath(os.path.join(folder, name))
+    sd = state.state_dict()
+    from scat_tpu_torch.parallel.mesh import is_main_process
+    if not is_main_process():
+        return path
+    os.makedirs(folder, exist_ok=True)
     tmp = f"{path}.{os.getpid()}.tmp"
-    torch.save(state.state_dict(), tmp)
+    torch.save(sd, tmp)
     os.replace(tmp, path)
     return path
 
@@ -127,9 +246,9 @@ def restore_state(path: str, state) -> bool:
     """Resume ``state`` in place from ``path``; False (and a message) if
     the file is missing, as the reference trains from scratch then
     (train.py:68-70).  A full-state file restores everything; a reference
-    ``.pth`` (weights only) merges the tensors whose names and shapes
-    match, non-strict, and the optimizer starts fresh, the reference's
-    resume (train.py:66-75)."""
+    ``.pth`` (weights only) merges as ``load_pth`` does (the JAX
+    package's ``restore_state`` takes ``_load_pth_into`` there), and the
+    optimizer starts fresh, the reference's resume (train.py:66-75)."""
     path = os.path.abspath(path)
     if not os.path.exists(path):
         print(f"Error: {path} does not exists, Start from Scratch...")
@@ -138,8 +257,7 @@ def restore_state(path: str, state) -> bool:
     if "optimizer" in sd:
         state.load_state_dict(sd)
     else:
-        merged = merge_matching(state.model, sd.get("state_dict", sd))
-        print(f"torch checkpoint: merged {merged} tensors from {path}")
+        load_pth(state.model, sd, path)
     print(f"Checkpoint loaded from: {path}")
     return True
 

@@ -22,6 +22,11 @@ for the rest.  They are the port's own copy of the mapping in
 GRU gates of ``import_torch_motion_discriminator`` :616-680).  Layout
 conversions: conv kernels HWIO -> OIHW, dense kernels [in,out] ->
 [out,in].
+
+``flax_from_state_dict(net, sd)`` is the inverse: a reference-keyed
+state_dict as ``{"params", "batch_stats", "constants"}`` numpy trees
+under flax's names, through the same walks (the port's counterpart of
+``torch_import.import_torch_*``, ``torch_import.py:381-464, 616``).
 """
 
 from __future__ import annotations
@@ -49,7 +54,8 @@ class _Exporter:
             node = node[k]
         return None if isinstance(node, dict) else np.asarray(node)
 
-    def has(self, flax_path: Tuple[str, ...]) -> bool:
+    def has(self, flax_path: Tuple[str, ...],
+            torch_name: Optional[str] = None) -> bool:
         node = self.params
         for k in flax_path:
             if not isinstance(node, dict) or k not in node:
@@ -97,13 +103,21 @@ class _Exporter:
             self.out[torch_name] = v
 
 
+    def is_group_norm(self, flax_path, torch_name) -> bool:
+        return self.has(flax_path + ("GroupNorm_0",))
+
+    def block_norm(self, fb, i: int, torch_name) -> Tuple[str, ...]:
+        """A block's i-th norm: ``BatchNorm_<i>``, or ``_GN_<i>``."""
+        bn = fb + (f"BatchNorm_{i}",)
+        return bn if self.has(bn) else fb + (f"_GN_{i}",)
+
+
 def _norm(v, flax_path, torch_name) -> None:
     """A BatchNorm, or the GroupNorm of ``norm_layer="group"``, whose
     ``_GN`` wrapper (``scat_tpu/models/resnet.py:37-45``) nests its
     ``GroupNorm_0`` one level down and has no running statistics."""
-    gn = flax_path + ("GroupNorm_0",)
-    if v.has(gn):
-        v.ln(gn, torch_name)
+    if v.is_group_norm(flax_path, torch_name):
+        v.ln(flax_path + ("GroupNorm_0",), torch_name)
     else:
         v.bn(flax_path, torch_name)
 
@@ -123,14 +137,12 @@ def _walk_resnet(v, fp: Tuple[str, ...] = ("main_encoder",),
             fb = fp + (f"layer{stage + 1}_{b}",)
             tb = f"{tp}layer{stage + 1}.{b}"
             for ci in range(1, 4):
-                if not v.has(fb + (f"Conv_{ci - 1}",)):
+                if not v.has(fb + (f"Conv_{ci - 1}",), f"{tb}.conv{ci}"):
                     continue
                 v.conv(fb + (f"Conv_{ci - 1}",), f"{tb}.conv{ci}")
-                norm = fb + (f"BatchNorm_{ci - 1}",)
-                if not v.has(norm):
-                    norm = fb + (f"_GN_{ci - 1}",)
-                _norm(v, norm, f"{tb}.bn{ci}")
-            if v.has(fb + ("downsample_conv",)):
+                _norm(v, v.block_norm(fb, ci - 1, f"{tb}.bn{ci}"),
+                      f"{tb}.bn{ci}")
+            if v.has(fb + ("downsample_conv",), f"{tb}.downsample.0"):
                 v.conv(fb + ("downsample_conv",), f"{tb}.downsample.0")
                 _norm(v, fb + ("downsample_bn",), f"{tb}.downsample.1")
     v.dense(fp + ("fc1",), tp + "fc1")
@@ -180,7 +192,7 @@ def _walk_hrnet(v, fp: Tuple[str, ...], tp: str) -> None:
         for ci in range(1, 4):
             v.conv(fb + (f"Conv_{ci - 1}",), f"{tb}.conv{ci}")
             v.bn(fb + (f"BatchNorm_{ci - 1}",), f"{tb}.bn{ci}")
-        if v.has(fb + ("downsample_conv",)):
+        if v.has(fb + ("downsample_conv",), f"{tb}.downsample.0"):
             v.conv(fb + ("downsample_conv",), f"{tb}.downsample.0")
             v.bn(fb + ("downsample_bn",), f"{tb}.downsample.1")
     for fl, tr in (("t1_conv0", "transition1.0"),
@@ -446,3 +458,211 @@ def motion_discriminator_state_dict_from_flax(
         e.out["fc_u"] = np.asarray(sn["fc/kernel/u"])
         e.out["fc_sigma"] = np.asarray(sn["fc/kernel/sigma"])
     return _tensors(e.out)
+
+
+# ----------------------------------------------------------------------
+# The flax direction: a reference-keyed state_dict as the JAX package's
+# trees (the counterpart of torch_import.import_torch_*, :381-464, 616).
+# ----------------------------------------------------------------------
+
+class _Importer:
+    """Visitor that writes a torch-keyed state_dict into nested numpy
+    trees under flax's names, through the same walks as ``_Exporter``;
+    what the state_dict lacks is skipped."""
+
+    def __init__(self, sd: Dict[str, np.ndarray]):
+        self.sd = sd
+        self.params: Dict = {}
+        self.batch_stats: Dict = {}
+
+    @staticmethod
+    def _set(tree: Dict, path: Tuple[str, ...], value: np.ndarray) -> None:
+        for k in path[:-1]:
+            tree = tree.setdefault(k, {})
+        tree[path[-1]] = np.ascontiguousarray(value)
+
+    def has(self, flax_path, torch_name: Optional[str] = None) -> bool:
+        return torch_name is not None and torch_name + ".weight" in self.sd
+
+    def is_group_norm(self, flax_path, torch_name) -> bool:
+        return (torch_name + ".weight" in self.sd
+                and torch_name + ".running_mean" not in self.sd)
+
+    def block_norm(self, fb, i: int, torch_name) -> Tuple[str, ...]:
+        return fb + ((f"_GN_{i}",) if self.is_group_norm(fb, torch_name)
+                     else (f"BatchNorm_{i}",))
+
+    def conv(self, flax_path, torch_name):
+        w = self.sd.get(torch_name + ".weight")
+        if w is not None:
+            self._set(self.params, flax_path + ("kernel",),
+                      np.transpose(w, (2, 3, 1, 0)))
+
+    def bn(self, flax_path, torch_name):
+        for leaf, suffix, tree in (("scale", ".weight", self.params),
+                                   ("bias", ".bias", self.params),
+                                   ("mean", ".running_mean", self.batch_stats),
+                                   ("var", ".running_var", self.batch_stats)):
+            v = self.sd.get(torch_name + suffix)
+            if v is not None:
+                self._set(tree, flax_path + (leaf,), v)
+
+    def dense(self, flax_path, torch_name):
+        w = self.sd.get(torch_name + ".weight")
+        if w is not None:
+            self._set(self.params, flax_path + ("kernel",), w.T)
+        b = self.sd.get(torch_name + ".bias")
+        if b is not None:
+            self._set(self.params, flax_path + ("bias",), b)
+
+    def ln(self, flax_path, torch_name):
+        for leaf, suffix in (("scale", ".weight"), ("bias", ".bias")):
+            v = self.sd.get(torch_name + suffix)
+            if v is not None:
+                self._set(self.params, flax_path + (leaf,), v)
+
+    def raw(self, flax_path, torch_name):
+        v = self.sd.get(torch_name)
+        if v is not None:
+            self._set(self.params, flax_path, v)
+
+
+def _layers_depth(sd: Dict, prefix: str = "transformer.layers.") -> int:
+    """The pyramid depth of a state_dict, from its layer keys (as the JAX
+    package's ``import_torch_auto`` infers it)."""
+    return 1 + max((int(k[len(prefix):].split(".")[0]) for k in sd
+                    if k.startswith(prefix)), default=-1)
+
+
+def _conv_bn_keys(imp: _Importer, fp: Tuple[str, ...], tp: str) -> None:
+    """The inverse of ``_walk_conv_bn_tree``: every ``<path>.conv`` and
+    ``<path>.bn`` under ``tp`` by its dotted path."""
+    for key in imp.sd:
+        if not key.startswith(tp) or not key.endswith(".weight"):
+            continue
+        parts = tuple(key[len(tp):-len(".weight")].split("."))
+        if parts[-1] == "conv":
+            imp.conv(fp + parts, key[:-len(".weight")])
+        elif parts[-1] == "bn":
+            imp.bn(fp + parts, key[:-len(".weight")])
+
+
+def _motion_discriminator_trees(imp: _Importer) -> None:
+    """The inverse of ``motion_discriminator_state_dict_from_flax``: torch's
+    stacked [r; z; n] GRU gates as flax's per-gate Denses.  The r and z
+    biases fold, ``ir.b = b_ih_r + b_hh_r`` (the JAX package's
+    ``import_torch_motion_discriminator``), ``in.b = b_ih_n``, ``hn.b =
+    b_hh_n``: exact, since r and z apply sigmoid(Wx + b_ih + Uh + b_hh)."""
+    sd = imp.sd
+    layer = 0
+    while f"gru.weight_ih_l{layer}" in sd:
+        w_ih, w_hh = sd[f"gru.weight_ih_l{layer}"], sd[f"gru.weight_hh_l{layer}"]
+        b_ih, b_hh = sd[f"gru.bias_ih_l{layer}"], sd[f"gru.bias_hh_l{layer}"]
+        h = w_hh.shape[1]
+        cell = ("GRUCell_%d" % layer,)
+        for i, gate in enumerate(("r", "z", "n")):
+            rows = slice(i * h, (i + 1) * h)
+            imp._set(imp.params, cell + (f"i{gate}", "kernel"), w_ih[rows].T)
+            imp._set(imp.params, cell + (f"h{gate}", "kernel"), w_hh[rows].T)
+            if gate == "n":
+                imp._set(imp.params, cell + ("in", "bias"), b_ih[rows])
+                imp._set(imp.params, cell + ("hn", "bias"), b_hh[rows])
+            else:
+                imp._set(imp.params, cell + (f"i{gate}", "bias"),
+                         b_ih[rows] + b_hh[rows])
+        layer += 1
+    linears = sorted(int(k.split(".")[2]) for k in sd
+                     if k.startswith("attention.attention.")
+                     and k.endswith(".weight"))
+    for j, idx in enumerate(linears):
+        name = "attn_out" if j == len(linears) - 1 else f"attn_{j}"
+        imp.dense(("attention", name), f"attention.attention.{idx}")
+    imp.dense(("fc",), "fc")
+    if "fc_u" in sd:
+        imp.batch_stats["SpectralNorm_0"] = {
+            "fc/kernel/u": np.ascontiguousarray(sd["fc_u"]),
+            "fc/kernel/sigma": np.ascontiguousarray(sd["fc_sigma"])}
+
+
+FLAX_NETS = ("reg_transformer", "reg_transformer_coarse", "backbone_hrnet",
+             "backbone_incepv3", "frankmocap", "ViT", "ViP",
+             "motion_discriminator", "resnet", "hrnet", "inception",
+             "yunqian", "spade")
+
+
+def flax_from_state_dict(net: str, sd: Dict) -> Dict[str, Dict]:
+    """A reference-keyed state_dict of ``net`` as the JAX package's trees:
+    ``{"params", "batch_stats", "constants"}`` of numpy arrays under
+    flax's names, the inverse of the ``*_state_dict_from_flax`` maps
+    above (and the counterpart of ``torch_import.import_torch_*``).
+    ``net`` is a ``--net`` name, ``motion_discriminator``, ``yunqian``,
+    ``spade``, or a bare backbone (``resnet``, also the truncated trunk;
+    ``hrnet``; ``inception``).  ``ViP``'s frozen ``mains.{i}.w`` land in
+    ``constants``; the BN step counters and the positional-encoding
+    buffer have no flax counterpart and are dropped."""
+    if net not in FLAX_NETS:
+        raise ValueError(f"no flax interchange for {net!r}; expected one "
+                         f"of {', '.join(FLAX_NETS)}")
+    sd = {k: np.asarray(v.detach().cpu().numpy() if torch.is_tensor(v)
+                        else v) for k, v in sd.get("state_dict", sd).items()}
+    imp = _Importer(sd)
+    constants: Dict = {}
+    depth = _layers_depth(sd)
+    if net in ("reg_transformer", "reg_transformer_coarse"):
+        _walk_resnet(imp)
+        imp.conv(("conv1x1_channel_reduction",), "conv1x1_channel_reduction")
+        imp.raw(("mask_token",), "mask_token")
+        imp.dense(("regressor",), "regressor")
+        _walk_pyramid(imp, depth, net == "reg_transformer_coarse")
+    elif net in ("backbone_hrnet", "backbone_incepv3"):
+        if net == "backbone_hrnet":
+            _walk_hrnet(imp, ("main_encoder",), "main_encoder.")
+        else:
+            _conv_bn_keys(imp, ("main_encoder",), "main_encoder.")
+        imp.conv(("conv1x1_channel_reduction",), "conv1x1_channel_reduction")
+        imp.raw(("head", "mask_token"), "mask_token")
+        imp.dense(("head", "regressor"), "regressor.0")
+        _walk_pyramid(imp, depth, fp=("head", "transformer"))
+    elif net == "ViT":
+        imp.dense(("patch_to_embedding",), "patch_to_embedding")
+        imp.raw(("cls_token",), "cls_token")
+        imp.raw(("pos_embedding",), "pos_embedding")
+        imp.dense(("head",), "head.0")
+        _walk_pyramid(imp, depth)
+    elif net == "ViP":
+        vip_depth = _layers_depth(sd, "mains.")
+        _walk_vip(imp, vip_depth)
+        for i in range(vip_depth):
+            if f"mains.{i}.w" in sd:
+                constants[f"block_{i}"] = {
+                    "w": np.ascontiguousarray(sd[f"mains.{i}.w"])}
+    elif net == "frankmocap":
+        _walk_resnet(imp, ("ResNet_0",))
+        imp.dense(("fc2",), "feat_encoder.1")
+        imp.dense(("regressor",), "regressor.0")
+    elif net == "motion_discriminator":
+        _motion_discriminator_trees(imp)
+    elif net == "resnet":
+        _walk_resnet(imp, (), "")
+    elif net == "hrnet":
+        _walk_hrnet(imp, (), "")
+    elif net == "inception":
+        _conv_bn_keys(imp, (), "")
+    elif net == "yunqian":
+        for i in range(depth):
+            L = f"transformer.layers.{i}"
+            imp.dense((f"attn_{i}", "to_qkv"), f"{L}.0.fn.to_qkv")
+            imp.dense((f"attn_{i}", "to_out"), f"{L}.0.fn.to_out.0")
+            imp.dense((f"ff_{i}_1",), f"{L}.1.fn.net.0")
+            imp.dense((f"ff_{i}_2",), f"{L}.1.fn.net.3")
+        imp.ln(("head_norm",), "mlp_head.0")
+        imp.dense(("head",), "mlp_head.1")
+    else:   # spade
+        for flax_name, torch_name in (("mlp_shared", "mlp_shared.0"),
+                                      ("mlp_gamma", "mlp_gamma"),
+                                      ("mlp_beta", "mlp_beta")):
+            imp.conv((flax_name,), torch_name)
+            imp.raw((flax_name, "bias"), torch_name + ".bias")
+        imp.bn(("param_free_norm",), "param_free_norm")
+    return {"params": imp.params, "batch_stats": imp.batch_stats,
+            "constants": constants}

@@ -199,10 +199,24 @@ def test_injected_dataset_refuses_a_name(tmp_path, state_dict, batches,
 
 
 @pytest.mark.parametrize("flags,item", [
-    pytest.param(dict(mesh_shape="data:4"), 17, id="flags1-17")])
-def test_unported_flags_name_their_item(tmp_path, flags, item):
-    with pytest.raises(NotImplementedError, match=f"item {item}"):
-        evaluator.Evaluator(_opt(tmp_path, **flags), device="cpu")
+    pytest.param(dict(mesh_shape="data:-1"), 17, id="flags1-17")])
+def test_unported_flags_name_their_item(tmp_path, flags, item, state_dict,
+                                        batches, small_models):
+    """The mesh that ROADMAP.md queue 1 item 17 ported evaluates, in a
+    gloo group of one process, to the numbers of the Evaluator without
+    one."""
+    import torch_parallel_worker
+    want = evaluator.Evaluator(_opt(tmp_path), image_size=IMG,
+                               dataset=batches, state_dict=state_dict,
+                               device="cpu").eval()
+    with torch_parallel_worker.world_1():
+        ev = evaluator.Evaluator(_opt(tmp_path / "mesh", **flags),
+                                 image_size=IMG, dataset=batches,
+                                 state_dict=state_dict, device="cpu")
+        assert ev.mesh is not None
+        got = ev.eval()
+    np.testing.assert_allclose(got["mpjpe_mm"], want["mpjpe_mm"], rtol=1e-6)
+    np.testing.assert_allclose(got["pck"], want["pck"], atol=1e-9)
 
 
 @pytest.fixture(scope="module")

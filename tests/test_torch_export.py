@@ -237,6 +237,41 @@ def test_artifact_serves_without_model_modules(flagship):
                    env=env, cwd=REPO, timeout=300)
 
 
+def test_artifact_holds_one_weights_file(flagship):
+    """The programs take the weights as an input: the directory holds one
+    ``weights.npz`` under the reference keys, the programs lift no
+    parameter, and the loaded predictor holds the live model's tensors."""
+    _, live, path, art = flagship
+    assert sorted(os.listdir(path)) == ["forward_float32.pt2",
+                                        "forward_uint8.pt2", "manifest.json",
+                                        "weights.npz"]
+    weights_mb = os.path.getsize(os.path.join(path, "weights.npz")) / 1e6
+    for name in export.DTYPES:
+        program = torch.export.load(export.program_path(path, name))
+        assert not program.state_dict, sorted(program.state_dict)[:3]
+        assert program.example_inputs is None
+        # a program without the weights is a small part of their size
+        mb = os.path.getsize(export.program_path(path, name)) / 1e6
+        assert mb < 0.1 * weights_mb, (name, mb, weights_mb)
+    want = live.model.state_dict()
+    assert sorted(art.weights) == sorted(want)
+    for k, v in want.items():
+        assert torch.equal(art.weights[k], v), k
+
+
+def test_weights_file_bitcasts_bf16(tmp_path):
+    """bf16 tensors ship bit-cast to uint16 and come back bit for bit."""
+    sd = {"a.weight": torch.randn(4, 3, 2, 2).bfloat16(),
+          "a.bias": torch.randn(4), "n": torch.tensor(7)}
+    path = str(tmp_path / "w.npz")
+    bitcast = export.save_weights(sd, path)
+    assert bitcast == {"a.weight": "bfloat16"}
+    back = export.load_weights_npz(path, bitcast, torch.device("cpu"))
+    for k, v in sd.items():
+        assert back[k].dtype == v.dtype and torch.equal(back[k], v), k
+    assert back["a.weight"].is_contiguous(memory_format=torch.channels_last)
+
+
 def test_refuses_integer_requests_other_than_uint8(flagship, crops):
     with pytest.raises(ValueError, match="uint8"):
         flagship[-1].predict(crops[1].astype(np.int32))
@@ -338,7 +373,8 @@ def test_export_main_writes_the_artifact(tmp_path, capsys):
                  "--vit_heads", "2", "--iteration", "1", "--compute_dtype",
                  "float32", "--checkpoint_path_eval=", "--export_dir", out])
     assert sorted(os.listdir(out)) == ["forward_float32.pt2",
-                                       "forward_uint8.pt2", "manifest.json"]
+                                       "forward_uint8.pt2", "manifest.json",
+                                       "weights.npz"]
     with open(os.path.join(out, "manifest.json")) as f:
         manifest = json.load(f)
     assert manifest["net"] == "reg_transformer"

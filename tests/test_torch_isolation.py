@@ -77,7 +77,7 @@ def test_no_try_around_kernel_launch(path):
 
 # the port's command-line entry points, ``python -m scat_tpu_torch.<name>``
 ENTRY_POINTS = ("train", "train_coarse", "eval", "demo", "server", "test",
-                "export")
+                "export", "convert", "validate_data")
 # the modules of the ViT, MANO and temporal slice, and of the serving
 # artifact and the training utilities, each under the checks above
 SLICE_MODULES = ("assets.py", "models/mano.py", "models/vit.py",
@@ -86,7 +86,10 @@ SLICE_MODULES = ("assets.py", "models/mano.py", "models/vit.py",
                  "training/video_trainer.py", "evaluation/tester.py",
                  "utils/smplx_glue.py", "test.py", "export.py",
                  "utils/profiling.py", "utils/debugging.py",
-                 "viz/render.py", "models/config_test.py")
+                 "viz/render.py", "models/config_test.py",
+                 "parallel/__init__.py", "parallel/mesh.py",
+                 "parallel/sharding_rules.py", "parallel/pipeline.py",
+                 "convert.py", "validate_data.py")
 
 
 @pytest.mark.parametrize("rel", SLICE_MODULES)

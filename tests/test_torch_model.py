@@ -179,12 +179,17 @@ def test_load_weights_errors(tmp_path):
         checkpoint.load_weights(tm, str(tmp_path / "missing.pth"))
     with pytest.raises(ValueError, match=".pth"):
         checkpoint.load_weights(tm, str(tmp_path))
-    # a checkpoint of another architecture fails loudly (strict)
+    # a checkpoint of another architecture fails loudly: an unknown
+    # layout, or a known one of which no tensor matches, as the JAX
+    # package's _load_pth_into raises
     bad = str(tmp_path / "bad.pth")
     torch.save({"regressor.weight": torch.zeros(66, 1090)}, bad)
-    with pytest.raises(RuntimeError, match="Missing key"):
+    with pytest.raises(ValueError, match="unrecognized"):
         checkpoint.load_weights(tm, bad)
     assert os.path.exists(bad)
+    torch.save({"layer1.0.conv1.weight": torch.zeros(64, 64, 1, 1)}, bad)
+    with pytest.raises(ValueError, match="architecture mismatch"):
+        checkpoint.load_weights(tm, bad)
 
 
 def test_fresh_init_is_seeded():

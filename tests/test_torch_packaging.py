@@ -102,7 +102,8 @@ def test_port_scripts_are_named():
         "scat-tpu-torch-serve", "scat-tpu-torch-train",
         "scat-tpu-torch-train-coarse", "scat-tpu-torch-eval",
         "scat-tpu-torch-demo", "scat-tpu-torch-test",
-        "scat-tpu-torch-export"}
+        "scat-tpu-torch-export", "scat-tpu-torch-convert",
+        "scat-tpu-torch-validate-data"}
     assert _port_scripts()["scat-tpu-torch-demo"] == "scat_tpu_torch.demo:main"
     assert _port_scripts()["scat-tpu-torch-train-coarse"] == \
         "scat_tpu_torch.train_coarse:main"
@@ -110,6 +111,10 @@ def test_port_scripts_are_named():
         "scat_tpu_torch.test:main"
     assert _port_scripts()["scat-tpu-torch-export"] == \
         "scat_tpu_torch.export:main"
+    assert _port_scripts()["scat-tpu-torch-convert"] == \
+        "scat_tpu_torch.convert:main"
+    assert _port_scripts()["scat-tpu-torch-validate-data"] == \
+        "scat_tpu_torch.validate_data:main"
 
 
 @pytest.mark.parametrize("script", sorted(_port_scripts()))

@@ -503,7 +503,18 @@ def test_trainer_needs_cuda_by_default(tmp_path, monkeypatch):
 
 @pytest.mark.parametrize("flags,item", [
     pytest.param(dict(param_sharding="fsdp"), 17, id="flags1-17"),
-    pytest.param(dict(mesh_shape="data:4"), 17, id="flags2-17")])
+    pytest.param(dict(mesh_shape="data:-1,model:1,seq:1,pipe:1"), 17,
+                 id="flags2-17")])
 def test_unported_flags_name_their_item(tmp_path, flags, item):
-    with pytest.raises(NotImplementedError, match=f"item {item}"):
-        Trainer(_train_opt(tmp_path, **flags), device="cpu", image_size=32)
+    """The flags that ROADMAP.md queue 1 item 17 ported (FSDP, the mesh
+    axes) train, in a gloo group of one process: the state lies over the
+    mesh and the checkpoint is written."""
+    import torch_parallel_worker
+    with torch_parallel_worker.world_1():
+        trainer = Trainer(_train_opt(tmp_path, epoch=1, steps_per_epoch=1,
+                                     **flags), device="cpu", image_size=32)
+        assert trainer.mesh is not None and trainer.state.mesh is not None
+        trainer.train()
+    assert trainer.state.step == 1
+    assert os.path.exists(os.path.join(tmp_path, "ckpt",
+                                       checkpoint.FINAL_NAME))
