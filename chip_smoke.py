@@ -8,8 +8,10 @@
 Phases, in order; any failure raises and exits non-zero:
   1. build    compile every kernel source under scat_tpu_torch/csrc
               (one nvcc each, in parallel), print what ptxas reports
-              (registers, shared memory, spills) for the four bf16
-              tensor-core kernels, and the card's name and power limit;
+              (registers, shared memory, spills) for the five bf16
+              tensor-core kernels (the two wgmma kernels fed by TMA, the
+              persistent attention forward and the FAVOR+ stats, must
+              not spill), and the card's name and power limit;
   2. kernels  each kernel against its plain PyTorch version on the card
               at the serving and training paths' shapes: float32 (TF32
               off) at atol 2e-5, bfloat16 at atol = rtol = 1e-2 against
@@ -23,9 +25,14 @@ Phases, in order; any failure raises and exits non-zero:
               version and the library call (SDPA forward, and SDPA
               forward+backward beside the two kernels' sum, with SDPA's
               backward alone as their difference), each beside its
-              bound; also at the 128-token heads' [96, 8, 128, 64] (NT = 8
-              warps a head), with each kernel's blocks an SM holds and
+              bound; also at the 128-token heads' [96, 8, 128, 64] (the
+              forward's persistent wgmma kernel beside SDPA and its
+              bound: the kernels line's ms_n128, bound_ms_n128,
+              library_ms_n128), with each kernel's blocks an SM holds and
               shared memory a block (the occupancy API) at N 21 and 128;
+              the persistent forward at N 65, 80, 100, 127 and 128 in
+              bf16 and float32 and at pair counts that are not a multiple
+              of its grid, its launch plan against forward_plan's;
   3. slice    the flagship --net reg_transformer predictor at full width
               (resnet50, 224x224 crops, 784-dim tokens, 8 heads,
               iteration 3, bfloat16, weights from seed 0) serves uint8
@@ -174,8 +181,9 @@ Phases, in order; any failure raises and exits non-zero:
               parts (encoder, MANO decode, GRU, losses) each timed alone;
   15. favor    the FAVOR+ stats and apply kernels against their plain
               versions at --net ViP's shapes (BH 4, 28, 256, 384 at
-              T = 3137, e = 128, m = 64; T at chunk and tile edges; e 64
-              / m 32) at rtol 1e-4 (atol 1e-5, times the largest
+              T = 3137, e = 128, m = 64; T at chunk, slab, round and
+              tile edges; e 96; e 64 / m 32) at rtol 1e-4 (atol 1e-5,
+              times the largest
               magnitude for the stats' sums over T): the stats against
               the float32 plain version fed the operands' float32 values;
               the apply on the kernel's stats, and the stats and apply
@@ -183,7 +191,9 @@ Phases, in order; any failure raises and exits non-zero:
               operands, which share their arithmetic) or run in float64
               (bf16 operands: the bf16x3 tensor-core kernels are closer
               to float64 than the float32 plain versions are), the
-              float32 plain apply's distance printed beside;
+              float32 plain apply's distance printed beside; the bf16
+              stats' kptv off float64 at the training shape, at most the
+              mma.sync design's 2.8e-6 of its largest magnitude;
               favor_attention_fused's autograd against autograd through
               favor_attention; then each kernel timed beside its plain
               version, and the plain three-einsum path (no single PyTorch
@@ -280,6 +290,7 @@ from scat_tpu_torch.ops.attention import (attention_bwd,
                                           attention_bwd_reference,
                                           attention_reference, bf16_ulps,
                                           flash_attention)
+from scat_tpu_torch.ops.attention import forward_plan, kernel_plan
 from scat_tpu_torch.ops.attention import occupancy as attention_occupancy
 from scat_tpu_torch.ops.favor import (favor_apply, favor_apply_reference,
                                       favor_attention, favor_attention_fused,
@@ -352,16 +363,25 @@ VIP_TRAIN = dataclasses.replace(
 VIP_HEADS, VIP_T, VIP_E, VIP_M = 4, 3137, 128, 64
 # [B, H, T, e, m]: BH 4, 28, 256 and 384 (serving buckets 1, 7, 64;
 # training at bs 96) at ViP's T, e, m; T at chunk edges (32 rows for the
-# float32 kernels, 64 for the bf16 stats kernel) and tile edges; e 64
+# float32 kernels, 64-row slabs for the bf16 stats kernel) and tile edges;
+# e 64
 FAVOR_SHAPES = [(b, VIP_HEADS, VIP_T, VIP_E, VIP_M) for b in (1, 7, 64, 96)]
 FAVOR_SHAPES += [(2, VIP_HEADS, t, VIP_E, VIP_M)
                  for t in (1, 33, 63, 64, 65, 1048, 1049)]
 FAVOR_SHAPES += [(2, 3, 257, 64, 32)]
+# the bf16 stats kernel's 128-row rounds (two warpgroups of 64-row slabs)
+# and e = 96 (a partial second column block of its TMA copies)
+FAVOR_SHAPES += [(2, VIP_HEADS, 129, VIP_E, VIP_M)]
+FAVOR_SHAPES += [(2, VIP_HEADS, t, 96, VIP_M) for t in (1, 63, 65, 1100)]
 FAVOR_TRAIN = (TRAIN_BATCH, VIP_HEADS, VIP_T, VIP_E, VIP_M)
 # float32 against float32 (TF32 off): rtol 1e-4; atol 1e-5 for y, and
 # 1e-5 times the largest magnitude for the stats, sums over 3137 rows of
 # exponentials
 FAVOR_RTOL, FAVOR_ATOL = 1e-4, 1e-5
+# the bf16 stats' kptv against float64 at the training shape, as a share of
+# its largest magnitude: the mma.sync design's gap (an H100 80GB HBM3 at
+# 700 W, PERF.md), which the wgmma design may not exceed
+STATS_F64_GAP = 2.8e-6
 VIP_WINDOW_REQUESTS, VIP_WINDOW_CROPS = 3, 256
 # device kernels grouped by what they do, first match wins; the rest is
 # elementwise arithmetic (adds, products, activations, dropout, the
@@ -454,9 +474,14 @@ def qkv_views(b, h, n, d, dtype, seed):
 # the kernels redesigned for the tensor cores, (source, kernel): their
 # registers, shared memory and spills are printed at build
 PTXAS_KERNELS = (("attention_fwd", "attention_fwd_bf16_kernel"),
+                 ("attention_fwd", "attention_fwd_wgmma_kernel"),
                  ("attention_bwd", "attention_bwd_bf16_kernel"),
-                 ("favor", "favor_stats_bf16_kernel"),
+                 ("favor", "favor_stats_wgmma_kernel"),
                  ("favor", "favor_apply_bf16_kernel"))
+# the wgmma kernels whose accumulators a spill would stall
+NO_SPILL_KERNELS = ("attention_fwd_wgmma_kernel", "favor_stats_wgmma_kernel")
+# the persistent forward's sequence lengths (64 < N <= 128)
+WGMMA_SEQS = (65, 80, 100, 127, 128)
 
 
 def ptxas_lines(log, kernel):
@@ -487,6 +512,9 @@ def phase_build():
         assert lines, f"no ptxas output for {kernel}"
         for line in lines:
             print(f"[build] ptxas {kernel}: {line}")
+        if kernel in NO_SPILL_KERNELS:
+            assert any("0 bytes spill stores, 0 bytes spill loads" in line
+                       for line in lines), f"{kernel} spills"
     print(f"[build] card: {card_line()}; torch {torch.__version__}, "
           f"CUDA {torch.version.cuda}")
 
@@ -574,6 +602,34 @@ def phase_kernels():
               f"vs autograd through attention_reference: max_abs_err "
               f"{err:.3e} (tol 2e-05)")
 
+    # the persistent wgmma forward across its N range, and at pair counts
+    # that are not a multiple of its grid (one block an SM)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    for b, h, n in [(4, HEADS, n) for n in WGMMA_SEQS] + [(133, 1, 128),
+                                                          (265, 1, 97),
+                                                          (67, 4, 128)]:
+        for dtype, tol in ((torch.float32, 2e-5), (torch.bfloat16, 1e-2)):
+            plan = forward_plan(n, dtype, b * h, sms)
+            assert kernel_plan(n, dtype, b * h, sms) == plan, plan
+            q, k, v = qkv_views(b, h, n, HEAD_DIM, dtype, seed=700 + n + b)
+            with torch.no_grad():
+                got = flash_attention(q, k, v, SCALE)
+            torch.cuda.synchronize()
+            want = attention_reference(q.float(), k.float(), v.float(),
+                                       SCALE)
+            err = (got.float() - want).abs().max().item()
+            torch.testing.assert_close(
+                got.float(), want, atol=tol,
+                rtol=tol if dtype == torch.bfloat16 else 0)
+            ulps = ""
+            if dtype == torch.bfloat16:
+                u = bf16_ulps(got, want).max().item()
+                assert u <= ULPS, u
+                ulps = f", {u:g} bf16 ulps (bound {ULPS})"
+            print(f"[kernels] attention_fwd [{b},{h},{n},{HEAD_DIM}] "
+                  f"{str(dtype)[6:]}: {plan[0]} on {plan[1]} blocks, "
+                  f"max_abs_err {err:.3e} (tol {tol}){ulps}")
+
     print("[kernels] device times in ms, bf16, q/k/v strided views as in "
           "the model; 200 calls in one CUDA graph, timed by CUDA events:")
     for b in (1, 7, 64, TRAIN_BATCH):
@@ -582,8 +638,8 @@ def phase_kernels():
             FWD.result.update(got)
     BWD.result.update(time_bwd(TRAIN_BATCH, TOKENS))
 
-    # the 128-token heads' shape (HRNet and Inception, 8 heads): NT = 8
-    # warps a head, the kernels' largest instantiation
+    # the 128-token heads' shape (HRNet and Inception, 8 heads): the
+    # forward's persistent wgmma kernel, the backward's NT = 8 warps a head
     card = card_line()
     for n in (TOKENS, HEAD_TOKENS):
         for name in ("attention_fwd", "attention_bwd"):
@@ -592,7 +648,17 @@ def phase_kernels():
                 print(f"[kernels] {name} N={n} {str(dtype)[6:]}: {blocks} "
                       f"block(s) an SM at once (occupancy API), {smem} B of "
                       f"shared memory a block")
+    blocks, smem = attention_occupancy("attention_fwd", HEAD_TOKENS,
+                                       torch.bfloat16)
+    assert blocks >= 1, blocks
+    plan = forward_plan(HEAD_TOKENS, torch.bfloat16, TRAIN_BATCH * HEADS,
+                        sms)
+    print(f"[kernels] attention_fwd at N={HEAD_TOKENS} bf16: {plan[0]}, a "
+          f"persistent grid of {plan[1]} blocks over {TRAIN_BATCH * HEADS} "
+          f"pairs ({blocks} block(s) an SM, {smem} B of shared memory)")
     fwd = time_fwd(TRAIN_BATCH, HEAD_TOKENS)
+    FWD.result.update(ms_n128=fwd["ms"], bound_ms_n128=fwd["bound_ms"],
+                      library_ms_n128=fwd["library_ms"])
     bwd = time_bwd(TRAIN_BATCH, HEAD_TOKENS)
     print(f"[kernels] at [{TRAIN_BATCH},{HEADS},{HEAD_TOKENS},{HEAD_DIM}] "
           f"bf16: attention_fwd {fwd['ms']:.5f} ms, bound "
@@ -2590,6 +2656,20 @@ def phase_favor_kernels():
             if shape == FAVOR_TRAIN and dtype == torch.bfloat16:
                 STATS.result["max_abs_err"] = s_err
                 APPLY.result["max_abs_err"] = y_err
+                # the bf16 stats against float64: at most the mma.sync
+                # design's gap (its largest magnitude's share)
+                ks64, kv64 = favor_stats_reference(k.double(), v.double(),
+                                                   w.double())
+                gap = ((kptv.double() - kv64).abs().max()
+                       / kv64.abs().max()).item()
+                gap32 = ((wkv.double() - kv64).abs().max()
+                         / kv64.abs().max()).item()
+                print(f"[favor] {list(shape)} bf16: favor_stats kptv off "
+                      f"float64 by {gap:.3e} of its largest magnitude "
+                      f"(bound {STATS_F64_GAP:.1e}, the mma.sync design's); "
+                      f"the float32 plain stats {gap32:.3e}")
+                assert gap <= STATS_F64_GAP, gap
+                del ks64, kv64
             del q, k, v, ksum, kptv, y, wks, wkv, wy, chain
 
     # the autograd.Function against autograd through the plain path,
@@ -3668,7 +3748,11 @@ def main(argv):
         {"name": k.name, "route": k.route, "source": k.source,
          "replaces": k.replaces, **{key: k.result[key] for key in (
              "launches", "max_abs_err", "ms", "plain_ms", "bound_ms",
-             "bound_by", "library_ms")}}
+             "bound_by", "library_ms")},
+         # the forward at the 128-token heads' shape (its persistent kernel)
+         **{key: k.result[key] for key in (
+             "ms_n128", "bound_ms_n128", "library_ms_n128")
+            if key in k.result}}
         for k in KERNELS]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -23,40 +23,52 @@
 // T and columns past e or m are zero in shared memory and never stored.
 //
 // The stats pass on bf16 operands (ViP's bf16 serving and training):
-// tensor cores.  Its work is 4*m*e flops a row against 2*e bf16 elements
-// read, which at IEEE float32 on CUDA cores (67 TFLOP/s) bounds it at
-// 0.597 ms for ViP training's [96,4,3137,128], three times its bytes
-// (0.188 ms at 3.35 TB/s).  The way past that floor is split precision:
-// k and v are bf16 and exact; w and phi are each split into three bf16
-// parts, x_0 + x_1 + x_2 with x_i = bf16(x - sum_{j<i} x_j), which carry
-// float32's 24 bits, and each product is a sum of three bf16 products
-// accumulated in float32 by mma.sync.m16n8k16 ("bf16x3").  That is
-// 3 * 4*m*e flops a row, 0.120 ms at 989 TFLOP/s, so the bytes bound the
-// design.  Layout (favor_stats_bf16_kernel):
-//   * one block of 16 warps per (batch*head, T-tile), one block an SM
-//     (208 KB of shared memory); the three bf16 parts of w [64][128] are
-//     split once per block and stay in shared memory (48 KB);
-//   * rows come in 64-row chunks through a ring of three shared-memory
-//     stages fed by 16-byte cp.async copies straight from the strided
-//     k and v views (bf16, not converted); chunk c+1 is in flight while
-//     chunk c is computed, and one __syncthreads a chunk orders the ring;
-//   * features (warp: 16 rows x 16 features): wx = sum_i X w_i^T, smallest
-//     part first, from A fragments of the staged rows; |x|^2 / 2 from the
-//     same fragments on CUDA cores; phi = exp(wx - |x|^2/2) / sqrt(m) in
-//     float32 registers; ksum += phi (float32, unsplit, in registers); phi
-//     split into three bf16 parts into one of two shared-memory buffers;
-//   * outer product (warp: 16 features x 32 columns), one chunk behind the
-//     features so that the two overlap between barriers: kptv += sum_i
-//     phi_i^T V with ldmatrix.trans for phi^T and V; the [64 x 128] f32
-//     accumulator stays in registers over all of the block's rows.
-// The tensor cores accumulate in float32 but truncate, so each chain of
-// mma.sync is kept short (one k-step of the features, one chunk of the
-// outer product) and its result is added on CUDA cores in IEEE float32.
-// Against float64 the result is closer than the float32 design's (an
-// H100 80GB HBM3 at 700 W, the stats alone, ViP-like operands): kptv
-// off by 2.8e-6 of its largest magnitude at [96,4,3137,128], against
-// 6.7e-6 for the float32 kernel and for the float32 plain version, whose
-// errors are shared (the same float32 roundings).
+// tensor cores by wgmma.  Its work is 4*m*e flops a row against 2*e bf16
+// elements read, which at IEEE float32 on CUDA cores (67 TFLOP/s) bounds
+// it at 0.597 ms for ViP training's [96,4,3137,128], three times its bytes
+// (629,473,280 B: 0.188 ms at 3.35 TB/s).  The way past that floor is
+// split precision: k and v are bf16 and exact; w and phi are each split
+// into three bf16 parts, x_0 + x_1 + x_2 with x_i = bf16(x - sum_{j<i}
+// x_j), which carry float32's 24 bits, and each product is a sum of three
+// bf16 products accumulated in float32 ("bf16x3").  That is 3 * 4*m*e
+// flops a row, 0.120 ms at 989 TFLOP/s, so the bytes bound the design.
+// A first design on mma.sync (16 warps, every w, phi and v fragment
+// through ldmatrix) took 0.58579 ms on an H100 80GB HBM3 at 700 W, at the
+// float32-operation figure, not the byte bound.  Layout
+// (favor_stats_wgmma_kernel), the apply's wgmma plan:
+//   * one block of two warpgroups per (batch*head, T-tile), one block an SM
+//     (225 KB of shared memory); w's three parts [3][64 features][128] are
+//     split once per block into shared memory in wgmma's K-major core
+//     layout (split_w_core, shared with the apply);
+//   * each warpgroup takes 64-row slabs in turn (two buffers of its own):
+//     one thread issues four TMA copies a slab (k and v, two 64-column
+//     boxes each, tensor maps from the strided views, tma.cuh; rows past T
+//     read as zeros) into the 128-byte swizzled layout, the next slab in
+//     flight while one is computed; after the set-up the warpgroups never
+//     wait for each other.  A cp.async version of the same ring left the
+//     copies' latency exposed;
+//   * features: |x|^2 from ldmatrix fragments of the slab; per k-step a
+//     chain of three wgmma.m64n64k16 (x K-major from the slab, w's parts
+//     smallest first) into a fresh accumulator, two alternating so one
+//     chain runs while the other is added to wx in IEEE float32; phi =
+//     exp(wx - |x|^2/2) / sqrt(m) in float32 registers; ksum += phi
+//     (float32, unsplit); phi's three bf16 parts into the warpgroup's
+//     [row][feature] buffer;
+//   * outer product: one chain a slab, kptv_slab = sum_i phi_i^T v by
+//     wgmma.m64n128k16 with phi^T an MN-major A and v an MN-major B, both
+//     read by the tensor cores from shared memory (no ldmatrix, no B
+//     fragment), added to the warpgroup's running [64 x 128] float32 kptv
+//     in IEEE float32: the tensor cores accumulate in float32 but
+//     truncate, so each chain spans one slab;
+//   * the two warpgroups' partials (kptv through the freed ring) and the
+//     warps' ksum partials are summed in a fixed order; with more than one
+//     T-tile, favor_reduce_kernel sums the tiles in order.
+// 235 registers a thread, no spills.  On an NVIDIA H100 80GB HBM3 at
+// 700.00 W (chip_smoke.py, 20 calls in a CUDA graph): 0.36908 ms at
+// [96,4,3137,128], 50.9% of the byte bound (the mma.sync design 0.58579).
+// Against float64 (ViP-like operands, the stats alone) kptv is off by
+// 1.1e-6 of its largest magnitude at that shape, against 2.8e-6 for the
+// mma.sync design and 6.6e-6 for the float32 plain version.
 // The stats pass on float32 operands keeps the CUDA-core design below
 // (favor_stats_kernel): all-float32 k and v would need the split on both
 // sides of every product, nine bf16 products for one.
@@ -90,9 +102,10 @@
 // byte bound, off float64 by 4.3e-6.  Layout (favor_apply_bf16_kernel):
 //   * one block of three warpgroups per (batch*head, T-tile), one block an
 //     SM (177 KB of shared memory, 168 registers, no spills); w's parts
-//     [3][64 features][128] and kptv's parts transposed [3][128 columns][64
-//     features] are split once per block into shared memory (96 KB) in
-//     wgmma's K-major no-swizzle layout of 8 x 8 core matrices;
+//     [3][64 features][128] (split_w_core) and kptv's parts transposed
+//     [3][128 columns][64 features] are split once per block into shared
+//     memory (96 KB) in wgmma's K-major no-swizzle layout of 8 x 8 core
+//     matrices;
 //   * each warpgroup takes 64-row slabs of q: 16-byte cp.async copies from
 //     the strided view into its own slab buffer (plain loads where rows are
 //     not 16-byte aligned or e % 8 != 0), the next slab in flight while one
@@ -139,6 +152,7 @@
 #include <cuda_bf16.h>
 
 #include "mma.cuh"
+#include "tma.cuh"
 
 namespace {
 
@@ -453,30 +467,13 @@ favor_apply_kernel(const float* __restrict__ q, const float* __restrict__ w,
 }
 
 // ---------------------------------------------------------------------------
-// The stats pass on bf16 operands: bf16x3 split products on the tensor
-// cores (see the head of this file)
+// What the two bf16 kernels share: the bf16x3 split, the bf16 staging of
+// rows, and w's three parts in wgmma's K-major core layout
 
-constexpr int kTcRows = 64;     // rows a chunk
-constexpr int kTcStages = 3;    // ring of staged chunks
-constexpr int kTcWarps = 16;
-constexpr int kTcThreads = 32 * kTcWarps;
-// warps that share one 16-row tile of a chunk in the features, and one
-// 16-feature tile of kptv in the outer product
-constexpr int kTcPerTile = kTcWarps / (kTcRows / 16);
-constexpr int kFeatN = kM / 8 / kTcPerTile;  // feature n-tiles a warp
-constexpr int kOutN = kE / 8 / kTcPerTile;   // kptv column n-tiles a warp
-constexpr int kParts = 3;       // bf16 parts of w and phi
-constexpr int kXS16 = kE + 8;   // bf16 row stride of w parts, k and v rows
-constexpr int kPS16 = kM + 8;   // bf16 row stride of phi parts
-
-size_t tc_stats_smem() {
-  // w parts [3][kM][kXS16]; ring [stages][k, v][kTcRows][kXS16]; phi parts
-  // [2 buffers][3][kTcRows][kPS16] (bf16); ksum partials [4][kM] (float)
-  return sizeof(bf16) * (size_t(kParts) * kM * kXS16 +
-                         size_t(kTcStages) * 2 * kTcRows * kXS16 +
-                         size_t(2) * kParts * kTcRows * kPS16) +
-         sizeof(float) * 4 * kM;
-}
+constexpr int kParts = 3;       // bf16 parts of w, phi and kptv
+constexpr int kXS16 = kE + 8;   // bf16 row stride of the apply's q slabs
+constexpr uint32_t kCoreK = 128;              // bytes between k-cores
+constexpr uint32_t kSboW = (kE / 8) * 128;    // between n-cores of [kM][kE]
 
 // lo, hi as three registers of bf16 pairs whose sum is (lo, hi) to
 // float32's precision: part i = bf16(x - parts 0..i-1); each difference is
@@ -539,52 +536,15 @@ __device__ __forceinline__ void stage_bf16_rows(bf16* dst,
   }
 }
 
-// rows [row0, row0 + kTcRows) of k and v into one ring stage, sk and sv
-// [kTcRows][kXS16]
-__device__ __forceinline__ void stage_chunk(bf16* sk, bf16* sv,
-                                            const bf16* __restrict__ kb,
-                                            const bf16* __restrict__ vb,
-                                            long long k_row, long long v_row,
-                                            int row0, int row_end, int e,
-                                            bool vec) {
-  stage_bf16_rows(sk, kb, k_row, row0, kTcRows, row_end, e, vec, threadIdx.x,
-                  kTcThreads);
-  stage_bf16_rows(sv, vb, v_row, row0, kTcRows, row_end, e, vec, threadIdx.x,
-                  kTcThreads);
-}
-
-__global__ void __launch_bounds__(kTcThreads, 1)
-favor_stats_bf16_kernel(const bf16* __restrict__ k,
-                        const bf16* __restrict__ v,
-                        const float* __restrict__ w, float* __restrict__ ksum,
-                        float* __restrict__ kptv, float* __restrict__ work,
-                        Strides sk, Strides sv, int heads, int t, int e, int m,
-                        int tiles, int tile_rows, float inv_sqrt_m,
-                        bool vec) {
-  extern __shared__ uint4 smem_tc[];
-  bf16* sW = reinterpret_cast<bf16*>(smem_tc);
-  bf16* sRing = sW + kParts * kM * kXS16;
-  bf16* sPhi = sRing + kTcStages * 2 * kTcRows * kXS16;
-  float* sKs = reinterpret_cast<float*>(sPhi + 2 * kParts * kTcRows * kPS16);
-  constexpr int kStage = 2 * kTcRows * kXS16;      // one ring stage
-  constexpr int kPhiBuf = kParts * kTcRows * kPS16;  // one phi buffer
-
-  const int tile = blockIdx.x % tiles;
-  const long long bh = blockIdx.x / tiles;
-  const long long b = bh / heads, h = bh % heads;
-  const bf16* kb = k + b * sk.b + h * sk.h;
-  const bf16* vb = v + b * sv.b + h * sv.h;
-  const int row_begin = tile * tile_rows;
-  const int row_end = min(t, row_begin + tile_rows);
-  const int chunks = (row_end - row_begin + kTcRows - 1) / kTcRows;
-
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-
-  // chunk 0 is in flight while w is split
-  stage_chunk(sRing, sRing + kTcRows * kXS16, kb, vb, sk.n, sv.n, row_begin,
-              row_end, e, vec);
-  cp_async_commit();
-  for (int i = threadIdx.x; i < kM * kE / 2; i += kTcThreads) {
+// w's three bf16 parts into sW [3][kM n][kE k] in wgmma's K-major core
+// layout (mma.cuh core_at), by thread `tid` of `nthreads`; features >= m
+// and columns >= e zero
+__device__ __forceinline__ void split_w_core(bf16* sW,
+                                             const float* __restrict__ w,
+                                             int e, int m, int tid,
+                                             int nthreads) {
+  for (int i = tid; i < kM * kE / 2; i += nthreads) {
+    // w [f][c]: pairs along c
     const int f = i / (kE / 2), c = (i % (kE / 2)) * 2;
     const float lo = f < m && c < e ? w[f * e + c] : 0.f;
     const float hi = f < m && c + 1 < e ? w[f * e + c + 1] : 0.f;
@@ -592,166 +552,252 @@ favor_stats_bf16_kernel(const bf16* __restrict__ k,
     split3(lo, hi, part);
 #pragma unroll
     for (int p = 0; p < kParts; ++p)
-      *reinterpret_cast<uint32_t*>(sW + (p * kM + f) * kXS16 + c) = part[p];
+      *reinterpret_cast<uint32_t*>(sW + p * kM * kE + core_at(f, c, kE)) =
+          part[p];
   }
+}
 
+// ---------------------------------------------------------------------------
+// The stats pass on bf16 operands: bf16x3 split products on the tensor
+// cores by wgmma (see the head of this file)
+
+constexpr int kStGroups = 2;                  // warpgroups a block
+constexpr int kStThreads = 128 * kStGroups;
+constexpr int kStSlab = 64;                   // rows a warpgroup takes
+constexpr int kStRows = kStGroups * kStSlab;  // rows a block takes at a time
+constexpr int kStOperand = kStSlab * kE;      // a slab of k or of v
+constexpr int kStPhi = kStSlab * kM;          // a slab's phi part
+constexpr uint32_t kStSlabBytes = 2 * sizeof(bf16) * kStOperand;  // k and v
+constexpr uint32_t kRowsPhi = (kM / 8) * 128;  // between row cores of phi
+// a slab of k or v as TMA writes it: two column blocks of 64 (128-byte
+// rows in the 128-byte swizzled layout, 8-row atoms of 1024 bytes)
+constexpr uint32_t kAtom = 1024;
+constexpr uint32_t kColBlock = kStSlab * 128;  // bytes of one column block
+
+size_t tc_stats_smem() {
+  // the ring, per warpgroup two buffers of a k and a v slab (1024-byte
+  // aligned at run time: up to 1 KB of slack); w's parts [3][kM][kE] and
+  // per warpgroup phi's parts [3][kStSlab][kM] in the core layout; a full
+  // barrier a buffer
+  return 1024 +
+         sizeof(bf16) * (size_t(kStGroups) * 4 * kStOperand +
+                         size_t(kParts) * kM * kE +
+                         size_t(kStGroups) * kParts * kStPhi) +
+         sizeof(uint64_t) * kStGroups * 2;
+}
+
+// the TMA maps of k and v; row_dim[i] is where operand i's row coordinate
+// goes (scat_tma::encode_rows)
+struct StMaps {
+  CUtensorMap kv[2];
+  int row_dim[2];
+};
+
+// slab rows [row0, row0 + kStSlab) of k and v of (b, h) into one ring
+// buffer (k's two column blocks, then v's), completing on `bar`
+__device__ __forceinline__ void load_slab(const StMaps& maps, uint8_t* dst,
+                                          uint64_t* bar, int row0, int h,
+                                          int b) {
+  mbar_arrive_expect_tx(bar, kStSlabBytes);
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const bool rows_first = maps.row_dim[i] == 1;
+#pragma unroll
+    for (int cb = 0; cb < 2; ++cb)
+      tma_load_4d(dst + (2 * i + cb) * kColBlock, &maps.kv[i], bar, 64 * cb,
+                  rows_first ? row0 : h, rows_first ? h : row0, b);
+  }
+}
+
+__global__ void __launch_bounds__(kStThreads, 1)
+favor_stats_wgmma_kernel(const __grid_constant__ StMaps maps,
+                         const float* __restrict__ w, float* __restrict__ ksum,
+                         float* __restrict__ kptv, float* __restrict__ work,
+                         int heads, int t, int e, int m, int tiles,
+                         int tile_rows, float inv_sqrt_m) {
+  extern __shared__ __align__(128) uint8_t smem_st[];
+  uint8_t* sRing = smem_st + ((1024 - (smem_addr(smem_st) & 1023)) & 1023);
+  bf16* sW = reinterpret_cast<bf16*>(sRing + kStGroups * 2 * kStSlabBytes);
+  bf16* sPhi = sW + kParts * kM * kE;  // [group][part][slab], core layout
+  uint64_t* full = reinterpret_cast<uint64_t*>(sPhi + kStGroups * kParts *
+                                               kStPhi);  // [group][buffer]
+
+  const int tile = blockIdx.x % tiles;
+  const long long bh = blockIdx.x / tiles;
+  const int b = int(bh / heads), h = int(bh % heads);
+  const int row_begin = tile * tile_rows;
+  const int row_end = min(t, row_begin + tile_rows);
+  const int slabs = (row_end - row_begin + kStSlab - 1) / kStSlab;
+
+  const int group = threadIdx.x / 128, gtid = threadIdx.x % 128;
+  const int gw = (threadIdx.x / 32) % 4, lane = threadIdx.x % 32;
   const int g = lane / 4, t4 = lane % 4;
+  uint8_t* ring = sRing + group * 2 * kStSlabBytes;
+  uint64_t* gfull = full + 2 * group;
+  bf16* phi = sPhi + group * kParts * kStPhi;
+
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < 2 * kStGroups; ++i) mbar_init(&full[i], 1);
+    mbar_init_fence();
+  }
+  __syncthreads();
+  // the group's first slab is in flight while w is split
+  if (gtid == 0 && group < slabs)
+    load_slab(maps, ring, &gfull[0], row_begin + group * kStSlab, h, b);
+  split_w_core(sW, w, e, m, threadIdx.x, kStThreads);
+  fence_proxy_async();  // w's parts, written by the threads, read by wgmma
+  __syncthreads();      // the groups run apart until the end
+
   const int2 la = lane_a_rowmajor(lane);
-  const int2 lnk = lane_b_nk(lane);
-  const int2 lkn = lane_b_kn(lane);
-  const int2 lkm = lane_a_km(lane);
-  // features: chunk rows fr..fr+15, features ff..ff+8*kFeatN-1
-  const int fr = 16 * (warp / kTcPerTile);
-  const int ff = 8 * kFeatN * (warp % kTcPerTile);
-  // outer product: features of..of+15, columns oc..oc+8*kOutN-1
-  const int of = 16 * (warp % (kM / 16));
-  const int oc = 8 * kOutN * (warp / (kM / 16));
-  float kv[kOutN][4];
-  float ks[kFeatN][2];
+  // kptv over the group's slabs (wgmma layout: features 16 gw + g and + 8,
+  // columns 8j + 2 t4 and + 1 in kv[4j..4j+3]); ksum of features 8j + 2 t4
+  // and + 1 in ks[2j], ks[2j + 1] over the thread's rows
+  float kv[64], ks[2 * (kM / 8)];
 #pragma unroll
-  for (int j = 0; j < kOutN; ++j)
+  for (int i = 0; i < 64; ++i) kv[i] = 0.f;
 #pragma unroll
-    for (int i = 0; i < 4; ++i) kv[j][i] = 0.f;
-#pragma unroll
-  for (int j = 0; j < kFeatN; ++j) ks[j][0] = ks[j][1] = 0.f;
+  for (int i = 0; i < 2 * (kM / 8); ++i) ks[i] = 0.f;
 
-  for (int c = 0; c <= chunks; ++c) {
-    cp_async_wait<0>();  // this thread's copies of chunk c have landed
-    // ... and every thread's; chunk c-2's ring stage and phi buffer c%2
-    // (read by the outer product of chunk c-2) are free
-    __syncthreads();
-    if (c + 1 < chunks) {
-      bf16* st = sRing + ((c + 1) % kTcStages) * kStage;
-      stage_chunk(st, st + kTcRows * kXS16, kb, vb, sk.n, sv.n,
-                  row_begin + (c + 1) * kTcRows, row_end, e, vec);
-    }
-    cp_async_commit();
+  int it = 0;
+  for (int s = group; s < slabs; s += kStGroups, ++it) {
+    const int row0 = row_begin + s * kStSlab;
+    const uint8_t* sk_ = ring + (it & 1) * kStSlabBytes;
+    const uint8_t* sv_ = sk_ + 2 * kColBlock;
+    // the next slab into the other buffer, whose last readers (slab it -
+    // 1's) finished before the barrier ending it - 1
+    if (gtid == 0 && s + kStGroups < slabs)
+      load_slab(maps, ring + ((it + 1) & 1) * kStSlabBytes,
+                &gfull[(it + 1) & 1], row0 + kStRows, h, b);
+    mbar_wait(&gfull[it & 1], (it >> 1) & 1);  // slab s has landed
 
-    if (c < chunks) {
-      // features of chunk c: |x|^2 of rows g, g + 8 from the A fragments
-      // of the staged rows, then wx = sum_i X w_i^T
-      const bf16* sk_c = sRing + (c % kTcStages) * kStage;
-      uint32_t xa[kE / 16][4];
-      float sq[2] = {0.f, 0.f};
+    // |x|^2 of the warp's rows g and g + 8 from ldmatrix fragments of the
+    // slab: row r's 16-byte chunk c of column block cb at cb kColBlock +
+    // 128 r + 16 (c ^ r % 8)
+    float sq2[2] = {0.f, 0.f};
 #pragma unroll
-      for (int s = 0; s < kE / 16; ++s) {
-        ldsm_x4(xa[s], sk_c + (fr + la.x) * kXS16 + 16 * s + la.y);
+    for (int ks8 = 0; ks8 < kE / 16; ++ks8) {
+      const int r = 16 * gw + la.x, c = (2 * ks8 + la.y / 8) % 8;
+      uint32_t xa[4];
+      ldsm_x4(xa, sk_ + (ks8 / 4) * kColBlock + 128 * r + 16 * (c ^ (r % 8)));
 #pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          const float x0 = lo_bf16(xa[s][j]), x1 = hi_bf16(xa[s][j]);
-          sq[j & 1] = fmaf(x1, x1, fmaf(x0, x0, sq[j & 1]));
-        }
-      }
-#pragma unroll
-      for (int i = 0; i < 2; ++i)
-#pragma unroll
-        for (int off = 1; off < 4; off <<= 1)
-          sq[i] += __shfl_xor_sync(0xffffffffu, sq[i], off);
-      // each k-step's three products (smallest part first) in a fresh
-      // accumulator, added to wx on CUDA cores: the tensor cores' float32
-      // accumulation truncates, so its chains are kept short
-      float acc[kFeatN][4];
-#pragma unroll
-      for (int j = 0; j < kFeatN; ++j)
-#pragma unroll
-        for (int i = 0; i < 4; ++i) acc[j][i] = 0.f;
-#pragma unroll
-      for (int s = 0; s < kE / 16; ++s) {
-        float step[kFeatN][4];
-#pragma unroll
-        for (int j = 0; j < kFeatN; ++j)
-#pragma unroll
-          for (int i = 0; i < 4; ++i) step[j][i] = 0.f;
-#pragma unroll
-        for (int p = kParts - 1; p >= 0; --p)
-#pragma unroll
-          for (int np = 0; np < kFeatN / 2; ++np) {
-            uint32_t wb[4];
-            ldsm_x4(wb, sW + (p * kM + ff + 16 * np + lnk.x) * kXS16 +
-                            16 * s + lnk.y);
-            mma_bf16(step[2 * np], xa[s], wb[0], wb[1]);
-            mma_bf16(step[2 * np + 1], xa[s], wb[2], wb[3]);
-          }
-#pragma unroll
-        for (int j = 0; j < kFeatN; ++j)
-#pragma unroll
-          for (int i = 0; i < 4; ++i) acc[j][i] += step[j][i];
-      }
-      const int row = row_begin + c * kTcRows + fr + g;
-      const bool row_ok[2] = {row < row_end, row + 8 < row_end};
-      bf16* phi = sPhi + (c % 2) * kPhiBuf;
-#pragma unroll
-      for (int j = 0; j < kFeatN; ++j) {
-        const int f = ff + 8 * j + 2 * t4;
-        float p[4];
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-          p[i] = row_ok[i >> 1] && f + (i & 1) < m
-                     ? expf(acc[j][i] - 0.5f * sq[i >> 1]) * inv_sqrt_m
-                     : 0.f;
-        ks[j][0] += p[0] + p[2];
-        ks[j][1] += p[1] + p[3];
-        uint32_t lo[kParts], hi[kParts];
-        split3(p[0], p[1], lo);
-        split3(p[2], p[3], hi);
-#pragma unroll
-        for (int q = 0; q < kParts; ++q) {
-          bf16* dst = phi + (q * kTcRows + fr + g) * kPS16 + f;
-          *reinterpret_cast<uint32_t*>(dst) = lo[q];
-          *reinterpret_cast<uint32_t*>(dst + 8 * kPS16) = hi[q];
-        }
+      for (int j = 0; j < 4; ++j) {
+        const float x0 = lo_bf16(xa[j]), x1 = hi_bf16(xa[j]);
+        sq2[j & 1] = fmaf(x1, x1, fmaf(x0, x0, sq2[j & 1]));
       }
     }
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+#pragma unroll
+      for (int off = 1; off < 4; off <<= 1)
+        sq2[i] += __shfl_xor_sync(0xffffffffu, sq2[i], off);
 
-    if (c > 0) {
-      // outer product of chunk c-1: kptv += sum_i phi_i^T V, the chunk's
-      // sum in a fresh accumulator added to kptv on CUDA cores
-      const bf16* sv_c =
-          sRing + ((c - 1) % kTcStages) * kStage + kTcRows * kXS16;
-      const bf16* phi = sPhi + ((c - 1) % 2) * kPhiBuf;
-      float part[kOutN][4];
+    // features wx = sum_p X w_p^T, X (A, K-major, swizzled) from the slab:
+    // each k-step's three products (smallest part first) a chain of its
+    // own, in one of two accumulators, added to wx on CUDA cores while the
+    // next runs
+    float wx[32], step[2][32];
 #pragma unroll
-      for (int j = 0; j < kOutN; ++j)
+    for (int i = 0; i < 32; ++i) wx[i] = step[0][i] = step[1][i] = 0.f;
 #pragma unroll
-        for (int i = 0; i < 4; ++i) part[j][i] = 0.f;
+    for (int ks8 = 0; ks8 < kE / 16; ++ks8) {
+      const uint64_t xd = wgmma_desc_sw128(
+          sk_ + (ks8 / 4) * kColBlock + 32 * (ks8 % 4), 16, kAtom);
+      wgmma_fence();
 #pragma unroll
-      for (int s = 0; s < kTcRows / 16; ++s) {
-        uint32_t vfrag[kOutN / 2][4];
+      for (int p = kParts - 1; p >= 0; --p)
+        wgmma_ss_64x64x16<0, 0>(
+            step[ks8 & 1], xd,
+            wgmma_desc(sW + p * kM * kE + 128 * ks8, kCoreK, kSboW),
+            p != kParts - 1);
+      wgmma_commit();
+      if (ks8 > 0) {
+        wgmma_wait<1>();
+        hold(step[(ks8 - 1) & 1]);
 #pragma unroll
-        for (int q = 0; q < kOutN / 2; ++q)
-          ldsm_x4_trans(vfrag[q], sv_c + (16 * s + lkn.x) * kXS16 + oc +
-                                      16 * q + lkn.y);
-#pragma unroll
-        for (int p = kParts - 1; p >= 0; --p) {
-          uint32_t pa[4];
-          ldsm_x4_trans(pa, phi + (p * kTcRows + 16 * s + lkm.x) * kPS16 +
-                                of + lkm.y);
-#pragma unroll
-          for (int q = 0; q < kOutN / 2; ++q) {
-            mma_bf16(part[2 * q], pa, vfrag[q][0], vfrag[q][1]);
-            mma_bf16(part[2 * q + 1], pa, vfrag[q][2], vfrag[q][3]);
-          }
-        }
+        for (int i = 0; i < 32; ++i) wx[i] += step[(ks8 - 1) & 1][i];
       }
-#pragma unroll
-      for (int j = 0; j < kOutN; ++j)
-#pragma unroll
-        for (int i = 0; i < 4; ++i) kv[j][i] += part[j][i];
     }
+    wgmma_wait<0>();
+    hold(step[1]);
+#pragma unroll
+    for (int i = 0; i < 32; ++i) wx[i] += step[1][i];
+
+    // phi = exp(wx - |x|^2/2) / sqrt(m) in IEEE float32; ksum += phi
+    // unsplit; phi's three bf16 parts into the group's phi buffer
+    // [row][feature] (core layout), the A operand phi^T of the outer
+    // product read MN-major
+    const int r0 = 16 * gw + g;
+    const bool row_ok[2] = {row0 + r0 < row_end, row0 + r0 + 8 < row_end};
+#pragma unroll
+    for (int j = 0; j < kM / 8; ++j) {
+      const int f = 8 * j + 2 * t4;
+      float p[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+        p[i] = row_ok[i >> 1] && f + (i & 1) < m
+                   ? expf(wx[4 * j + i] - 0.5f * sq2[i >> 1]) * inv_sqrt_m
+                   : 0.f;
+      ks[2 * j] += p[0] + p[2];
+      ks[2 * j + 1] += p[1] + p[3];
+      uint32_t lo[kParts], hi[kParts];
+      split3(p[0], p[1], lo);
+      split3(p[2], p[3], hi);
+#pragma unroll
+      for (int q = 0; q < kParts; ++q) {
+        *reinterpret_cast<uint32_t*>(phi + q * kStPhi + core_at(r0, f, kM)) =
+            lo[q];
+        *reinterpret_cast<uint32_t*>(phi + q * kStPhi +
+                                     core_at(r0 + 8, f, kM)) = hi[q];
+      }
+    }
+    fence_proxy_async();
+    group_sync(1 + group);  // every thread's phi parts are written
+
+    // kptv += sum_p phi_p^T V over the slab: one chain of wgmma (A = phi_p^T
+    // and B = V, both MN-major from shared memory, V swizzled; per k-step
+    // of 16 rows the parts smallest first) in a fresh accumulator, added to
+    // kv in IEEE float32 (the tensor cores' accumulation truncates)
+    float part[64];
+#pragma unroll
+    for (int i = 0; i < 64; ++i) part[i] = 0.f;
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < kStSlab / 16; ++kk) {
+      const uint64_t bd =
+          wgmma_desc_sw128(sv_ + 2 * kAtom * kk, kColBlock, kAtom);
+#pragma unroll
+      for (int p = kParts - 1; p >= 0; --p)
+        wgmma_ss_64x128x16<1, 1>(
+            part,
+            wgmma_desc(phi + p * kStPhi + kk * 16 * kM, kRowsPhi, kCoreK),
+            bd, kk > 0 || p != kParts - 1);
+    }
+    wgmma_commit();
+    wgmma_wait<0>();
+    hold(part);
+#pragma unroll
+    for (int i = 0; i < 64; ++i) kv[i] += part[i];
+    group_sync(1 + group);  // the slab's buffer and phi are free
   }
 
-  // ksum: over the warp's rows (lanes of one t4), then over the four row
-  // tiles in order
+  __syncthreads();  // every group is done: the ring is free
+  // ksum: over the warp's rows (the lanes of one t4), then the (group,
+  // warp) partials in that order; group 1's kptv partial through the ring,
+  // added to group 0's
+  float* sKs = reinterpret_cast<float*>(sRing);  // [groups][4 warps][kM]
+  float* other = sKs + kStGroups * 4 * kM;        // [64][128 threads]
 #pragma unroll
-  for (int j = 0; j < kFeatN; ++j)
+  for (int i = 0; i < 2 * (kM / 8); ++i) {
 #pragma unroll
-    for (int i = 0; i < 2; ++i) {
+    for (int off = 4; off < 32; off <<= 1)
+      ks[i] += __shfl_xor_sync(0xffffffffu, ks[i], off);
+    if (g == 0)
+      sKs[(group * 4 + gw) * kM + 8 * (i / 2) + 2 * t4 + (i & 1)] = ks[i];
+  }
+  if (group == 1) {
 #pragma unroll
-      for (int off = 4; off < 32; off <<= 1)
-        ks[j][i] += __shfl_xor_sync(0xffffffffu, ks[j][i], off);
-      if (g == 0)
-        sKs[(warp / kTcPerTile) * kM + ff + 8 * j + 2 * t4 + i] = ks[j][i];
-    }
+    for (int i = 0; i < 64; ++i) other[i * 128 + gtid] = kv[i];
+  }
   __syncthreads();
 
   float* dst_kv;
@@ -763,15 +809,21 @@ favor_stats_bf16_kernel(const bf16* __restrict__ k,
     dst_kv = kptv + bh * (long long)(m * e);
     dst_ks = ksum + bh * m;
   }
-  for (int f = threadIdx.x; f < m; f += kTcThreads)
-    dst_ks[f] = ((sKs[f] + sKs[kM + f]) + sKs[2 * kM + f]) + sKs[3 * kM + f];
+  for (int f = threadIdx.x; f < m; f += kStThreads) {
+    float sum = 0.f;
 #pragma unroll
-  for (int j = 0; j < kOutN; ++j)
+    for (int i = 0; i < kStGroups * 4; ++i) sum += sKs[i * kM + f];
+    dst_ks[f] = sum;
+  }
+  if (group == 0) {
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int f = of + g + 8 * (i >> 1), col = oc + 8 * j + 2 * t4 + (i & 1);
-      if (f < m && col < e) dst_kv[f * e + col] = kv[j][i];
+    for (int i = 0; i < 64; ++i) {
+      const int f = 16 * gw + g + 8 * ((i >> 1) & 1);
+      const int col = 8 * (i / 4) + 2 * t4 + (i & 1);
+      if (f < m && col < e)
+        dst_kv[f * e + col] = kv[i] + other[i * 128 + gtid];
     }
+  }
 }
 
 // ---------------------------------------------------------------------------
@@ -784,8 +836,6 @@ constexpr int kApSlab = 64;                   // rows a warpgroup takes
 constexpr int kApRows = kApGroups * kApSlab;  // rows a block takes at a time
 constexpr int kApCols = 32;                   // y columns a staging pass
 constexpr int kApYS = kApCols + 8;            // float row stride of staging
-constexpr uint32_t kCoreK = 128;              // LBO: bytes between k-cores
-constexpr uint32_t kSboW = (kE / 8) * 128;    // SBO of w's parts [kM][kE]
 constexpr uint32_t kSboKV = (kM / 8) * 128;   // SBO of kptv's parts [kE][kM]
 
 size_t tc_apply_smem() {
@@ -874,18 +924,7 @@ favor_apply_bf16_kernel(const bf16* __restrict__ q,
     stage_bf16_rows(slab, qb, sq.n, row_begin + group * kApSlab, kApSlab,
                     row_end, e, vec, gtid, 128);
   cp_async_commit();
-  for (int i = threadIdx.x; i < kM * kE / 2; i += kApThreads) {
-    // w [f][c]: pairs along c
-    const int f = i / (kE / 2), c = (i % (kE / 2)) * 2;
-    const float lo = f < m && c < e ? w[f * e + c] : 0.f;
-    const float hi = f < m && c + 1 < e ? w[f * e + c + 1] : 0.f;
-    uint32_t part[kParts];
-    split3(lo, hi, part);
-#pragma unroll
-    for (int p = 0; p < kParts; ++p)
-      *reinterpret_cast<uint32_t*>(sW + p * kM * kE + core_at(f, c, kE)) =
-          part[p];
-  }
+  split_w_core(sW, w, e, m, threadIdx.x, kApThreads);
   for (int i = threadIdx.x; i < kM / 2 * kE; i += kApThreads) {
     // kptv [f][c] as B [c][f]: pairs along f
     const int c = i % kE, f = (i / kE) * 2;
@@ -1119,15 +1158,23 @@ cudaError_t launch_stats_bf16(const bf16* k, const bf16* v, const float* w,
                               int batch, int heads, int t, int e, int m,
                               const Strides* st, int tiles, float inv_sqrt_m,
                               cudaStream_t stream) {
-  cudaError_t err = set_smem(favor_stats_bf16_kernel, tc_stats_smem());
-  if (err != cudaSuccess) return err;
+  // the TMA copies need 16-byte aligned rows (the wrapper copies others)
   const void* ptrs[2] = {k, v};
-  const bool vec = rows_vec(ptrs, st, 2, e);
+  if (!rows_vec(ptrs, st, 2, 8)) return cudaErrorInvalidValue;
+  StMaps maps;
+  cudaError_t err = cudaSuccess;
+  for (int i = 0; i < 2 && err == cudaSuccess; ++i)
+    err = scat_tma::encode_rows(&maps.kv[i], ptrs[i], st[i].b, st[i].h,
+                                st[i].n, batch, heads, t, e, kStSlab, 64,
+                                &maps.row_dim[i]);
+  if (err == cudaSuccess)
+    err = set_smem(favor_stats_wgmma_kernel, tc_stats_smem());
+  if (err != cudaSuccess) return err;
   const long long bhs = (long long)batch * heads;
-  favor_stats_bf16_kernel<<<int(bhs * tiles), kTcThreads, tc_stats_smem(),
-                            stream>>>(
-      k, v, w, ksum, kptv, tiles > 1 ? work : nullptr, st[0], st[1], heads, t,
-      e, m, tiles, tile_rows_of(t, tiles, kTcRows), inv_sqrt_m, vec);
+  favor_stats_wgmma_kernel<<<int(bhs * tiles), kStThreads, tc_stats_smem(),
+                             stream>>>(
+      maps, w, ksum, kptv, tiles > 1 ? work : nullptr, heads, t, e, m, tiles,
+      tile_rows_of(t, tiles, kStRows), inv_sqrt_m);
   err = cudaGetLastError();
   if (err != cudaSuccess || tiles == 1) return err;
   return reduce_tiles(work, ksum, kptv, bhs, tiles, e, m, stream);
@@ -1184,8 +1231,9 @@ int scat_favor_stats(const void* k, const void* v, const void* w, void* ksum,
                      void* kptv, void* work, int batch, int heads, int t,
                      int e, int m, const long long* strides, int tiles,
                      float inv_sqrt_m, int dtype, void* stream) {
-  // the bf16 operands' kernel takes 64-row chunks, the float32 one 32
-  const int chunk = dtype == 1 ? kTcRows : kRows;
+  // the bf16 operands' kernel takes rounds of kStRows rows (a 64-row slab
+  // for each of its two warpgroups), the float32 one 32-row chunks
+  const int chunk = dtype == 1 ? kStRows : kRows;
   if (!valid(batch, heads, t, e, m, tiles, chunk) ||
       (tiles > 1 && work == nullptr))
     return int(cudaErrorInvalidValue);

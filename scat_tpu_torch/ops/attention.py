@@ -20,9 +20,14 @@ parity type, both compute on CUDA cores (softmax by warp shuffles; the
 backward recomputes P in a second pass).  On bf16 operands, the
 flagship's serving and training paths, CUDA cores made both limited by
 instruction count, not bytes, so both run their products on the tensor
-cores (``mma.sync``, bf16 in, float32 accumulation), a warp per 16 query
-rows, with the softmax (and the backward's delta and dS) in the
-accumulator registers.  As the Pallas kernels keep P and dS in float32,
+cores (bf16 in, float32 accumulation) with the softmax (and the
+backward's delta and dS) in the accumulator registers: ``mma.sync``, a
+warp per 16 query rows and a block a (batch, head) pair, for the
+backward and for the forward at N <= 64; for the forward at 64 < N <= 128
+(the 128-token heads) a persistent ``wgmma`` kernel, one block an SM
+walking the pairs (``forward_plan``), a producer warpgroup keeping three
+pairs' Q, K, V in flight by TMA and two consumer warpgroups of 64 query
+rows.  As the Pallas kernels keep P and dS in float32,
 the kernels split each into a bf16 high part and a bf16 low part and
 run both products into one float32 accumulator: the forward takes P's
 parts straight from the registers as the A operands of P V; the backward
@@ -31,8 +36,9 @@ recompute pass).  Their bf16 results lie within 2 bf16 ulps
 (``bf16_ulps``) of ``attention_reference`` and ``attention_bwd_reference``
 in float32, rounded to bf16; the design notes are in
 ``csrc/attention_fwd.cu`` and ``csrc/attention_bwd.cu``, their shared
-tiles in ``csrc/attention.cuh``.  Their 16-byte copies need 16-byte
-aligned rows: an operand whose rows are not is copied first.
+tiles in ``csrc/attention.cuh``.  Their 16-byte copies (and the TMA
+copies) need 16-byte aligned rows: an operand whose rows are not is
+copied first.
 
 Both kernels are ``torch.library`` custom ops, ``scat_tpu_torch::
 attention_fwd`` and ``scat_tpu_torch::attention_bwd``: a CUDA
@@ -66,6 +72,13 @@ from scat_tpu_torch.kernels import abi, build
 
 HEAD_DIM = 64
 MAX_SEQ = 128
+# the forward kernels (csrc/attention_fwd.cu fwd_design): float32 on CUDA
+# cores, a block a (batch, head) pair; bf16 N <= 64 on mma.sync, a block a
+# pair; bf16 N from WGMMA_MIN_SEQ on the persistent wgmma kernel, one block
+# an SM walking the pairs
+FWD_DESIGNS = ("f32", "bf16_tiles", "bf16_wgmma")
+WGMMA_MIN_SEQ = 65
+WGMMA_BLOCKS_PER_SM = 1
 # below this share of a tensor's largest magnitude, bf16_ulps counts in
 # the ulps of that floor: float32 sums that cancel to near zero carry
 # rounding of the size of their terms, not of their result
@@ -132,6 +145,11 @@ def _library(name: str) -> ctypes.CDLL:
     occ.argtypes = [ctypes.c_int, ctypes.c_int,
                     ctypes.POINTER(ctypes.c_int), ctypes.POINTER(ctypes.c_int)]
     occ.restype = ctypes.c_int
+    if name == "attention_fwd":
+        lib.scat_attention_fwd_plan.argtypes = [
+            ctypes.c_int, ctypes.c_int, ctypes.c_longlong, ctypes.c_int,
+            ctypes.POINTER(ctypes.c_int), ctypes.POINTER(ctypes.c_longlong)]
+        lib.scat_attention_fwd_plan.restype = ctypes.c_int
     lib.scat_cuda_error_string.argtypes = [ctypes.c_int]
     lib.scat_cuda_error_string.restype = ctypes.c_char_p
     return lib
@@ -149,6 +167,39 @@ def occupancy(name: str, n: int, dtype: torch.dtype) -> Tuple[int, int]:
         n, abi.DTYPE_CODES[dtype], ctypes.byref(blocks), ctypes.byref(smem))
     abi.raise_on(rc, lib, f"{name} occupancy")
     return blocks.value, smem.value
+
+
+def forward_plan(n: int, dtype: torch.dtype, pairs: int,
+                 sms: int) -> Tuple[str, int]:
+    """(design, blocks) of the forward launch for sequence length ``n``,
+    ``dtype`` and ``pairs`` = B*H (batch, head) pairs on a card of ``sms``
+    SMs, as ``scat_attention_fwd_plan`` gives them: a block a pair, or
+    for the persistent kernel a block an SM, never more than the pairs
+    (block i takes the pairs i, i + blocks, ...)."""
+    if not 1 <= n <= MAX_SEQ or dtype not in abi.DTYPE_CODES:
+        raise ValueError(f"no forward kernel for N={n}, {dtype}")
+    if pairs < 1 or sms < 1:
+        raise ValueError(f"pairs and sms must be positive, got {pairs}, "
+                         f"{sms}")
+    if dtype == torch.float32:
+        return "f32", pairs
+    if n < WGMMA_MIN_SEQ:
+        return "bf16_tiles", pairs
+    return "bf16_wgmma", min(pairs, sms * WGMMA_BLOCKS_PER_SM)
+
+
+def kernel_plan(n: int, dtype: torch.dtype, pairs: int,
+                sms: int) -> Tuple[str, int]:
+    """``forward_plan`` as the forward library's host code computes it
+    (``scat_attention_fwd_plan``), for holding the two together on the
+    card."""
+    lib = _library("attention_fwd")
+    design, grid = ctypes.c_int(), ctypes.c_longlong()
+    rc = lib.scat_attention_fwd_plan(n, abi.DTYPE_CODES[dtype], pairs, sms,
+                                     ctypes.byref(design),
+                                     ctypes.byref(grid))
+    abi.raise_on(rc, lib, "attention_fwd plan")
+    return FWD_DESIGNS[design.value], grid.value
 
 
 def _check(*ts: torch.Tensor) -> None:

@@ -13,12 +13,16 @@ feature map ``_prm`` :54-60; the custom VJP :150-175 becomes
 Both kernels are ``csrc/favor.cu``; what bounds them and how they are
 laid out is written there.  On bf16 operands (ViP's path) both passes run
 on the tensor cores with the float32 factors split into three bf16 parts
-each ("bf16x3"), to float32's accuracy.  The stats pass (``mma.sync``)
-splits w and phi(k).  The apply pass (``wgmma``, w's and kptv's parts
-read by the tensor cores from shared memory) splits w for the features
+each ("bf16x3"), to float32's accuracy, by ``wgmma`` with w's parts
+read by the tensor cores from shared memory.  The stats pass splits w
+for the features of its bf16 k and phi(k) for the outer product phi(k)^T
+v, whose A (phi's parts) and B (v) operands are read from shared memory
+too; a chain of products spans one 64-row slab and is added to the
+running kptv in IEEE float32.  The apply pass splits w for the features
 of its bf16 q, and phi(q) and kptv for the contraction, of whose nine
-cross products it keeps the six with part indices summing to at most 2;
-its ‖q‖², exp and D = phi(q) . ksum stay IEEE float32 on CUDA cores.  On
+cross products it keeps the six with part indices summing to at most 2.
+Both keep ‖x‖², exp, ksum and D = phi(q) . ksum IEEE float32 on CUDA
+cores.  On
 float32 operands, the parity type, both passes run IEEE float32 FMAs on
 CUDA cores.
 
@@ -67,9 +71,9 @@ MAX_FEATURES = 64
 # (__launch_bounds__; 76 KB and 94 KB of shared memory a block)
 CHUNK_ROWS = 32
 BLOCKS_PER_SM = 2
-# the bf16 stats kernel's (favor_stats_bf16_kernel: kTcRows, one 208 KB
-# block an SM)
-TC_CHUNK_ROWS = 64
+# the bf16 stats kernel's (favor_stats_wgmma_kernel: kStRows, the rows its
+# two warpgroups take at a time, 64 each; one 225 KB block an SM)
+TC_CHUNK_ROWS = 128
 TC_BLOCKS_PER_SM = 1
 # the bf16 q apply kernel's (favor_apply_bf16_kernel: kApRows, the rows
 # its three warpgroups take at a time, 64 each; one 177 KB block an SM)
@@ -284,6 +288,22 @@ def _check(ts, w: torch.Tensor) -> None:
                          "be contiguous")
 
 
+def _tma_rows(x: torch.Tensor) -> torch.Tensor:
+    """``x`` [B,H,T,e] as the bf16 stats kernel's TMA copies take it:
+    every row starting on 16 bytes.  Other bf16 operands (and any of e %
+    8 != 0, whose rows cannot all be aligned) are copied into a
+    zero-padded buffer of rows of a multiple of 8 elements, and passed as
+    its [..., :e] view; float32 operands as they are."""
+    if x.dtype != torch.bfloat16 or (
+            x.data_ptr() % 16 == 0
+            and all(s % 8 == 0 for s in x.stride()[:3])):
+        return x
+    b, h, t, e = x.shape
+    buf = x.new_zeros((b, h, t, -(-e // 8) * 8))
+    buf[..., :e] = x
+    return buf[..., :e]
+
+
 def _heads_last(y: torch.Tensor) -> torch.Tensor:
     """``y`` [B,H,T,e] copied into the layout the apply kernel writes:
     [B,T,H,e] storage seen as [B,H,T,e]."""
@@ -297,6 +317,7 @@ def _favor_stats(k: torch.Tensor, v: torch.Tensor, w: torch.Tensor
     """The stats kernel on CUDA tensors (counted)."""
     _on_cuda("favor_stats", k, v, w)
     _check((k, v), w)
+    k, v = _tma_rows(k), _tma_rows(v)
     b, h, t, e = k.shape
     m = w.shape[0]
     tiles = t_tiles(b * h, t, _sm_count(k.device.index),

@@ -259,6 +259,40 @@ def test_unaligned_bf16_rows_are_copied(rng):
     assert ta._aligned(f32)[0] is f32
 
 
+@pytest.mark.parametrize("n", [1, 21, 64, 65, 80, 100, 127, 128])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_forward_plan_designs(n, dtype):
+    """The forward kernel each (N, dtype) takes: float32 the CUDA-core
+    kernel and bf16 N <= 64 the mma.sync one, a block a (batch, head)
+    pair; bf16 N from 65 to 128 the persistent wgmma kernel."""
+    design, grid = ta.forward_plan(n, dtype, 768, 132)
+    if dtype == torch.float32:
+        assert (design, grid) == ("f32", 768)
+    elif n <= 64:
+        assert (design, grid) == ("bf16_tiles", 768)
+    else:
+        assert design == "bf16_wgmma" and grid == 132
+    with pytest.raises(ValueError):
+        ta.forward_plan(129, dtype, 768, 132)
+
+
+@pytest.mark.parametrize("pairs", [1, 7 * 8, 64 * 8, 96 * 8, 133, 265])
+def test_persistent_grid_visits_every_pair_once(pairs):
+    """The persistent forward on 132 SMs: one block an SM, never more
+    blocks than pairs; block i takes pairs i, i + grid, ...: every pair
+    once, and no block more than one pair more than another."""
+    design, grid = ta.forward_plan(128, torch.bfloat16, pairs, 132)
+    assert design == "bf16_wgmma"
+    assert grid == min(pairs, 132 * ta.WGMMA_BLOCKS_PER_SM)
+    # the kernel's walk: block i takes pairs i, i + grid, ...
+    walks = [list(range(b, pairs, grid)) for b in range(grid)]
+    visited = sorted(p for walk in walks for p in walk)
+    assert visited == list(range(pairs))
+    counts = [len(walk) for walk in walks]
+    assert min(counts) >= 1 and max(counts) - min(counts) <= 1
+    assert max(counts) == -(-pairs // grid)
+
+
 def test_other_devices_raise():
     q = torch.empty(1, 8, 21, 64, device="meta")
     with pytest.raises(ValueError, match="cuda or cpu"):
@@ -296,7 +330,8 @@ def test_library_path_keyed_by_source(monkeypatch, tmp_path):
 def test_sources_have_their_headers():
     """Every source the build compiles exists, and the shared headers the
     tensor-core kernels include (mma.cuh; attention.cuh for the two
-    attention kernels) are ones that the library path hashes."""
+    attention kernels; tma.cuh for the TMA-fed ones) are ones that the
+    library path hashes."""
     for name in build.SOURCES:
         assert os.path.exists(os.path.join(build.CSRC_DIR, f"{name}.cu"))
     for name in ("attention_fwd", "attention_bwd", "favor"):
@@ -304,5 +339,9 @@ def test_sources_have_their_headers():
             src = f.read()
         assert '#include "mma.cuh"' in src, name
         assert ('#include "attention.cuh"' in src) == (name != "favor"), name
-    for header in ("mma.cuh", "attention.cuh"):
+        # the TMA-fed kernels: the persistent forward and the bf16 stats
+        assert ('#include "tma.cuh"' in src) == (name != "attention_bwd"), \
+            name
+    for header in ("mma.cuh", "attention.cuh", "tma.cuh"):
         assert os.path.exists(os.path.join(build.CSRC_DIR, header))
+        assert os.path.join(build.CSRC_DIR, header) in build.headers()

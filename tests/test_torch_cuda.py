@@ -169,6 +169,60 @@ def test_bf16_kernels_within_two_ulps(cuda, shape):
         assert bf16_ulps(got, w).max().item() <= 2, name
 
 
+# the persistent wgmma forward's sequence lengths (64 < N <= 128)
+WGMMA_SEQS = [65, 80, 100, 127, 128]
+
+
+@pytest.mark.parametrize("n", WGMMA_SEQS)
+@pytest.mark.parametrize("dtype,atol", [(torch.float32, 2e-5),
+                                        (torch.bfloat16, 1e-2)])
+def test_wgmma_forward_sequence_lengths(cuda, n, dtype, atol):
+    """N across the persistent forward's range, against the plain version
+    on the float32 values; bf16 within 2 bf16 ulps of it (float32 takes
+    the CUDA-core kernel)."""
+    shape = (5, 8, n, 64)
+    q, k, v = _qkv(shape, dtype, cuda, seed=300 + n)
+    with torch.no_grad():
+        got = flash_attention(q, k, v, 0.125)
+    torch.cuda.synchronize()
+    want = attention_reference(q.float(), k.float(), v.float(), 0.125)
+    assert got.dtype == dtype and got.shape == shape
+    torch.testing.assert_close(got.float(), want, atol=atol,
+                               rtol=atol if dtype == torch.bfloat16 else 0)
+    if dtype == torch.bfloat16:
+        assert bf16_ulps(got, want).max().item() <= 2
+
+
+@pytest.mark.parametrize("b,h", [(1, 1), (7, 8), (133, 1), (265, 1),
+                                 (67, 4), (96, 8)])
+def test_wgmma_forward_pair_counts(cuda, b, h):
+    """B*H pairs that are not a multiple of the persistent grid (132 on an
+    H100): every pair computed once, each equal to its own launch."""
+    from scat_tpu_torch.ops.attention import forward_plan, kernel_plan
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    assert kernel_plan(128, torch.bfloat16, b * h, sms) == forward_plan(
+        128, torch.bfloat16, b * h, sms)
+    q, k, v = _qkv((b, h, 100, 64), torch.bfloat16, cuda, seed=b * h)
+    with torch.no_grad():
+        got = flash_attention(q, k, v, 0.125)
+        one = flash_attention(q[:1], k[:1], v[:1], 0.125)
+    torch.cuda.synchronize()
+    want = attention_reference(q.float(), k.float(), v.float(), 0.125)
+    assert bf16_ulps(got, want).max().item() <= 2
+    assert torch.equal(got[:1], one)
+
+
+def test_forward_plans_match_the_library(cuda):
+    """forward_plan (the CPU tests hold it) is what the library's host
+    code computes, for every design."""
+    from scat_tpu_torch.ops.attention import forward_plan, kernel_plan
+    for n in (1, 21, 64, 65, 128):
+        for dtype in (torch.float32, torch.bfloat16):
+            for pairs, sms in ((1, 132), (768, 132), (265, 132), (50, 8)):
+                assert kernel_plan(n, dtype, pairs, sms) == forward_plan(
+                    n, dtype, pairs, sms), (n, dtype, pairs, sms)
+
+
 def _unaligned(x):
     """x's values in a [B,H,N,D] tensor whose rows start 6 bytes past
     16-byte boundaries."""
@@ -186,6 +240,17 @@ def test_forward_kernel_copies_unaligned_rows(cuda):
     with torch.no_grad():
         got = flash_attention(_unaligned(q), k, _unaligned(v), 0.125)
         want = flash_attention(q.contiguous(), k, v.contiguous(), 0.125)
+    assert torch.equal(got, want)
+
+
+def test_wgmma_forward_copies_unaligned_rows(cuda):
+    """At N = 128 (the persistent kernel's TMA copies) bf16 rows that do
+    not start on 16 bytes are copied first; the result is the aligned
+    operands'."""
+    q, k, v = _qkv((3, 8, 128, 64), torch.bfloat16, cuda, seed=5)
+    with torch.no_grad():
+        got = flash_attention(_unaligned(q), _unaligned(k), v, 0.125)
+        want = flash_attention(q.contiguous(), k.contiguous(), v, 0.125)
     assert torch.equal(got, want)
 
 
@@ -344,6 +409,61 @@ def test_favor_kernels_bit_deterministic(cuda, kernel, shape):
     first = run()
     for _ in range(2):
         assert all(torch.equal(a, f) for a, f in zip(run(), first))
+
+
+@pytest.mark.parametrize("t", [1, 63, 64, 65, 1100, 3137])
+@pytest.mark.parametrize("e", [64, 96, 128])
+@pytest.mark.parametrize("m", [32, 64])
+def test_favor_stats_shapes(cuda, t, e, m):
+    """The bf16 stats kernel across T (slab and round edges, T-tiles),
+    e and m, on the Performer block's strided views: against the plain
+    version on the float32 values at the smoke's tolerance, and bit for
+    bit the same on a second run."""
+    q, k, v, w = _favor_operands(1, 4, t, e, m, torch.bfloat16, cuda,
+                                 seed=t + e + m)
+    ksum, kptv = favor.favor_stats(k, v, w)
+    torch.cuda.synchronize()
+    wks, wkv = favor.favor_stats_reference(k.float(), v.float(), w)
+    for got, want in ((ksum, wks), (kptv, wkv)):
+        torch.testing.assert_close(
+            got, want, rtol=FAVOR_RTOL,
+            atol=FAVOR_ATOL * want.abs().max().item())
+    again = favor.favor_stats(k, v, w)
+    assert torch.equal(again[0], ksum) and torch.equal(again[1], kptv)
+
+
+def test_graph_replay_equals_eager_kernels(cuda):
+    """The persistent attention forward (N = 128, bf16) and the bf16 stats
+    kernel captured in a CUDA graph (their TMA maps baked into the
+    launches) and replayed on new inputs copied into the captured ones:
+    bit for bit the eager launches' results."""
+    q, k, v = (t.contiguous() for t in _qkv((6, 8, 128, 64),
+                                            torch.bfloat16, cuda, seed=9))
+    fq, fk, fv, w = (t.contiguous() if t.dim() == 4 else t
+                     for t in _favor_operands(2, 4, 1100, 128, 64,
+                                              torch.bfloat16, cuda, seed=9))
+    with torch.no_grad():
+        flash_attention(q, k, v, 0.125)  # built and warmed up
+        favor.favor_stats(fk, fv, w)
+        torch.cuda.synchronize()
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            o = flash_attention(q, k, v, 0.125)
+            ksum, kptv = favor.favor_stats(fk, fv, w)
+        for seed in (10, 11):
+            for dst, src in zip((q, k, v), _qkv((6, 8, 128, 64),
+                                                torch.bfloat16, cuda,
+                                                seed=seed)):
+                dst.copy_(src)
+            new = _favor_operands(2, 4, 1100, 128, 64, torch.bfloat16,
+                                  cuda, seed=seed)
+            fk.copy_(new[1])
+            fv.copy_(new[2])
+            graph.replay()
+            torch.cuda.synchronize()
+            assert torch.equal(o, flash_attention(q, k, v, 0.125))
+            eager = favor.favor_stats(fk, fv, w)
+            assert torch.equal(ksum, eager[0]) and torch.equal(kptv, eager[1])
 
 
 def test_favor_autograd_and_no_plain_on_cuda(cuda, monkeypatch):

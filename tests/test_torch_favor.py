@@ -173,18 +173,43 @@ def _split3(x):
     return parts
 
 
-def _tensor_core_stats(k, v, w):
-    """The bf16 stats kernel's arithmetic on the CPU, for bf16-valued k
-    and v [BH, T, e] and float32 w [m, e]: wx as the sum of the products
-    with w's three bf16 parts (smallest first), phi in float32, ksum its
-    float32 sum, kptv the sum of phi's three bf16 parts times v."""
-    wx = sum(torch.einsum("bte,me->btm", k, part)
-             for part in reversed(_split3(w)))
-    xd = 0.5 * (k * k).sum(dim=-1, keepdim=True)
-    phi = torch.exp(wx - xd) / w.shape[0] ** 0.5
-    kptv = sum(torch.einsum("btm,bte->bme", part, v)
-               for part in reversed(_split3(phi)))
-    return phi.sum(dim=-2), kptv
+def _tensor_core_stats(k, v, w, sms=132):
+    """The bf16 stats kernel's arithmetic on the CPU, in its order, for
+    bf16-valued k and v [BH, T, e] and float32 w [m, e]: T cut into the
+    kernel's T-tiles (``t_tiles`` for its 128-row rounds), each tile into
+    64-row slabs taken by two warpgroups in turn.  Per slab: wx as a sum
+    over 16-column k-steps of chains of the products with w's three bf16
+    parts (smallest first), added in float32; phi in float32; the slab's
+    chain of phi's three parts times v added to the warpgroup's running
+    kptv in float32.  ksum and kptv: the two warpgroups' partials summed
+    in order, then the tiles in order (the reduce kernel)."""
+    bh, t, e = k.shape
+    chunk, per_sm = tf.stats_tiling(torch.bfloat16)
+    tiles = tf.t_tiles(bh, t, sms, chunk, per_sm)
+    per_tile = -(-(-(-t // tiles)) // chunk) * chunk
+    w_parts = list(reversed(_split3(w)))
+    ksum = torch.zeros(bh, w.shape[0])
+    kptv = torch.zeros(bh, w.shape[0], e)
+    for begin in range(0, t, per_tile):
+        ks = [torch.zeros_like(ksum) for _ in range(2)]
+        kv = [torch.zeros_like(kptv) for _ in range(2)]
+        for i, row in enumerate(range(begin, min(t, begin + per_tile), 64)):
+            x = k[:, row:min(t, begin + per_tile, row + 64)]
+            wx = torch.zeros(bh, x.shape[1], w.shape[0])
+            for c in range(0, e, 16):
+                wx = wx + sum(torch.einsum("bte,me->btm", x[..., c:c + 16],
+                                           part[:, c:c + 16])
+                              for part in w_parts)
+            xd = 0.5 * (x * x).sum(dim=-1, keepdim=True)
+            phi = torch.exp(wx - xd) / w.shape[0] ** 0.5
+            ks[i % 2] = ks[i % 2] + phi.sum(dim=-2)
+            vs = v[:, row:row + x.shape[1]]
+            kv[i % 2] = kv[i % 2] + sum(
+                torch.einsum("btm,bte->bme", part, vs)
+                for part in reversed(_split3(phi)))
+        ksum = ksum + (ks[0] + ks[1])
+        kptv = kptv + (kv[0] + kv[1])
+    return ksum, kptv
 
 
 def test_split_parts_sum_back(rng):
@@ -200,10 +225,12 @@ def test_split_parts_sum_back(rng):
 
 
 def test_tensor_core_split_matches_pallas_stats(rng, monkeypatch):
-    """The bf16x3 split of w and phi against the stats pallas_call of
-    _favor_impl (captured as it returns) at T = 1100 with bf16-valued k
-    and v, at the card's tolerance: rtol 1e-4, atol 1e-5 of the largest
-    magnitude."""
+    """The bf16 stats kernel's arithmetic in its order (the bf16x3 split
+    of w and phi, per-k-step feature chains, per-slab outer-product chains,
+    two warpgroups' partials and five T-tiles of 256 rows summed in order)
+    against the stats pallas_call of _favor_impl (captured as it returns)
+    at T = 1100 with bf16-valued k and v, at the card's tolerance: rtol
+    1e-4, atol 1e-5 of the largest magnitude."""
     calls = []
     real = pf.pl.pallas_call
 
@@ -221,6 +248,7 @@ def test_tensor_core_split_matches_pallas_stats(rng, monkeypatch):
     k, v = (torch.from_numpy(a).bfloat16().float().numpy() for a in (k, v))
     pf._favor_impl(*map(jnp.asarray, (q, k, v, w)))
     jksum, jkptv = (np.asarray(a) for a in calls[0])
+    assert tf.t_tiles(bh, t, 132, *tf.stats_tiling(torch.bfloat16)) == 5
     ksum, kptv = _tensor_core_stats(*_t(k, v, w))
     for got, want in ((ksum.numpy(), jksum[:, 0]), (kptv.numpy(), jkptv)):
         np.testing.assert_allclose(got, want, rtol=1e-4,
@@ -346,11 +374,13 @@ def test_t_tiles(bh, t, sms):
 @pytest.mark.parametrize("bh,t,sms", [(384, 3137, 132), (256, 3137, 132),
                                       (4, 3137, 132), (28, 3137, 132),
                                       (1, 1, 132), (4, 65, 132),
-                                      (4, 1281, 132), (7, 1048, 8)])
+                                      (4, 129, 132), (4, 1281, 132),
+                                      (7, 1048, 8)])
 def test_t_tiles_stats_kernel(bh, t, sms):
-    """The bf16 stats kernel's tiling: whole 64-row chunks per tile, no
-    empty tile, at most MAX_TILES; one block an SM, so a batch of at
-    least one block per SM splits T at most in two."""
+    """The bf16 stats kernel's tiling: whole 128-row rounds (two
+    warpgroups of 64-row slabs) per tile, no empty tile, at most
+    MAX_TILES; one block an SM, so a batch of at least one block per SM
+    splits T at most in two."""
     chunk, per_sm = tf.stats_tiling(torch.bfloat16)
     assert (chunk, per_sm) == (tf.TC_CHUNK_ROWS, tf.TC_BLOCKS_PER_SM)
     n = tf.t_tiles(bh, t, sms, chunk, per_sm)
@@ -385,12 +415,13 @@ def test_stats_tiling_at_vip_shapes():
     assert tf.stats_tiling(torch.float32) == (tf.CHUNK_ROWS,
                                               tf.BLOCKS_PER_SM)
     tc = tf.stats_tiling(torch.bfloat16)
+    assert tc == (128, 1)
     # train (bs 96 x 4 heads): 384 blocks, three waves of one an SM
     assert tf.t_tiles(384, 3137, 132, *tc) == 1
     # serving bucket 64: 256 blocks, no partials
     assert tf.t_tiles(256, 3137, 132, *tc) == 1
-    # serving bucket 1 (4 heads): T split into tiles of three chunks
-    assert tf.t_tiles(4, 3137, 132, *tc) == 17
+    # serving bucket 1 (4 heads): T split into tiles of two 128-row rounds
+    assert tf.t_tiles(4, 3137, 132, *tc) == 13
 
 
 def test_ops_tiling_at_vip_shapes():
@@ -411,6 +442,33 @@ def test_ops_tiling_at_vip_shapes():
     # serving buckets 7 and 1: T split into tiles of two rounds
     assert tf.t_tiles(28, 3137, 132, *ap) == 9
     assert tf.t_tiles(4, 3137, 132, *ap) == 9
+
+
+@pytest.mark.parametrize("e,offset,strided", [(128, 0, True), (128, 3, False),
+                                              (36, 0, False), (36, 0, True),
+                                              (64, 0, False)])
+def test_tma_rows(e, offset, strided):
+    """The bf16 stats kernel's TMA copies take rows that start on 16
+    bytes: aligned bf16 operands pass as they are; others (an odd start,
+    e % 8 != 0) are copied into zero-padded rows of a multiple of 8
+    elements, the same values; float32 operands pass as they are."""
+    b, h, t = 2, 3, 5
+    src = torch.arange(b * t * h * 3 * e + offset, dtype=torch.float32)
+    src = src.bfloat16()[offset:]
+    if strided:   # the Performer block's k view of its [B,T,H,3e] kqv
+        x = src.view(b, t, h, 3 * e).permute(0, 2, 1, 3)[..., :e]
+    else:
+        x = src[:b * h * t * e].view(b, h, t, e)
+    got = tf._tma_rows(x)
+    aligned = x.data_ptr() % 16 == 0 and all(
+        s % 8 == 0 for s in x.stride()[:3])
+    assert (got is x) == aligned
+    assert aligned == (offset == 0 and e % 8 == 0)
+    assert torch.equal(got, x) and got.shape == x.shape
+    assert got.data_ptr() % 16 == 0
+    assert all(s % 8 == 0 for s in got.stride()[:3])
+    f32 = x.float()
+    assert tf._tma_rows(f32) is f32
 
 
 def test_other_devices_raise():
