@@ -8,10 +8,11 @@
 Phases, in order; any failure raises and exits non-zero:
   1. build    compile every kernel source under scat_tpu_torch/csrc
               (one nvcc each, in parallel), print what ptxas reports
-              (registers, shared memory, spills) for the five bf16
-              tensor-core kernels (the two wgmma kernels fed by TMA, the
-              persistent attention forward and the FAVOR+ stats, must
-              not spill), and the card's name and power limit;
+              (registers, shared memory, spills) for the six bf16
+              tensor-core kernels (the three wgmma kernels fed by TMA,
+              the persistent attention forward and backward and the
+              FAVOR+ stats, must not spill), and the card's name and
+              power limit;
   2. kernels  each kernel against its plain PyTorch version on the card
               at the serving and training paths' shapes: float32 (TF32
               off) at atol 2e-5, bfloat16 at atol = rtol = 1e-2 against
@@ -22,17 +23,19 @@ Phases, in order; any failure raises and exits non-zero:
               design that rounded P to bf16);
               flash_attention's autograd against autograd through the
               plain forward; then each kernel timed beside its plain
-              version and the library call (SDPA forward, and SDPA
-              forward+backward beside the two kernels' sum, with SDPA's
-              backward alone as their difference), each beside its
-              bound; also at the 128-token heads' [96, 8, 128, 64] (the
-              forward's persistent wgmma kernel beside SDPA and its
-              bound: the kernels line's ms_n128, bound_ms_n128,
-              library_ms_n128), with each kernel's blocks an SM holds and
-              shared memory a block (the occupancy API) at N 21 and 128;
-              the persistent forward at N 65, 80, 100, 127 and 128 in
-              bf16 and float32 and at pair counts that are not a multiple
-              of its grid, its launch plan against forward_plan's;
+              version and the library call (SDPA's forward; SDPA's
+              backward alone, through one saved forward; and the
+              forward+backward pairs), each beside its bound; also at
+              the 128-token heads' [96, 8, 128, 64] (both directions'
+              persistent wgmma kernels beside SDPA and their bounds: the
+              kernels line's ms_n128, bound_ms_n128, library_ms_n128),
+              with each kernel's blocks an SM holds and shared memory a
+              block (the occupancy API) at N 21 and 128 and the wgmma
+              kernels' registers; both persistent kernels at N 65, 80,
+              97, 100, 127 and 128 in bf16 and float32 and at pair counts
+              that are not a multiple of their grid, their launch plans
+              against forward_plan's and backward_plan's, the backward
+              bit for bit the same on a second launch;
   3. slice    the flagship --net reg_transformer predictor at full width
               (resnet50, 224x224 crops, 784-dim tokens, 8 heads,
               iteration 3, bfloat16, weights from seed 0) serves uint8
@@ -290,7 +293,8 @@ from scat_tpu_torch.ops.attention import (attention_bwd,
                                           attention_bwd_reference,
                                           attention_reference, bf16_ulps,
                                           flash_attention)
-from scat_tpu_torch.ops.attention import forward_plan, kernel_plan
+from scat_tpu_torch.ops.attention import (backward_plan, forward_plan,
+                                          kernel_plan)
 from scat_tpu_torch.ops.attention import occupancy as attention_occupancy
 from scat_tpu_torch.ops.favor import (favor_apply, favor_apply_reference,
                                       favor_attention, favor_attention_fused,
@@ -438,18 +442,19 @@ def card_line() -> str:
         check=True).stdout.strip()
 
 
-def device_ms(fn, iters=200) -> float:
+def device_ms(fn, iters=200, stream=None) -> float:
     """Device time per call of ``fn`` in ms: ``iters`` calls captured in
     one CUDA graph, replayed, timed by CUDA events (no host launch cost
-    between the calls)."""
-    side = torch.cuda.Stream()
+    between the calls).  ``stream``: warm up and capture there (an
+    autograd backward runs on its forward's stream)."""
+    side = stream or torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(side):
         for _ in range(3):
             fn()
     torch.cuda.current_stream().wait_stream(side)
     graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
+    with torch.cuda.graph(graph, stream=stream):
         for _ in range(iters):
             fn()
     graph.replay()
@@ -476,12 +481,22 @@ def qkv_views(b, h, n, d, dtype, seed):
 PTXAS_KERNELS = (("attention_fwd", "attention_fwd_bf16_kernel"),
                  ("attention_fwd", "attention_fwd_wgmma_kernel"),
                  ("attention_bwd", "attention_bwd_bf16_kernel"),
+                 ("attention_bwd", "attention_bwd_wgmma_kernel"),
                  ("favor", "favor_stats_wgmma_kernel"),
                  ("favor", "favor_apply_bf16_kernel"))
-# the wgmma kernels whose accumulators a spill would stall
-NO_SPILL_KERNELS = ("attention_fwd_wgmma_kernel", "favor_stats_wgmma_kernel")
-# the persistent forward's sequence lengths (64 < N <= 128)
-WGMMA_SEQS = (65, 80, 100, 127, 128)
+# the wgmma kernels fed by TMA, whose accumulators a spill would stall
+NO_SPILL_KERNELS = ("attention_fwd_wgmma_kernel",
+                    "attention_bwd_wgmma_kernel", "favor_stats_wgmma_kernel")
+# the persistent kernels' sequence lengths (64 < N <= 128)
+WGMMA_SEQS = (65, 80, 97, 100, 127, 128)
+
+
+def ptxas_registers(name, kernel):
+    """What ptxas said of ``kernel``'s registers, where this process
+    built library ``name``."""
+    lines = ptxas_lines(build.LOGS.get(name, ""), kernel)
+    return next((line.split(":", 1)[1].strip() for line in lines
+                 if "registers" in line), "loaded as built before")
 
 
 def ptxas_lines(log, kernel):
@@ -602,33 +617,53 @@ def phase_kernels():
               f"vs autograd through attention_reference: max_abs_err "
               f"{err:.3e} (tol 2e-05)")
 
-    # the persistent wgmma forward across its N range, and at pair counts
-    # that are not a multiple of its grid (one block an SM)
+    # the persistent wgmma kernels across their N range, and at pair counts
+    # that are not a multiple of their grid (one block an SM): each plan
+    # against the library's, the backward twice (bit for bit the same)
     sms = torch.cuda.get_device_properties(0).multi_processor_count
-    for b, h, n in [(4, HEADS, n) for n in WGMMA_SEQS] + [(133, 1, 128),
-                                                          (265, 1, 97),
-                                                          (67, 4, 128)]:
+    for b, h, n in [(4, HEADS, n) for n in WGMMA_SEQS] + [
+            (1, 1, 128), (7, 8, 100), (133, 1, 128), (265, 1, 97),
+            (67, 4, 128)]:
         for dtype, tol in ((torch.float32, 2e-5), (torch.bfloat16, 1e-2)):
+            rtol = tol if dtype == torch.bfloat16 else 0
             plan = forward_plan(n, dtype, b * h, sms)
             assert kernel_plan(n, dtype, b * h, sms) == plan, plan
+            bplan = backward_plan(n, dtype, b * h, sms)
+            assert kernel_plan(n, dtype, b * h, sms,
+                               name="attention_bwd") == bplan, bplan
             q, k, v = qkv_views(b, h, n, HEAD_DIM, dtype, seed=700 + n + b)
+            do = grad_out(b, h, n, HEAD_DIM, dtype, seed=800 + n + b)
             with torch.no_grad():
                 got = flash_attention(q, k, v, SCALE)
+            dgot = attention_bwd(q, k, v, do, SCALE)
+            again = attention_bwd(q, k, v, do, SCALE)
             torch.cuda.synchronize()
+            assert all(torch.equal(a, c) for a, c in zip(dgot, again)), \
+                "attention_bwd differs between two launches"
             want = attention_reference(q.float(), k.float(), v.float(),
                                        SCALE)
+            dwant = attention_bwd_reference(q.float(), k.float(), v.float(),
+                                            do.float(), SCALE)
             err = (got.float() - want).abs().max().item()
-            torch.testing.assert_close(
-                got.float(), want, atol=tol,
-                rtol=tol if dtype == torch.bfloat16 else 0)
+            derr = max((a.float() - w).abs().max().item()
+                       for a, w in zip(dgot, dwant))
+            torch.testing.assert_close(got.float(), want, atol=tol,
+                                       rtol=rtol)
+            for name, a, w in zip(("dq", "dk", "dv"), dgot, dwant):
+                torch.testing.assert_close(a.float(), w, atol=tol, rtol=rtol,
+                                           msg=name)
             ulps = ""
             if dtype == torch.bfloat16:
-                u = bf16_ulps(got, want).max().item()
-                assert u <= ULPS, u
-                ulps = f", {u:g} bf16 ulps (bound {ULPS})"
-            print(f"[kernels] attention_fwd [{b},{h},{n},{HEAD_DIM}] "
-                  f"{str(dtype)[6:]}: {plan[0]} on {plan[1]} blocks, "
-                  f"max_abs_err {err:.3e} (tol {tol}){ulps}")
+                u = [bf16_ulps(a, w).max().item()
+                     for a, w in zip((got, *dgot), (want, *dwant))]
+                assert max(u) <= ULPS, u
+                ulps = (f", bf16 ulps (o, dq, dk, dv) "
+                        f"{', '.join(f'{x:g}' for x in u)} (bound {ULPS})")
+            print(f"[kernels] [{b},{h},{n},{HEAD_DIM}] {str(dtype)[6:]}: "
+                  f"attention_fwd {plan[0]} on {plan[1]} blocks, max_abs_err "
+                  f"{err:.3e}; attention_bwd {bplan[0]} on {bplan[1]} blocks "
+                  f"(the library's plan alike), max_abs_err {derr:.3e}, two "
+                  f"launches equal (tol {tol}){ulps}")
 
     print("[kernels] device times in ms, bf16, q/k/v strided views as in "
           "the model; 200 calls in one CUDA graph, timed by CUDA events:")
@@ -639,7 +674,7 @@ def phase_kernels():
     BWD.result.update(time_bwd(TRAIN_BATCH, TOKENS))
 
     # the 128-token heads' shape (HRNet and Inception, 8 heads): the
-    # forward's persistent wgmma kernel, the backward's NT = 8 warps a head
+    # persistent wgmma kernels of both directions
     card = card_line()
     for n in (TOKENS, HEAD_TOKENS):
         for name in ("attention_fwd", "attention_bwd"):
@@ -648,26 +683,33 @@ def phase_kernels():
                 print(f"[kernels] {name} N={n} {str(dtype)[6:]}: {blocks} "
                       f"block(s) an SM at once (occupancy API), {smem} B of "
                       f"shared memory a block")
-    blocks, smem = attention_occupancy("attention_fwd", HEAD_TOKENS,
-                                       torch.bfloat16)
-    assert blocks >= 1, blocks
-    plan = forward_plan(HEAD_TOKENS, torch.bfloat16, TRAIN_BATCH * HEADS,
-                        sms)
-    print(f"[kernels] attention_fwd at N={HEAD_TOKENS} bf16: {plan[0]}, a "
-          f"persistent grid of {plan[1]} blocks over {TRAIN_BATCH * HEADS} "
-          f"pairs ({blocks} block(s) an SM, {smem} B of shared memory)")
+    for name in ("attention_fwd", "attention_bwd"):
+        blocks, smem = attention_occupancy(name, HEAD_TOKENS, torch.bfloat16)
+        assert blocks >= 1, (name, blocks)
+        plan = (forward_plan if name == "attention_fwd" else backward_plan)(
+            HEAD_TOKENS, torch.bfloat16, TRAIN_BATCH * HEADS, sms)
+        assert kernel_plan(HEAD_TOKENS, torch.bfloat16, TRAIN_BATCH * HEADS,
+                           sms, name=name) == plan, (name, plan)
+        print(f"[kernels] {name} at N={HEAD_TOKENS} bf16: {plan[0]}, a "
+              f"persistent grid of {plan[1]} blocks over "
+              f"{TRAIN_BATCH * HEADS} pairs, the library's plan alike "
+              f"({blocks} block(s) an SM, {smem} B of shared memory, ptxas: "
+              f"{ptxas_registers(name, f'{name}_wgmma_kernel')})")
     fwd = time_fwd(TRAIN_BATCH, HEAD_TOKENS)
     FWD.result.update(ms_n128=fwd["ms"], bound_ms_n128=fwd["bound_ms"],
                       library_ms_n128=fwd["library_ms"])
     bwd = time_bwd(TRAIN_BATCH, HEAD_TOKENS)
+    BWD.result.update(ms_n128=bwd["ms"], bound_ms_n128=bwd["bound_ms"],
+                      library_ms_n128=bwd["library_ms"])
     print(f"[kernels] at [{TRAIN_BATCH},{HEADS},{HEAD_TOKENS},{HEAD_DIM}] "
           f"bf16: attention_fwd {fwd['ms']:.5f} ms, bound "
           f"{fwd['bound_ms']:.6f} ({100 * fwd['bound_ms'] / fwd['ms']:.1f}% "
           f"of it), SDPA {fwd['library_ms']:.5f}; attention_bwd "
           f"{bwd['ms']:.5f} ms, bound {bwd['bound_ms']:.6f} "
-          f"({100 * bwd['bound_ms'] / bwd['ms']:.1f}%), SDPA forward+backward "
-          f"{bwd['library_ms']:.5f} against the kernels' "
-          f"{bwd['pair_ms']:.5f}; card {card}")
+          f"({100 * bwd['bound_ms'] / bwd['ms']:.1f}%), SDPA's backward "
+          f"alone {bwd['library_ms']:.5f}; forward+backward: the kernels' "
+          f"{bwd['pair_ms']:.5f}, SDPA's {bwd['sdpa_pair_ms']:.5f}; card "
+          f"{card}")
 
 
 def time_fwd(b, n):
@@ -692,9 +734,10 @@ def time_fwd(b, n):
 
 
 def time_bwd(b, n):
-    """The backward kernel at [b, 8, n, 64] beside the plain version; the
-    library yardstick is SDPA's forward+backward through autograd, beside
-    the two kernels' sum (``pair_ms``)."""
+    """The backward kernel at [b, 8, n, 64] beside the plain version and
+    the library yardstick, SDPA's backward alone: autograd through one
+    saved SDPA forward, the backward alone captured; and the
+    forward+backward pairs, the kernels' and SDPA's."""
     q, k, v = qkv_views(b, HEADS, n, HEAD_DIM, torch.bfloat16, seed=7)
     do = grad_out(b, HEADS, n, HEAD_DIM, torch.bfloat16, seed=8)
     leaves = [t.detach().requires_grad_(True) for t in (q, k, v)]
@@ -707,22 +750,26 @@ def time_bwd(b, n):
         "sdpa fwd+bwd": device_ms(lambda: torch.autograd.grad(
             F.scaled_dot_product_attention(*leaves, scale=SCALE), leaves,
             do))}
-    with torch.no_grad():
-        dev["sdpa fwd"] = device_ms(
-            lambda: F.scaled_dot_product_attention(q, k, v, scale=SCALE))
+    # the saved forward runs on the stream the backward is captured on
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        out = F.scaled_dot_product_attention(*leaves, scale=SCALE)
+    dev["sdpa bwd"] = device_ms(lambda: torch.autograd.grad(
+        out, leaves, do, retain_graph=True), stream=side)
     n_bytes = 7 * b * HEADS * n * HEAD_DIM * 2
     flops = 10 * b * HEADS * n * n * HEAD_DIM
     ms, by = bound(n_bytes, flops)
     print(f"[kernels] attention_bwd b={b} [{b},{HEADS},{n},{HEAD_DIM}]: "
-          f"kernel {dev['kernel']:.5f} plain {dev['plain']:.5f} | kernels "
-          f"fwd+bwd {dev['kernels fwd+bwd']:.5f} sdpa fwd+bwd "
-          f"{dev['sdpa fwd+bwd']:.5f}, sdpa fwd {dev['sdpa fwd']:.5f}, so "
-          f"sdpa bwd alone ~{dev['sdpa fwd+bwd'] - dev['sdpa fwd']:.5f} | "
-          f"bound {ms:.6f} ({by}: {n_bytes} B, {flops} flop) | "
-          f"{100 * ms / dev['kernel']:.1f}% of the bound")
+          f"kernel {dev['kernel']:.5f} plain {dev['plain']:.5f} sdpa bwd "
+          f"{dev['sdpa bwd']:.5f} | kernels fwd+bwd "
+          f"{dev['kernels fwd+bwd']:.5f} sdpa fwd+bwd "
+          f"{dev['sdpa fwd+bwd']:.5f} | bound {ms:.6f} ({by}: {n_bytes} B, "
+          f"{flops} flop) | {100 * ms / dev['kernel']:.1f}% of the bound")
     return dict(ms=dev["kernel"], plain_ms=dev["plain"],
-                library_ms=dev["sdpa fwd+bwd"], bound_ms=ms, bound_by=by,
-                pair_ms=dev["kernels fwd+bwd"])
+                library_ms=dev["sdpa bwd"], bound_ms=ms, bound_by=by,
+                pair_ms=dev["kernels fwd+bwd"],
+                sdpa_pair_ms=dev["sdpa fwd+bwd"])
 
 
 def n_chunks(n: int, big: int) -> int:

@@ -15,6 +15,7 @@
 #include <cuda_bf16.h>
 
 #include "mma.cuh"
+#include "tma.cuh"
 
 namespace scat_attention {
 
@@ -22,6 +23,9 @@ using bf16 = __nv_bfloat16;
 
 constexpr int kHeadDim = 64;
 constexpr int kMaxSeq = 128;
+// bf16 N from here takes the persistent wgmma kernels, below it the
+// per-head mma.sync ones
+constexpr int kWgMinSeq = 65;
 // shared row stride of D-wide bf16 rows: 144 bytes, so that the eight row
 // addresses of an ldmatrix fall in distinct banks
 constexpr int kRowS = kHeadDim + 8;
@@ -31,7 +35,7 @@ struct Strides {
   long long b, h, n;
 };
 
-// sizes of a bf16 kernel with NT 16-row tiles (N <= 16 NT)
+// sizes of a per-head bf16 kernel with NT 16-row tiles (N <= 16 NT)
 template <int NT>
 struct Tiles {
   static constexpr int kNP = 16 * NT;  // padded sequence length
@@ -83,6 +87,50 @@ __device__ __forceinline__ void store_rows(const float (&acc)[kHeadDim / 8][4],
   __syncwarp();  // the staging tile is rewritten by the next store
 }
 
+// The persistent wgmma kernels' operands as TMA moves them: rows of
+// kHeadDim bf16 (128 bytes) in the 128-byte swizzled layout, atoms of 8
+// rows (1024 bytes, 1024-byte aligned)
+constexpr uint32_t kRowBytes = 2 * kHeadDim;
+constexpr uint32_t kAtom = 1024;
+
+// operand i's whole box of (b, h) from its map into dst, completing on bar
+template <int K>
+__device__ __forceinline__ void load_box(void* dst,
+                                         const scat_tma::Maps<K>& maps,
+                                         int i, uint64_t* bar, int h, int b) {
+  const bool rows_first = maps.row_dim[i] == 1;
+  scat_mma::tma_load_4d(dst, &maps.op[i], bar, 0, rows_first ? 0 : h,
+                        rows_first ? h : 0, b);
+}
+
+// a staged box into operand i's rows row0.. of (b, h) (rows past the
+// tensor's edge are not written)
+template <int K>
+__device__ __forceinline__ void store_box(const scat_tma::Maps<K>& maps,
+                                          int i, const void* src, int row0,
+                                          int h, int b) {
+  const bool rows_first = maps.row_dim[i] == 1;
+  scat_mma::tma_store_4d(&maps.op[i], src, 0, rows_first ? row0 : h,
+                         rows_first ? h : row0, b);
+}
+
+// a consumer warp's [16 x D] float32 wgmma accumulators (n-tile j in
+// acc[4j..4j+3]) times `scale` as bf16 into its staging tile: 16 rows in
+// the 128-byte swizzled layout, conflict-free
+__device__ __forceinline__ void stage_tile(const float (&acc)[32],
+                                           float scale, uint8_t* tile,
+                                           int lane) {
+  const int g = lane / 4, t = lane % 4;
+#pragma unroll
+  for (int j = 0; j < kHeadDim / 8; ++j) {
+    const int at = 16 * (j ^ g) + 4 * t;  // rows g and g + 8 swizzle alike
+    *reinterpret_cast<uint32_t*>(tile + g * kRowBytes + at) =
+        scat_mma::pack_bf16(acc[4 * j] * scale, acc[4 * j + 1] * scale);
+    *reinterpret_cast<uint32_t*>(tile + (g + 8) * kRowBytes + at) =
+        scat_mma::pack_bf16(acc[4 * j + 2] * scale, acc[4 * j + 3] * scale);
+  }
+}
+
 // the bf16 kernels' 16-byte copies and stores need every row of each of
 // the `count` operands 16-byte aligned
 inline bool rows_aligned(const void* const* ptrs, const Strides* st,
@@ -108,8 +156,9 @@ cudaError_t occupancy(K kernel, int threads, size_t smem, int* blocks) {
                                                        threads, smem);
 }
 
-// f(std::integral_constant<int, NT>()) for the NT = ceil(n/16) warps a
-// head of sequence length n (1 <= n <= kMaxSeq)
+// f(std::integral_constant<int, NT>()) for the NT = ceil(n/16) warps of
+// the per-head bf16 kernels, which take n < kWgMinSeq (above it the
+// persistent wgmma kernels run)
 template <typename F>
 cudaError_t with_tiles(int n, F f) {
   switch ((n + 15) / 16) {
@@ -117,10 +166,6 @@ cudaError_t with_tiles(int n, F f) {
     case 2: return f(std::integral_constant<int, 2>());
     case 3: return f(std::integral_constant<int, 3>());
     case 4: return f(std::integral_constant<int, 4>());
-    case 5: return f(std::integral_constant<int, 5>());
-    case 6: return f(std::integral_constant<int, 6>());
-    case 7: return f(std::integral_constant<int, 7>());
-    case 8: return f(std::integral_constant<int, 8>());
   }
   return cudaErrorInvalidValue;
 }

@@ -9,45 +9,111 @@
 // P, dP and dS never reach device memory.  D = 64, 1 <= N <= 128; every
 // operand is addressed through (batch, head, row) strides, so the
 // projection's strided Q/K/V views and the dO that autograd delivers need
-// no copy.
+// no copy.  Keys >= N are masked to -inf, queries >= N contribute nothing,
+// and rows past N are neither read nor written.
 //
-// What bounds it on the H100: bytes, at the bound.  It reads Q, K, V, dO
-// and writes dQ, dK, dV: 14,450,688 bytes in bf16 at the flagship's train
-// shape [96,8,21,64], 4.31 us at 3.35 TB/s, against 10*N*N*D flops per
-// (batch, head).  What bounded the first design (one CUDA-core FMA per
-// 4-byte shared-memory load, and a second pass that recomputed S and dP)
-// was the count of shared-memory instructions.  So the bf16 kernel, the
-// one the canonical training path runs, does its five products on the
+// What bounds it on the H100: bytes.  It reads Q, K, V, dO and writes dQ,
+// dK, dV: 14,450,688 bytes in bf16 at the flagship's train shape
+// [96,8,21,64] (4.31 us at 3.35 TB/s) and 88,080,384 at the 128-token
+// heads' [96,8,128,64] (26.29 us), against 10*N*N*D flops per (batch,
+// head).  Three kernels, chosen by the host code below (bwd_design) from N
+// and the dtype.
+//
+// bf16, N <= 64 (the flagship's N = 21): per-head tiles on mma.sync.  The
+// first design, the CUDA-core one kept below for float32, was bounded by
+// its count of shared-memory instructions, so the five products run on the
 // tensor cores, where one mma.sync does 2,048 multiply-adds from fragments
 // that one ldmatrix loads:
-//   * one block per (batch, head) of NT = ceil(N/16) warps (2 at N = 21, 8
-//     at N = 128): warp w owns query rows 16w..16w+15 in phase 1 and key
-//     rows 16w..16w+15 in phase 2, so every warp does tensor-core work and
-//     the 768 heads of the training batch (33 KB of shared memory each at
-//     N = 21, six blocks an SM) are resident in one wave;
+//   * one block per (batch, head) of NT = ceil(N/16) warps (2 at N = 21):
+//     warp w owns query rows 16w..16w+15 in phase 1 and key rows
+//     16w..16w+15 in phase 2; the 768 heads of the training batch (33 KB of
+//     shared memory each at N = 21, six blocks an SM) are resident in one
+//     wave;
 //   * Q, K, V and dO rows are copied into shared memory as bf16 in 16-byte
-//     cp.async copies, all issued before any math; rows past N are zero.
-//     Rows are padded by 16 bytes (144 B) so that the eight row addresses
-//     of an ldmatrix fall in distinct banks;
+//     cp.async copies, rows past N zero, rows padded to 144 bytes so that
+//     the eight row addresses of an ldmatrix fall in distinct banks;
 //   * phase 1 (warp: 16 query rows against all keys): S and dP by
 //     mma.sync.m16n8k16 (bf16 in, f32 accumulate); keys >= N masked to
-//     -inf as the TPU kernel does; row max, row sum, delta and dS in the
-//     accumulator registers with quad shuffles.  P and dS are each split
-//     into a bf16 high part and a bf16 low part, lo = bf16(x - float(hi))
-//     (mma.cuh split_bf16), and the four are written to shared memory
-//     ([NP][NP] each, NP = 16 NT); dQ = dS K takes dS's two parts straight
-//     from the registers as A fragments;
-//   * phase 2 (warp: 16 keys): dV = P^T dO and dK = dS^T Q, the
-//     transposes by ldmatrix.trans.  The four bf16 tiles fit beside the
-//     operands (226 KB of the 227 KB a block may have at N = 128, 33 KB at
-//     N = 21), so there is no recompute pass;
-//   * each output tile goes through a per-warp staging tile in shared
-//     memory and leaves in 16-byte stores through the output strides.
+//     -inf; row max, row sum, delta and dS in the accumulator registers
+//     with quad shuffles.  P and dS are each split into a bf16 high part
+//     and a bf16 low part, lo = bf16(x - float(hi)) (mma.cuh split_bf16),
+//     and the four are written to shared memory; dQ = dS K takes dS's two
+//     parts straight from the registers as A fragments;
+//   * phase 2 (warp: 16 keys): dV = P^T dO and dK = dS^T Q, the transposes
+//     by ldmatrix.trans;
+//   * each output tile leaves through a per-warp staging tile in 16-byte
+//     stores.
+//
+// bf16, 64 < N <= 128 (the 128-token heads): a persistent, warp-specialised,
+// key-major wgmma kernel fed by TMA (attention_bwd_wgmma_kernel).  The
+// per-head plan above at NT = 8 took 0.07552 ms at [96,8,128,64] on an
+// H100 80GB HBM3 at 700 W, 35% of the byte bound (PERF.md, chip_smoke.py):
+// its four [128 x 136] bf16 tiles of P and dS filled an SM's shared memory
+// (231,424 B), so one block of 8 warps ran on an SM at a time, 5.8 ragged
+// waves over the 768 heads, its copies and its products in series.  This
+// design is the persistent forward's plan (attention_fwd.cu) turned round:
+//   * a persistent grid: min(B*H, SMs) blocks, block i takes the pairs i,
+//     i + grid, ...;
+//   * a producer warpgroup (setmaxnreg down to 40 registers) of which one
+//     thread keeps the next pair's Q, K, V and dO in flight in a ring of two
+//     64 KB stages: one TMA copy a operand of its [128 rows x 128 bytes]
+//     box in the 128-byte swizzled layout (rows past N read as zeros),
+//     evicted first from the L2, completing on the stage's full mbarrier;
+//     the consumers release a stage on its empty mbarrier;
+//   * two consumer warpgroups (setmaxnreg up to 232), key-major: warpgroup
+//     c owns keys 64c..64c+63.  S^T = K Q^T and dP^T = V dO^T are each four
+//     wgmma.m64n128k16 with both operands K-major from the stage, so a
+//     thread holds the scores and dP of two keys against 32 queries.  P^T
+//     and dS^T then stay in registers, and no [N x N] tile reaches shared
+//     memory for dV and dK;
+//   * the softmax statistics and delta belong to a query, a column here.
+//     S^T and dP^T are two wgmma groups, so that the column max runs while
+//     dP^T is in flight.  A warp first takes its 16 keys' column max (a
+//     reduce-scatter over the
+//     eight lanes that share a column, xor 16, 8, 4, then the all-gather
+//     back: 56 shuffles for 32 columns, where a butterfly takes 96), then
+//     exp(s scale - max) of each element, and its column sums of e and of
+//     e dP reduce-scattered the same way, so that each lane ends holding
+//     four columns' (max, sum, sum of e dP).  One exchange through shared
+//     memory and two named barriers of the 256 consumer threads combine the
+//     eight warps' partials per column in a fixed order (the online
+//     softmax's rescaling by exp(max_w - max)); the combine hands each warp
+//     the factor exp(max_w - max) / sum that turns its e into P, and delta
+//     = sum(P dP).  Queries >= N get factor 0, so they add nothing;
+//   * dV = P^T dO and dK = dS^T Q * scale are wgmma.m64n64k16 with P^T and
+//     dS^T as A fragments from the registers, split into bf16 high and low
+//     parts (mma.cuh split_bf16) into one float32 accumulator, and dO and Q
+//     MN-major B operands (the descriptor's transpose bit) from the stage.
+//     dV is in flight while dS^T is split and written, and while the
+//     warpgroups meet at the barrier that publishes it;
+//   * dQ = dS K * scale needs dS by query: the only [N x N] tile in shared
+//     memory is dS^T's two bf16 parts (64 KB), written from the fragments
+//     into the swizzled layout a descriptor reads, so that warpgroup c forms
+//     its 64 query rows of dQ with wgmma.m64n64k16 from dS^T as an MN-major
+//     A and K as an MN-major B, issued behind dK.  No atomics: every sum
+//     has one fixed order, and the kernel is bit-deterministic;
+//   * dQ, dK and dV leave by one TMA store a warp each from swizzled staging
+//     tiles in the warpgroup's half of dS's region, once its dQ is formed
+//     (rows past N are not written); the next pair's copies land meanwhile.
+// The ring (128 KB), dS (64 KB) and the exchange (16.5 KB) take 214,560 B
+// of shared memory a block: one block an SM, two stages.  168 registers a
+// thread as ptxas counts them (the consumers' setmaxnreg raises theirs), no
+// spills.  At [96,8,128,64] on an NVIDIA H100 80GB HBM3 at 700.00 W
+// (chip_smoke.py, 200 calls in a CUDA graph): about 0.047 ms, 56% of the
+// byte bound, against 0.07552 for the per-head plan and about 0.092 for
+// SDPA's backward alone (PERF.md has each run's figures).  What holds the
+// rest (timing-only variants of a scratch copy): the copies alone, with
+// no compute, already take most of the time, and the column statistics
+// and the output stores, neither of which overlaps the tensor cores
+// within a pair, each cost a visible share.  Issuing the next pair's S^T
+// and dP^T behind dQ (dK and dV stored from the registers) spilled and
+// was slower.
+//
 // The Pallas backward keeps P and dS in float32 (pallas_attention.py:74-83).
-// Q, K, dO are bf16 inputs, so they are exact, and hi + lo carries P and dS
-// to about 2^-17 of their values: each of dV, dQ and dK runs the high
+// Q, K, V and dO are bf16 inputs, so they are exact, and hi + lo carries P
+// and dS to about 2^-17 of their values: each of dV, dQ and dK runs the high
 // and the low part's products into the same float32 accumulator, the
-// Pallas kernel's float32 products at the cost of one more mma.sync per
+// Pallas kernel's float32 products at the cost of one more product a
 // split operand.  The bf16 results are held against the float32 plain
 // version rounded to bf16, within 2 bf16 ulps.
 //
@@ -66,6 +132,7 @@
 
 #include "attention.cuh"
 #include "mma.cuh"
+#include "tma.cuh"
 
 namespace {
 
@@ -251,11 +318,11 @@ attention_bwd_f32_kernel(const float* __restrict__ q,
 }
 
 // ---------------------------------------------------------------------------
-// bfloat16: tensor cores
+// bfloat16, N < kWgMinSeq: per-head tiles on mma.sync
 
-// the bf16 kernel with NT 16-row tiles: the shared row stride of P and
-// dS, and its shared memory (Q, K, V, dO [NP][kRowS]; the high and low
-// parts of P and dS [NP][kPS]; per-warp staging [16][kRowS])
+// the per-head bf16 kernel with NT 16-row tiles: the shared row stride of
+// P and dS, and its shared memory (Q, K, V, dO [NP][kRowS]; the high and
+// low parts of P and dS [NP][kPS]; per-warp staging [16][kRowS])
 template <int NT>
 struct BwdTiles : Tiles<NT> {
   static constexpr int kPS = 16 * NT + 8;
@@ -264,8 +331,6 @@ struct BwdTiles : Tiles<NT> {
       sizeof(bf16) * size_t(4) * Tiles<NT>::kNP * kPS +
       Tiles<NT>::kStageBytes;
 };
-static_assert(BwdTiles<8>::kSmem <= 232448,
-              "the N = 128 backward must fit a block's 227 KB");
 
 template <int NT>
 __global__ void __launch_bounds__(Tiles<NT>::kThreads)
@@ -470,6 +535,437 @@ attention_bwd_bf16_kernel(const bf16* __restrict__ q,
 }
 
 // ---------------------------------------------------------------------------
+// bfloat16, 64 < N <= 128: a persistent, warp-specialised, key-major wgmma
+// kernel fed by TMA (see the head of this file)
+
+constexpr int kWgStages = 2;        // ring of (Q, K, V, dO) stages
+constexpr int kWgGroups = 2;        // consumer warpgroups, 64 keys each
+constexpr int kWgWarps = 4 * kWgGroups;          // consumer warps
+constexpr int kWgConsumers = 32 * kWgWarps;      // consumer threads
+constexpr int kWgThreads = kWgConsumers + 128;   // and a producer warpgroup
+// registers a thread of the producer warpgroup and of a consumer warpgroup
+// keeps (setmaxnreg; 128 * (kWgProducerRegs + 2 * kWgConsumerRegs) <= 64K)
+constexpr int kWgProducerRegs = 40;
+constexpr int kWgConsumerRegs = 232;
+constexpr int kWgBlocksPerSM = 1;
+// one staged operand: kMaxSeq rows of kHeadDim bf16 (128 bytes), as TMA
+// writes a box in the 128-byte swizzled layout (atoms of 8 rows, 1024 B)
+constexpr uint32_t kOperandBytes = kMaxSeq * kRowBytes;
+constexpr uint32_t kStageBytes = 4 * kOperandBytes;  // Q, K, V, dO
+// dS^T, the MN-major A of dQ = dS K: per half of the queries (64, one
+// swizzled row of 128 bytes) and per part (high, low), [kMaxSeq keys][64]
+constexpr uint32_t kDsBlock = kMaxSeq * kRowBytes;
+constexpr uint32_t kDsHalf = 2 * kDsBlock;
+constexpr uint32_t kDsBytes = 2 * kDsHalf;
+constexpr uint32_t kTileBytes = 16 * kRowBytes;  // a warp's output tile
+// the column exchange: each consumer warp's max, sum and sum of e dP, and
+// the factors the combine hands back, [kWgWarps][kMaxSeq] floats each;
+// delta [kMaxSeq]
+constexpr uint32_t kPartBytes = sizeof(float) * kWgWarps * kMaxSeq;
+constexpr size_t kWgSmem = 1024 /* 1024-byte alignment at run time */ +
+                           kWgStages * kStageBytes + kDsBytes +
+                           4 * kPartBytes + sizeof(float) * kMaxSeq +
+                           sizeof(uint64_t) * 2 * kWgStages;
+static_assert(kWgSmem <= 232448, "the backward must fit a block's 227 KB");
+static_assert(4 * 3 * kTileBytes <= kDsHalf,
+              "a warpgroup's output tiles fit its half of dS's region");
+// named barriers of the consumer threads: partials written, combined, and
+// dS^T written; then one of each warpgroup's 128 threads
+constexpr int kBarPartials = 1, kBarCombined = 2, kBarDs = 3, kBarGroup = 4;
+
+// the TMA maps of Q, K, V, dO (boxes of kMaxSeq rows) and dQ, dK, dV
+// (boxes of 16 rows), in that order
+using BwdMaps = scat_tma::Maps<7>;
+
+// One halving step of a reduce-scatter over the eight lanes that share a
+// column (lanes xor `mask`, the bit of g it flips): of the slots v[0..2H),
+// the lane whose bit is set keeps the upper half, the other the lower, and
+// each combines its half with its partner's, into v[0..H)
+template <int H, int N>
+__device__ __forceinline__ void scatter_max(float (&v)[N], bool upper,
+                                            int mask) {
+#pragma unroll
+  for (int i = 0; i < H; ++i) {
+    const float keep = upper ? v[i + H] : v[i];
+    const float send = upper ? v[i] : v[i + H];
+    v[i] = fmaxf(keep, __shfl_xor_sync(0xffffffffu, send, mask));
+  }
+}
+template <int H, int N>
+__device__ __forceinline__ void scatter_sum(float (&v)[N], float (&w)[N],
+                                            bool upper, int mask) {
+#pragma unroll
+  for (int i = 0; i < H; ++i) {
+    const float keep_v = upper ? v[i + H] : v[i];
+    const float send_v = upper ? v[i] : v[i + H];
+    const float keep_w = upper ? w[i + H] : w[i];
+    const float send_w = upper ? w[i] : w[i + H];
+    v[i] = keep_v + __shfl_xor_sync(0xffffffffu, send_v, mask);
+    w[i] = keep_w + __shfl_xor_sync(0xffffffffu, send_w, mask);
+  }
+}
+// the inverse step: v[0..H) and the partner's back into v[0..2H)
+template <int H, int N>
+__device__ __forceinline__ void gather(float (&v)[N], bool upper, int mask) {
+#pragma unroll
+  for (int i = 0; i < H; ++i) {
+    const float mine = v[i];
+    const float other = __shfl_xor_sync(0xffffffffu, mine, mask);
+    v[i] = upper ? other : mine;
+    v[i + H] = upper ? mine : other;
+  }
+}
+
+// The column statistics of one pair for consumer warp cw, whose thread
+// holds keys key0 and key0 + 8: s holds the raw scores S^T (query n-tile j
+// in s[4j..4j+3]).  A thread's 32 columns are its slots 2j + u (column
+// 8j + 2t + u); after the three halving steps of a reduce-scatter, slot
+// 4g + f of its lane group is in v[f].  column_max masks keys >= n and
+// gives every lane the warp's max of each of its columns (mx, by slot),
+// and its own four slots' max scaled by c = scale log2(e) (mine)
+__device__ __forceinline__ void column_max(float (&s)[64], float (&mx)[32],
+                                           float (&mine)[4], int key0, int n,
+                                           float c, int lane) {
+  const int g = lane / 4;
+  const bool up4 = g & 4, up2 = g & 2, up1 = g & 1;
+  if (n < kMaxSeq) {
+    const bool m0 = key0 >= n, m1 = key0 + 8 >= n;
+#pragma unroll
+    for (int j = 0; j < kMaxSeq / 8; ++j) {
+      if (m0) s[4 * j] = s[4 * j + 1] = -INFINITY;
+      if (m1) s[4 * j + 2] = s[4 * j + 3] = -INFINITY;
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < 32; ++i)
+    mx[i] = fmaxf(s[4 * (i >> 1) + (i & 1)], s[4 * (i >> 1) + 2 + (i & 1)]);
+  scatter_max<16>(mx, up4, 16);
+  scatter_max<8>(mx, up2, 8);
+  scatter_max<4>(mx, up1, 4);
+#pragma unroll
+  for (int f = 0; f < 4; ++f) mine[f] = mx[f] * c;
+  gather<4>(mx, up1, 4);
+  gather<8>(mx, up2, 8);
+  gather<16>(mx, up4, 16);
+}
+
+// then column_sums replaces s by e = exp(s scale - max_w) and writes the
+// warp's partials of its own four columns (max_w c, the sum of e, the sum
+// of e dP) to the exchange
+__device__ __forceinline__ void column_sums(float (&s)[64],
+                                            const float (&dp)[64],
+                                            const float (&mx)[32],
+                                            const float (&mine)[4],
+                                            float* xm, float* xl, float* xd,
+                                            int cw, float c, int lane) {
+  const int g = lane / 4, t = lane % 4;
+  const bool up4 = g & 4, up2 = g & 2, up1 = g & 1;
+  // e, and its column sums (the first halving step fused in)
+  float sl[16], sd[16];
+#pragma unroll
+  for (int i = 0; i < 16; ++i) {
+    float l2[2], d2[2];
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      const int slot = i + 16 * hh;
+      const int a = 4 * (slot >> 1) + (slot & 1), b = a + 2;
+      // a warp whose keys are all masked has max -inf: its e are 0
+      const float mc = mx[slot] == -INFINITY ? 0.f : mx[slot] * c;
+      s[a] = exp2_approx(fmaf(s[a], c, -mc));
+      s[b] = exp2_approx(fmaf(s[b], c, -mc));
+      l2[hh] = s[a] + s[b];
+      d2[hh] = fmaf(s[b], dp[b], s[a] * dp[a]);
+    }
+    const float keep_l = up4 ? l2[1] : l2[0], send_l = up4 ? l2[0] : l2[1];
+    const float keep_d = up4 ? d2[1] : d2[0], send_d = up4 ? d2[0] : d2[1];
+    sl[i] = keep_l + __shfl_xor_sync(0xffffffffu, send_l, 16);
+    sd[i] = keep_d + __shfl_xor_sync(0xffffffffu, send_d, 16);
+  }
+  scatter_sum<8>(sl, sd, up2, 8);
+  scatter_sum<4>(sl, sd, up1, 4);
+  // slots 4g + f: columns 16g + 8(f/2) + 2t + f%2
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int at = cw * kMaxSeq + 16 * g + 8 * h + 2 * t;
+    *reinterpret_cast<float2*>(xm + at) =
+        make_float2(mine[2 * h], mine[2 * h + 1]);
+    *reinterpret_cast<float2*>(xl + at) =
+        make_float2(sl[2 * h], sl[2 * h + 1]);
+    *reinterpret_cast<float2*>(xd + at) =
+        make_float2(sd[2 * h], sd[2 * h + 1]);
+  }
+}
+
+// query q's statistics from the eight warps' partials, in warp order: the
+// max, the sum of e rescaled by exp(max_w - max), and delta = sum(P dP);
+// writes each warp's factor exp(max_w - max) / sum (0 for q >= n) and
+// delta
+__device__ __forceinline__ void combine_column(const float* xm,
+                                               const float* xl,
+                                               const float* xd, float* fac,
+                                               float* delta, int q, int n) {
+  float f[kWgWarps], mx = -INFINITY;
+#pragma unroll
+  for (int w = 0; w < kWgWarps; ++w) {
+    f[w] = xm[w * kMaxSeq + q];
+    mx = fmaxf(mx, f[w]);
+  }
+  float l = 0.f, d = 0.f;
+#pragma unroll
+  for (int w = 0; w < kWgWarps; ++w) {
+    f[w] = exp2_approx(f[w] - mx);
+    l = fmaf(xl[w * kMaxSeq + q], f[w], l);
+    d = fmaf(xd[w * kMaxSeq + q], f[w], d);
+  }
+  const float inv = q < n ? 1.f / l : 0.f;
+#pragma unroll
+  for (int w = 0; w < kWgWarps; ++w) fac[w * kMaxSeq + q] = f[w] * inv;
+  delta[q] = d * inv;
+}
+
+// e -> P = e * factor and dP -> dS = P (dP - delta), column by column
+__device__ __forceinline__ void probabilities(float (&s)[64],
+                                              float (&dp)[64],
+                                              const float* fac,
+                                              const float* delta, int cw,
+                                              int lane) {
+  const int t = lane % 4;
+#pragma unroll
+  for (int j = 0; j < kMaxSeq / 8; ++j) {
+    const float2 f2 = *reinterpret_cast<const float2*>(
+        fac + cw * kMaxSeq + 8 * j + 2 * t);
+    const float2 d2 =
+        *reinterpret_cast<const float2*>(delta + 8 * j + 2 * t);
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int i = 4 * j + e;
+      const float p = s[i] * ((e & 1) ? f2.y : f2.x);
+      dp[i] = p * (dp[i] - ((e & 1) ? d2.y : d2.x));
+      s[i] = p;
+    }
+  }
+}
+
+// x (a key-major [64 x kMaxSeq] accumulator) split into bf16 high and low A
+// fragments: query n-tiles 2kk and 2kk + 1 are k-step kk's
+__device__ __forceinline__ void split_fragments(const float (&x)[64],
+                                                uint32_t (&hi)[8][4],
+                                                uint32_t (&lo)[8][4]) {
+#pragma unroll
+  for (int kk = 0; kk < kMaxSeq / 16; ++kk)
+#pragma unroll
+    for (int f = 0; f < 4; ++f) {
+      // fragment f: n-tile 2kk + f/2, row g + 8 (f % 2)
+      const int i = 8 * kk + 4 * (f >> 1) + 2 * (f & 1);
+      split_bf16(x[i], x[i + 1], hi[kk][f], lo[kk][f]);
+    }
+}
+
+__global__ void __launch_bounds__(kWgThreads, kWgBlocksPerSM)
+attention_bwd_wgmma_kernel(const __grid_constant__ BwdMaps maps, int heads,
+                           int n, long long pairs, float scale) {
+  extern __shared__ __align__(128) uint8_t smem_wg[];
+  // the swizzled ring, dS^T and the staging tiles need 1024-byte atoms
+  uint8_t* ring = smem_wg + ((1024 - (smem_addr(smem_wg) & 1023)) & 1023);
+  uint8_t* ds = ring + kWgStages * kStageBytes;
+  float* xm = reinterpret_cast<float*>(ds + kDsBytes);
+  float* xl = xm + kWgWarps * kMaxSeq;
+  float* xd = xl + kWgWarps * kMaxSeq;
+  float* fac = xd + kWgWarps * kMaxSeq;
+  float* delta = fac + kWgWarps * kMaxSeq;
+  uint64_t* full = reinterpret_cast<uint64_t*>(delta + kMaxSeq);
+  uint64_t* empty = full + kWgStages;
+
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kWgStages; ++s) {
+      mbar_init(&full[s], 1);               // the producer's expect_tx
+      mbar_init(&empty[s], kWgConsumers);   // every consumer thread
+    }
+    mbar_init_fence();
+  }
+  __syncthreads();  // the only block-wide barrier
+
+  if (warp >= kWgWarps) {
+    // The producer, one lane: pair it into stage it % kWgStages once the
+    // consumers have released it, four TMA copies completing on the
+    // stage's full barrier
+    regs_dec<kWgProducerRegs>();
+    if (warp == kWgWarps && lane == 0) {
+      int it = 0;
+      for (long long p = blockIdx.x; p < pairs; p += gridDim.x, ++it) {
+        const int s = it % kWgStages;
+        if (it >= kWgStages) mbar_wait(&empty[s], (it / kWgStages - 1) & 1);
+        const int b = int(p / heads), h = int(p % heads);
+        uint8_t* st = ring + s * kStageBytes;
+        mbar_arrive_expect_tx(&full[s], kStageBytes);
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+          load_box(st + i * kOperandBytes, maps, i, &full[s], h, b);
+      }
+    }
+    return;
+  }
+
+  // The consumers: warpgroup grp takes keys 64 grp .. 64 grp + 63 of every
+  // pair (warp gw of it keys 64 grp + 16 gw + g and + 8) for S^T, dP^T, dV
+  // and dK, and query rows 64 grp .. 64 grp + 63 for dQ
+  regs_inc<kWgConsumerRegs>();
+  const int grp = warp / 4, gw = warp % 4;
+  const int key0 = 64 * grp + 16 * gw + lane / 4;
+  const float c = scale * 1.4426950408889634f;  // scale * log2(e)
+  uint8_t* dsq = ds + grp * kDsHalf;  // this warpgroup's queries of dS^T
+  uint8_t* tiles = dsq + gw * 3 * kTileBytes;  // the warp's dQ, dK, dV
+  int it = 0;
+  for (long long p = blockIdx.x; p < pairs; p += gridDim.x, ++it) {
+    const int s = it % kWgStages;
+    const uint8_t* sQ = ring + s * kStageBytes;
+    const uint8_t* sK = sQ + kOperandBytes;
+    const uint8_t* sV = sK + kOperandBytes;
+    const uint8_t* sDO = sV + kOperandBytes;
+    mbar_wait(&full[s], (it / kWgStages) & 1);
+
+    // S^T = K Q^T and dP^T = V dO^T: the warpgroup's 64 keys (A) against
+    // every query (B), both K-major, a k-step of 16 head columns 32 bytes
+    // on within the swizzled rows; two groups, so that the column max runs
+    // while dP^T is in flight
+    float sc[64], dp[64];
+    unset(sc);
+    unset(dp);
+    wgmma_fence();
+#pragma unroll
+    for (int ks = 0; ks < kHeadDim / 16; ++ks)
+      wgmma_ss_64x128x16<0, 0>(
+          sc, wgmma_desc_sw128(sK + grp * 64 * kRowBytes + 32 * ks, 16, kAtom),
+          wgmma_desc_sw128(sQ + 32 * ks, 16, kAtom), ks > 0);
+    wgmma_commit();
+#pragma unroll
+    for (int ks = 0; ks < kHeadDim / 16; ++ks)
+      wgmma_ss_64x128x16<0, 0>(
+          dp, wgmma_desc_sw128(sV + grp * 64 * kRowBytes + 32 * ks, 16, kAtom),
+          wgmma_desc_sw128(sDO + 32 * ks, 16, kAtom), ks > 0);
+    wgmma_commit();
+
+    // the column statistics: partials, one exchange, the combine
+    wgmma_wait<1>();
+    hold(sc);
+    float mx[32], mine[4];
+    column_max(sc, mx, mine, key0, n, c, lane);
+    wgmma_wait<0>();
+    hold(dp);
+    column_sums(sc, dp, mx, mine, xm, xl, xd, warp, c, lane);
+    // the previous pair's output stores have read their tiles (dS^T's
+    // region, rewritten below) before any thread passes the barriers
+    if (lane == 0) bulk_wait_read<0>();
+    named_sync(kBarPartials, kWgConsumers);
+    if (int(threadIdx.x) < kMaxSeq)
+      combine_column(xm, xl, xd, fac, delta, int(threadIdx.x), n);
+    named_sync(kBarCombined, kWgConsumers);
+    probabilities(sc, dp, fac, delta, warp, lane);
+
+    // dV = P^T dO: P^T's parts as A fragments, dO an MN-major B ([query]
+    // [head column]), a k-step of 16 queries two atoms on; both parts into
+    // one accumulator
+    uint32_t ph[8][4], pl[8][4];
+    split_fragments(sc, ph, pl);
+    float av[32];
+    unset(av);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < kMaxSeq / 16; ++kk) {
+      const uint64_t b =
+          wgmma_desc_sw128(sDO + 2 * kAtom * kk, kOperandBytes, kAtom);
+      wgmma_64x64x16_bt(av, ph[kk], b, kk > 0);
+      wgmma_64x64x16_bt(av, pl[kk], b, 1);
+    }
+    wgmma_commit();
+
+    // dS^T's parts: the A fragments of dK = dS^T Q, and into shared memory
+    // as dQ's MN-major A: key row r of query half j / 8, its 16-byte chunk
+    // (query n-tile) j % 8 swizzled by r % 8 = g
+    uint32_t sh[8][4], sl[8][4];
+    split_fragments(dp, sh, sl);
+    {
+      const int g = lane / 4, t = lane % 4;
+#pragma unroll
+      for (int kk = 0; kk < kMaxSeq / 16; ++kk)
+#pragma unroll
+        for (int f = 0; f < 4; ++f) {
+          const int j = 2 * kk + (f >> 1);
+          uint8_t* at = ds + (j >> 3) * kDsHalf +
+                        (key0 + 8 * (f & 1)) * kRowBytes +
+                        16 * ((j & 7) ^ g) + 4 * t;
+          *reinterpret_cast<uint32_t*>(at) = sh[kk][f];
+          *reinterpret_cast<uint32_t*>(at + kDsBlock) = sl[kk][f];
+        }
+    }
+    fence_proxy_async();  // dS^T, written by the threads, read by wgmma
+    named_sync(kBarDs, kWgConsumers);  // both warpgroups' dS^T written
+    float ak[32];
+    unset(ak);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < kMaxSeq / 16; ++kk) {
+      const uint64_t b =
+          wgmma_desc_sw128(sQ + 2 * kAtom * kk, kOperandBytes, kAtom);
+      wgmma_64x64x16_bt(ak, sh[kk], b, kk > 0);
+      wgmma_64x64x16_bt(ak, sl[kk], b, 1);
+    }
+    wgmma_commit();
+    wgmma_wait<1>();  // dV: P^T's fragments are free
+    hold(av);
+    hold(ph);
+    hold(pl);
+
+    // dQ = dS K: this warpgroup's 64 queries of dS^T's parts (an MN-major
+    // A, 64 queries a swizzled row) and K an MN-major B, a k-step of 16
+    // keys two atoms on
+    float aq[32];
+    unset(aq);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < kMaxSeq / 16; ++kk) {
+      const uint64_t b =
+          wgmma_desc_sw128(sK + 2 * kAtom * kk, kOperandBytes, kAtom);
+      wgmma_ss_64x64x16<1, 1>(
+          aq, wgmma_desc_sw128(dsq + 2 * kAtom * kk, kOperandBytes, kAtom),
+          b, kk > 0);
+      wgmma_ss_64x64x16<1, 1>(
+          aq,
+          wgmma_desc_sw128(dsq + kDsBlock + 2 * kAtom * kk, kOperandBytes,
+                           kAtom),
+          b, 1);
+    }
+    wgmma_commit();
+    wgmma_wait<0>();
+    hold(ak);
+    hold(sh);
+    hold(sl);
+    hold(aq);
+    mbar_arrive(&empty[s]);  // the stage is read: the producer may refill it
+
+    // the outputs leave through staging tiles in this warpgroup's half of
+    // dS^T, once every warp of the warpgroup has its dQ (the half's only
+    // reader)
+    group_sync(kBarGroup + grp);
+    stage_tile(aq, scale, tiles, lane);
+    stage_tile(ak, scale, tiles + kTileBytes, lane);
+    stage_tile(av, 1.f, tiles + 2 * kTileBytes, lane);
+    fence_proxy_async();  // the tiles, written by the threads, read by TMA
+    __syncwarp();
+    const int row0 = 64 * grp + 16 * gw;
+    if (lane == 0 && row0 < n) {
+      const int b = int(p / heads), h = int(p % heads);
+      store_box(maps, 4, tiles, row0, h, b);
+      store_box(maps, 5, tiles + kTileBytes, row0, h, b);
+      store_box(maps, 6, tiles + 2 * kTileBytes, row0, h, b);
+      bulk_commit();
+    }
+  }
+  if (lane == 0) bulk_wait<0>();  // the last stores have left the tiles
+}
+
+// ---------------------------------------------------------------------------
 // launches
 
 cudaError_t launch_f32(const void* const* ptrs, int grid, int heads, int n,
@@ -511,6 +1007,48 @@ cudaError_t launch_bf16(const void* const* ptrs, int grid, int heads, int n,
   return cudaSuccess;
 }
 
+// the persistent kernel's grid: a block an SM (kWgBlocksPerSM), never more
+// blocks than pairs
+long long wg_grid(long long pairs, int sms) {
+  return pairs < (long long)sms * kWgBlocksPerSM
+             ? pairs
+             : (long long)sms * kWgBlocksPerSM;
+}
+
+cudaError_t launch_wgmma(const void* const* ptrs, int batch, int heads,
+                         int n, const Strides* st, float scale,
+                         cudaStream_t stream) {
+  const long long pairs = (long long)batch * heads;
+  int dev = 0, sms = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  BwdMaps maps;
+  for (int i = 0; i < 7 && err == cudaSuccess; ++i)
+    err = scat_tma::encode_rows(&maps.op[i], ptrs[i], st[i].b, st[i].h,
+                                st[i].n, batch, heads, n, kHeadDim,
+                                i < 4 ? kMaxSeq : 16, kHeadDim,
+                                &maps.row_dim[i]);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(attention_bwd_wgmma_kernel,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               int(kWgSmem));
+  if (err != cudaSuccess) return err;
+  attention_bwd_wgmma_kernel<<<int(wg_grid(pairs, sms)), kWgThreads, kWgSmem,
+                               stream>>>(maps, heads, n, pairs, scale);
+  return cudaSuccess;
+}
+
+// the kernel scat_attention_bwd launches for sequence length n and dtype:
+// 0 the float32 CUDA-core kernel, 1 the per-head bf16 mma.sync kernel, 2
+// the persistent bf16 wgmma kernel; -1 for what it does not take
+int bwd_design(int n, int dtype) {
+  if (n < 1 || n > kMaxSeq) return -1;
+  if (dtype == 0) return 0;
+  if (dtype == 1) return n >= kWgMinSeq ? 2 : 1;
+  return -1;
+}
+
 }  // namespace
 
 extern "C" {
@@ -531,7 +1069,7 @@ int scat_attention_bwd(const void* q, const void* k, const void* v,
   Strides st[7];
   for (int i = 0; i < 7; ++i)
     st[i] = Strides{strides[3 * i], strides[3 * i + 1], strides[3 * i + 2]};
-  const long long grid = (long long)batch * heads;
+  const long long grid = (long long)batch * heads;  // a block a pair
   if (grid > 0x7fffffffLL) return int(cudaErrorInvalidValue);
   const void* ptrs[7] = {q, k, v, dout, dq, dk, dv};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -540,10 +1078,13 @@ int scat_attention_bwd(const void* q, const void* k, const void* v,
     err = launch_f32(ptrs, int(grid), heads, n, st, scale, s);
   } else if (dtype == 1) {
     if (!rows_aligned(ptrs, st, 7)) return int(cudaErrorInvalidValue);
-    err = with_tiles(n, [&](auto nt) {
-      return launch_bf16<decltype(nt)::value>(ptrs, int(grid), heads, n, st,
-                                              scale, s);
-    });
+    if (bwd_design(n, dtype) == 2)
+      err = launch_wgmma(ptrs, batch, heads, n, st, scale, s);
+    else
+      err = with_tiles(n, [&](auto nt) {
+        return launch_bf16<decltype(nt)::value>(ptrs, int(grid), heads, n,
+                                                st, scale, s);
+      });
   } else {
     return int(cudaErrorInvalidValue);
   }
@@ -562,6 +1103,9 @@ int scat_attention_bwd_occupancy(int n, int dtype, int* blocks,
     *smem = int(f32_smem_bytes(n));
     err = occupancy(attention_bwd_f32_kernel, kF32Threads,
                     f32_smem_bytes(n), blocks);
+  } else if (bwd_design(n, dtype) == 2) {
+    *smem = int(kWgSmem);
+    err = occupancy(attention_bwd_wgmma_kernel, kWgThreads, kWgSmem, blocks);
   } else if (dtype == 1) {
     err = with_tiles(n, [&](auto nt) {
       constexpr int NT = decltype(nt)::value;
@@ -574,6 +1118,18 @@ int scat_attention_bwd_occupancy(int n, int dtype, int* blocks,
     return int(cudaErrorInvalidValue);
   }
   return int(err);
+}
+
+// the launch scat_attention_bwd makes for sequence length n, `dtype` and
+// `pairs` = batch * heads on a card of `sms` SMs: *design as bwd_design
+// gives it, *grid the blocks launched (one a pair, or the persistent
+// grid); returns a cudaError_t
+int scat_attention_bwd_plan(int n, int dtype, long long pairs, int sms,
+                            int* design, long long* grid) {
+  *design = bwd_design(n, dtype);
+  if (*design < 0 || pairs < 1 || sms < 1) return int(cudaErrorInvalidValue);
+  *grid = *design == 2 ? wg_grid(pairs, sms) : pairs;
+  return int(cudaSuccess);
 }
 
 const char* scat_cuda_error_string(int code) {

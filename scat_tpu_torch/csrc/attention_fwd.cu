@@ -342,7 +342,6 @@ attention_fwd_bf16_kernel(const bf16* __restrict__ q,
 // bfloat16, 64 < N <= 128: a persistent, warp-specialised wgmma kernel fed
 // by TMA (see the head of this file)
 
-constexpr int kWgMinSeq = 65;       // bf16 N from here takes this kernel
 constexpr int kWgStages = 3;        // ring of (Q, K, V) stages
 constexpr int kWgGroups = 2;        // consumer warpgroups, 64 query rows each
 constexpr int kWgWarps = 4 * kWgGroups;          // consumer warps
@@ -357,8 +356,6 @@ constexpr int kWgBlocksPerSM = 1;
 constexpr int kWgOperand = kMaxSeq * kHeadDim;
 constexpr int kWgStage = 3 * kWgOperand;  // Q, K, V
 constexpr uint32_t kWgStageBytes = sizeof(bf16) * kWgStage;
-constexpr uint32_t kAtom = 1024;          // bytes of 8 swizzled rows
-constexpr uint32_t kRowBytes = 2 * kHeadDim;
 
 constexpr uint32_t kTileBytes = 16 * kRowBytes;  // a warp's staging tile
 
@@ -372,12 +369,8 @@ size_t wg_smem_bytes() {
 
 // the TMA maps of Q, K, V (boxes of kMaxSeq rows) and O (boxes of 16
 // rows): 4-D, the head dimension innermost, then row and head in the order
-// of their strides, then batch; row_dim[i] is where operand i's row
-// coordinate goes (1 or 2), the head's the other
-struct WgMaps {
-  CUtensorMap op[4];
-  int row_dim[4];
-};
+// of their strides, then batch
+using WgMaps = scat_tma::Maps<4>;
 
 // a consumer warp's [16 x D] float32 accumulators (wgmma layout: n-tile j
 // in acc[4j..4j+3]) as bf16 rows row0..row0+15 of (b, h)'s O: into the
@@ -388,23 +381,13 @@ __device__ __forceinline__ void wg_store(const float (&acc)[32],
                                          uint8_t* stage, const WgMaps& maps,
                                          int row0, int n, int h, int b,
                                          int lane) {
-  const int g = lane / 4, t = lane % 4;
   if (lane == 0) bulk_wait_read<0>();
   __syncwarp();
-#pragma unroll
-  for (int j = 0; j < kHeadDim / 8; ++j) {
-    const int at = 16 * (j ^ g) + 4 * t;  // rows g and g + 8 swizzle alike
-    *reinterpret_cast<uint32_t*>(stage + g * kRowBytes + at) =
-        pack_bf16(acc[4 * j], acc[4 * j + 1]);
-    *reinterpret_cast<uint32_t*>(stage + (g + 8) * kRowBytes + at) =
-        pack_bf16(acc[4 * j + 2], acc[4 * j + 3]);
-  }
+  stage_tile(acc, 1.f, stage, lane);
   fence_proxy_async();  // the tile, written by the threads, read by TMA
   __syncwarp();
   if (lane == 0 && row0 < n) {
-    const bool rows_first = maps.row_dim[3] == 1;
-    tma_store_4d(&maps.op[3], stage, 0, rows_first ? row0 : h,
-                 rows_first ? h : row0, b);
+    store_box(maps, 3, stage, row0, h, b);
     bulk_commit();
   }
 }
@@ -559,11 +542,8 @@ attention_fwd_wgmma_kernel(const __grid_constant__ WgMaps maps, int heads,
         bf16* st = ring + s * kWgStage;
         mbar_arrive_expect_tx(&full[s], kWgStageBytes);
 #pragma unroll
-        for (int i = 0; i < 3; ++i) {
-          const bool rows_first = maps.row_dim[i] == 1;
-          tma_load_4d(st + i * kWgOperand, &maps.op[i], &full[s], 0,
-                      rows_first ? 0 : h, rows_first ? h : 0, b);
-        }
+        for (int i = 0; i < 3; ++i)
+          load_box(st + i * kWgOperand, maps, i, &full[s], h, b);
       }
     }
     return;
@@ -670,19 +650,6 @@ cudaError_t launch_wgmma(const void* const* ptrs, int batch, int heads,
   return cudaSuccess;
 }
 
-// f(std::integral_constant<int, NT>()) for the NT = ceil(n/16) warps of
-// the per-head bf16 kernel, which takes n <= 64
-template <typename F>
-cudaError_t with_small_tiles(int n, F f) {
-  switch ((n + 15) / 16) {
-    case 1: return f(std::integral_constant<int, 1>());
-    case 2: return f(std::integral_constant<int, 2>());
-    case 3: return f(std::integral_constant<int, 3>());
-    case 4: return f(std::integral_constant<int, 4>());
-  }
-  return cudaErrorInvalidValue;
-}
-
 // the kernel scat_attention_fwd launches for sequence length n and dtype:
 // 0 the float32 CUDA-core kernel, 1 the per-head bf16 mma.sync kernel, 2
 // the persistent bf16 wgmma kernel; -1 for what it does not take
@@ -723,7 +690,7 @@ int scat_attention_fwd(const void* q, const void* k, const void* v, void* o,
     if (fwd_design(n, dtype) == 2)
       err = launch_wgmma(ptrs, batch, heads, n, st, scale, s);
     else
-      err = with_small_tiles(n, [&](auto nt) {
+      err = with_tiles(n, [&](auto nt) {
         return launch_bf16<decltype(nt)::value>(ptrs, int(grid), heads, n,
                                                 st, scale, s);
       });
@@ -750,7 +717,7 @@ int scat_attention_fwd_occupancy(int n, int dtype, int* blocks,
     err = occupancy(attention_fwd_wgmma_kernel, kWgThreads, wg_smem_bytes(),
                     blocks);
   } else if (dtype == 1) {
-    err = with_small_tiles(n, [&](auto nt) {
+    err = with_tiles(n, [&](auto nt) {
       constexpr int NT = decltype(nt)::value;
       using T = FwdTiles<NT>;
       *smem = int(T::kSmem);

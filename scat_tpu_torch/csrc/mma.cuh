@@ -162,6 +162,21 @@ __device__ __forceinline__ void hold(uint32_t (&r)[N][4]) {
     for (int j = 0; j < 4; ++j) asm volatile("" : "+r"(r[i][j])::"memory");
 }
 
+// accumulators that a chain's first wgmma (accumulate 0) overwrites:
+// defined for the compiler without an instruction
+template <int N>
+__device__ __forceinline__ void unset(float (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "=f"(r[i]));
+}
+
+// 2^x on the special-function unit (results below 2^-126 flush to 0)
+__device__ __forceinline__ float exp2_approx(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
 // d = (accumulate ? d : 0) + a b over the warpgroup's 64 x 64 x 16 tile
 __device__ __forceinline__ void wgmma_64x64x16(float (&d)[32],
                                                const uint32_t (&a)[4],
@@ -403,6 +418,12 @@ __device__ __forceinline__ void regs_inc() {
 // barrier `id` (1..15; 0 is __syncthreads') of one warpgroup's 128 threads
 __device__ __forceinline__ void group_sync(int id) {
   asm volatile("bar.sync %0, 128;\n" ::"r"(id) : "memory");
+}
+
+// barrier `id` (1..15) of `threads` threads (whole warps), e.g. the
+// consumer warpgroups of a warp-specialised block
+__device__ __forceinline__ void named_sync(int id, int threads) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
 }
 
 }  // namespace scat_mma

@@ -19,6 +19,15 @@ using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
                                  CUtensorMapSwizzle, CUtensorMapL2promotion,
                                  CUtensorMapFloatOOBfill);
 
+// the tensor maps of a kernel's K operands, passed to it by value
+// (__grid_constant__); row_dim[i] is where operand i's row coordinate
+// goes (1 or 2, encode_rows), the head's the other
+template <int K>
+struct Maps {
+  CUtensorMap op[K];
+  int row_dim[K];
+};
+
 inline EncodeTiled encode_tiled() {
   static EncodeTiled fn = nullptr;
   if (fn == nullptr) {

@@ -13,26 +13,31 @@ What bounds both on the H100 is bytes, not flops: the forward reads Q,
 K, V and writes O (4*B*H*N*D elements), the backward reads Q, K, V, dO
 and writes dQ, dK, dV (7*B*H*N*D), against 4 and 10 flops per element
 times N.  The kernels keep the [N,N] scores, probabilities and their
-gradients on chip (one block per batch*head, rows in shared memory) and
-read the projection's strided Q/K/V views in place, so the one
+gradients on chip (a (batch, head) pair's rows in one block's shared
+memory and registers) and read the projection's strided Q/K/V views in
+place, so the one
 device-memory round trip is all they move.  On float32 operands, the
 parity type, both compute on CUDA cores (softmax by warp shuffles; the
 backward recomputes P in a second pass).  On bf16 operands, the
 flagship's serving and training paths, CUDA cores made both limited by
 instruction count, not bytes, so both run their products on the tensor
 cores (bf16 in, float32 accumulation) with the softmax (and the
-backward's delta and dS) in the accumulator registers: ``mma.sync``, a
-warp per 16 query rows and a block a (batch, head) pair, for the
-backward and for the forward at N <= 64; for the forward at 64 < N <= 128
-(the 128-token heads) a persistent ``wgmma`` kernel, one block an SM
-walking the pairs (``forward_plan``), a producer warpgroup keeping three
-pairs' Q, K, V in flight by TMA and two consumer warpgroups of 64 query
-rows.  As the Pallas kernels keep P and dS in float32,
-the kernels split each into a bf16 high part and a bf16 low part and
-run both products into one float32 accumulator: the forward takes P's
-parts straight from the registers as the A operands of P V; the backward
-keeps P's and dS's parts in shared memory for its second products (no
-recompute pass).  Their bf16 results lie within 2 bf16 ulps
+backward's delta and dS) in the accumulator registers.  At N <= 64 (the
+flagship's 21 tokens) both are ``mma.sync`` kernels, a warp per 16 query
+rows and a block a (batch, head) pair.  At 64 < N <= 128 (the 128-token
+heads) both are persistent ``wgmma`` kernels, one block an SM walking the
+pairs (``forward_plan``, ``backward_plan``), a producer warpgroup keeping
+the next pairs' operands in flight by TMA and two consumer warpgroups:
+the forward's own 64 query rows each, the backward's 64 keys each (S^T
+and dP^T key-major, the softmax statistics and delta as column
+reductions across the warps, dS^T through shared memory for dQ).  As
+the Pallas kernels keep P and dS in float32, the kernels split each into
+a bf16 high part and a bf16 low part and run both products into one
+float32 accumulator, taking the parts straight from the registers as A
+operands where the layout allows (the forward's P V, the wgmma
+backward's dV and dK; the mma.sync backward keeps P's and dS's parts in
+shared memory for its second products, no recompute pass).  Their bf16
+results lie within 2 bf16 ulps
 (``bf16_ulps``) of ``attention_reference`` and ``attention_bwd_reference``
 in float32, rounded to bf16; the design notes are in
 ``csrc/attention_fwd.cu`` and ``csrc/attention_bwd.cu``, their shared
@@ -72,11 +77,12 @@ from scat_tpu_torch.kernels import abi, build
 
 HEAD_DIM = 64
 MAX_SEQ = 128
-# the forward kernels (csrc/attention_fwd.cu fwd_design): float32 on CUDA
-# cores, a block a (batch, head) pair; bf16 N <= 64 on mma.sync, a block a
-# pair; bf16 N from WGMMA_MIN_SEQ on the persistent wgmma kernel, one block
-# an SM walking the pairs
-FWD_DESIGNS = ("f32", "bf16_tiles", "bf16_wgmma")
+# the kernels of either direction (csrc/attention_fwd.cu fwd_design,
+# csrc/attention_bwd.cu bwd_design): float32 on CUDA cores, a block a
+# (batch, head) pair; bf16 N <= 64 on mma.sync, a block a pair; bf16 N from
+# WGMMA_MIN_SEQ on the persistent wgmma kernel, one block an SM walking the
+# pairs
+DESIGNS = ("f32", "bf16_tiles", "bf16_wgmma")
 WGMMA_MIN_SEQ = 65
 WGMMA_BLOCKS_PER_SM = 1
 # below this share of a tensor's largest magnitude, bf16_ulps counts in
@@ -145,11 +151,11 @@ def _library(name: str) -> ctypes.CDLL:
     occ.argtypes = [ctypes.c_int, ctypes.c_int,
                     ctypes.POINTER(ctypes.c_int), ctypes.POINTER(ctypes.c_int)]
     occ.restype = ctypes.c_int
-    if name == "attention_fwd":
-        lib.scat_attention_fwd_plan.argtypes = [
-            ctypes.c_int, ctypes.c_int, ctypes.c_longlong, ctypes.c_int,
-            ctypes.POINTER(ctypes.c_int), ctypes.POINTER(ctypes.c_longlong)]
-        lib.scat_attention_fwd_plan.restype = ctypes.c_int
+    plan = getattr(lib, f"scat_{name}_plan")
+    plan.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_longlong,
+                     ctypes.c_int, ctypes.POINTER(ctypes.c_int),
+                     ctypes.POINTER(ctypes.c_longlong)]
+    plan.restype = ctypes.c_int
     lib.scat_cuda_error_string.argtypes = [ctypes.c_int]
     lib.scat_cuda_error_string.restype = ctypes.c_char_p
     return lib
@@ -169,15 +175,10 @@ def occupancy(name: str, n: int, dtype: torch.dtype) -> Tuple[int, int]:
     return blocks.value, smem.value
 
 
-def forward_plan(n: int, dtype: torch.dtype, pairs: int,
-                 sms: int) -> Tuple[str, int]:
-    """(design, blocks) of the forward launch for sequence length ``n``,
-    ``dtype`` and ``pairs`` = B*H (batch, head) pairs on a card of ``sms``
-    SMs, as ``scat_attention_fwd_plan`` gives them: a block a pair, or
-    for the persistent kernel a block an SM, never more than the pairs
-    (block i takes the pairs i, i + blocks, ...)."""
+def _plan(what: str, n: int, dtype: torch.dtype, pairs: int,
+          sms: int) -> Tuple[str, int]:
     if not 1 <= n <= MAX_SEQ or dtype not in abi.DTYPE_CODES:
-        raise ValueError(f"no forward kernel for N={n}, {dtype}")
+        raise ValueError(f"no {what} kernel for N={n}, {dtype}")
     if pairs < 1 or sms < 1:
         raise ValueError(f"pairs and sms must be positive, got {pairs}, "
                          f"{sms}")
@@ -188,18 +189,36 @@ def forward_plan(n: int, dtype: torch.dtype, pairs: int,
     return "bf16_wgmma", min(pairs, sms * WGMMA_BLOCKS_PER_SM)
 
 
-def kernel_plan(n: int, dtype: torch.dtype, pairs: int,
-                sms: int) -> Tuple[str, int]:
-    """``forward_plan`` as the forward library's host code computes it
-    (``scat_attention_fwd_plan``), for holding the two together on the
-    card."""
-    lib = _library("attention_fwd")
+def forward_plan(n: int, dtype: torch.dtype, pairs: int,
+                 sms: int) -> Tuple[str, int]:
+    """(design, blocks) of the forward launch for sequence length ``n``,
+    ``dtype`` and ``pairs`` = B*H (batch, head) pairs on a card of ``sms``
+    SMs, as ``scat_attention_fwd_plan`` gives them: a block a pair, or
+    for the persistent kernel a block an SM, never more than the pairs
+    (block i takes the pairs i, i + blocks, ...)."""
+    return _plan("forward", n, dtype, pairs, sms)
+
+
+def backward_plan(n: int, dtype: torch.dtype, pairs: int,
+                  sms: int) -> Tuple[str, int]:
+    """(design, blocks) of the backward launch, as
+    ``scat_attention_bwd_plan`` gives them: the forward's designs at the
+    same N (``forward_plan``)."""
+    return _plan("backward", n, dtype, pairs, sms)
+
+
+def kernel_plan(n: int, dtype: torch.dtype, pairs: int, sms: int,
+                name: str = "attention_fwd") -> Tuple[str, int]:
+    """``forward_plan`` (``backward_plan`` for ``name`` "attention_bwd")
+    as the library's host code computes it (``scat_<name>_plan``), for
+    holding the two together on the card."""
+    lib = _library(name)
     design, grid = ctypes.c_int(), ctypes.c_longlong()
-    rc = lib.scat_attention_fwd_plan(n, abi.DTYPE_CODES[dtype], pairs, sms,
-                                     ctypes.byref(design),
-                                     ctypes.byref(grid))
-    abi.raise_on(rc, lib, "attention_fwd plan")
-    return FWD_DESIGNS[design.value], grid.value
+    rc = getattr(lib, f"scat_{name}_plan")(
+        n, abi.DTYPE_CODES[dtype], pairs, sms, ctypes.byref(design),
+        ctypes.byref(grid))
+    abi.raise_on(rc, lib, f"{name} plan")
+    return DESIGNS[design.value], grid.value
 
 
 def _check(*ts: torch.Tensor) -> None:

@@ -48,6 +48,9 @@ def test_matches_pallas_forward(rng, fn, b, h, n, d):
 
 
 BWD_SHAPES = [(2, 2, 21, 64), (1, 3, 128, 64)]
+# the persistent wgmma backward's range (64 < N <= 128) at N that are not a
+# multiple of 8 or 16
+WGMMA_BWD_SHAPES = [(1, 2, 97, 64), (1, 2, 65, 64)]
 
 
 def _strided(a):
@@ -58,7 +61,7 @@ def _strided(a):
 
 
 @pytest.mark.parametrize("strided", [False, True])
-@pytest.mark.parametrize("b,h,n,d", BWD_SHAPES)
+@pytest.mark.parametrize("b,h,n,d", BWD_SHAPES + WGMMA_BWD_SHAPES)
 def test_bwd_reference_matches_pallas_bwd(rng, b, h, n, d, strided):
     q, k, v, do = [rng.randn(b, h, n, d).astype(np.float32)
                    for _ in range(4)]
@@ -183,7 +186,7 @@ def _tensor_core_bwd(q, k, v, do, scale):
     return tuple(t.bfloat16().float().numpy() for t in (dq, dk, dv))
 
 
-@pytest.mark.parametrize("b,h,n,d", BWD_SHAPES)
+@pytest.mark.parametrize("b,h,n,d", BWD_SHAPES + WGMMA_BWD_SHAPES)
 def test_tensor_core_rounding_matches_pallas_bwd(rng, b, h, n, d):
     """bf16 operands through the bf16 kernel's arithmetic (P and dS split
     into bf16 parts for the second products) against the Pallas backward
@@ -197,6 +200,61 @@ def test_tensor_core_rounding_matches_pallas_bwd(rng, b, h, n, d):
     for name, a, w in zip(("dq", "dk", "dv"), got, want):
         np.testing.assert_allclose(a, np.asarray(w), atol=1e-2, rtol=1e-2,
                                    err_msg=name)
+
+
+def _key_major_bwd(q, k, v, do, scale, keys=16):
+    """The arithmetic of the persistent wgmma backward on the CPU: S^T and
+    dP^T key-major, each warp's ``keys`` keys giving a column max, the
+    column sums of e = exp2(s c - max c) and of e dP (c = scale log2 e);
+    the warps' partials combined in warp order into the factor
+    exp2(max_w c - max c) / sum that turns e into P, and delta = sum(P dP);
+    then P and dS split into bf16 parts for dV, dK and dQ, outputs rounded
+    to bf16.  Warps past N (all keys masked) hold max -inf and add
+    nothing."""
+    q, k, v, do = (torch.from_numpy(a) for a in (q, k, v, do))
+    c = scale * 1.4426950408889634
+    s = torch.einsum("bhjd,bhid->bhji", k, q)  # [keys, queries]
+    dp = torch.einsum("bhjd,bhid->bhji", v, do)
+    n = s.shape[-2]
+    groups = [slice(w, min(w + keys, n)) for w in range(0, 128, keys)]
+    mx = [s[..., g, :].amax(dim=-2) if g.start < n
+          else torch.full(s[..., 0, :].shape, -float("inf"))
+          for g in groups]
+    e = [torch.exp2(s[..., g, :] * c - (m * c)[..., None, :])
+         for g, m in zip(groups, mx) if g.start < n]
+    parts = [(m * c, x.sum(dim=-2), (x * dp[..., g, :]).sum(dim=-2))
+             for g, m, x in zip(groups, mx, e)]
+    top = torch.stack([m for m, _, _ in parts]).amax(dim=0)
+    f = [torch.exp2(m - top) for m, _, _ in parts]
+    total = sum(lw * fw for (_, lw, _), fw in zip(parts, f))
+    dsum = sum(dw * fw for (_, _, dw), fw in zip(parts, f))
+    p = torch.cat([x * (fw / total)[..., None, :]
+                   for x, fw in zip(e, f)], dim=-2)
+    ds = p * (dp - (dsum / total)[..., None, :])
+    dv = _split_product("bhji,bhid->bhjd", p, do)
+    dk = _split_product("bhji,bhid->bhjd", ds, q) * scale
+    dq = _split_product("bhji,bhjd->bhid", ds, k) * scale
+    return tuple(t.bfloat16().float().numpy() for t in (dq, dk, dv))
+
+
+@pytest.mark.parametrize("b,h,n,d", [(1, 3, 128, 64)] + WGMMA_BWD_SHAPES)
+def test_key_major_statistics_match_pallas_bwd(rng, b, h, n, d):
+    """The wgmma backward's column statistics (per-warp partials rescaled
+    and combined, warps past N masked) emulated on bf16 operands: against
+    the Pallas backward in interpret mode at the bf16 tolerance of the
+    card's checks, and within 2 bf16 ulps of the float32 plain version."""
+    q, k, v, do = (_bf16(rng.randn(b, h, n, d).astype(np.float32))
+                   for _ in range(4))
+    scale = d ** -0.5
+    want = pa._flash_bwd(scale, tuple(map(jnp.asarray, (q, k, v))),
+                         jnp.asarray(do))
+    got = _key_major_bwd(q, k, v, do, scale)
+    plain = ta.attention_bwd_reference(
+        *(torch.from_numpy(a) for a in (q, k, v, do)), scale)
+    for name, a, w, r in zip(("dq", "dk", "dv"), got, want, plain):
+        np.testing.assert_allclose(a, np.asarray(w), atol=1e-2, rtol=1e-2,
+                                   err_msg=name)
+        assert ta.bf16_ulps(torch.from_numpy(a), r).max() <= 2, name
 
 
 def _tensor_core_fwd(q, k, v, scale):
@@ -293,6 +351,39 @@ def test_persistent_grid_visits_every_pair_once(pairs):
     assert max(counts) == -(-pairs // grid)
 
 
+@pytest.mark.parametrize("n", [1, 21, 64, 65, 80, 97, 100, 127, 128])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_backward_plan_designs(n, dtype):
+    """The backward kernel each (N, dtype) takes: float32 the CUDA-core
+    kernel and bf16 N <= 64 the mma.sync one, a block a (batch, head)
+    pair; bf16 N from 65 to 128 the persistent key-major wgmma kernel."""
+    design, grid = ta.backward_plan(n, dtype, 768, 132)
+    if dtype == torch.float32:
+        assert (design, grid) == ("f32", 768)
+    elif n <= 64:
+        assert (design, grid) == ("bf16_tiles", 768)
+    else:
+        assert design == "bf16_wgmma" and grid == 132
+    assert (design, grid) == ta.forward_plan(n, dtype, 768, 132)
+    with pytest.raises(ValueError, match="backward"):
+        ta.backward_plan(129, dtype, 768, 132)
+
+
+@pytest.mark.parametrize("pairs", [1, 7 * 8, 64 * 8, 96 * 8, 133, 265])
+def test_persistent_backward_grid_visits_every_pair_once(pairs):
+    """The persistent backward on 132 SMs walks the pairs as the forward
+    does: one block an SM, never more blocks than pairs, block i taking
+    pairs i, i + grid, ...: every pair once, no block more than one pair
+    more than another."""
+    design, grid = ta.backward_plan(128, torch.bfloat16, pairs, 132)
+    assert design == "bf16_wgmma"
+    assert grid == min(pairs, 132 * ta.WGMMA_BLOCKS_PER_SM)
+    walks = [list(range(b, pairs, grid)) for b in range(grid)]
+    assert sorted(p for walk in walks for p in walk) == list(range(pairs))
+    counts = [len(walk) for walk in walks]
+    assert min(counts) >= 1 and max(counts) - min(counts) <= 1
+
+
 def test_other_devices_raise():
     q = torch.empty(1, 8, 21, 64, device="meta")
     with pytest.raises(ValueError, match="cuda or cpu"):
@@ -330,8 +421,8 @@ def test_library_path_keyed_by_source(monkeypatch, tmp_path):
 def test_sources_have_their_headers():
     """Every source the build compiles exists, and the shared headers the
     tensor-core kernels include (mma.cuh; attention.cuh for the two
-    attention kernels; tma.cuh for the TMA-fed ones) are ones that the
-    library path hashes."""
+    attention kernels; tma.cuh for the TMA-fed ones, in every source) are
+    ones that the library path hashes."""
     for name in build.SOURCES:
         assert os.path.exists(os.path.join(build.CSRC_DIR, f"{name}.cu"))
     for name in ("attention_fwd", "attention_bwd", "favor"):
@@ -339,9 +430,9 @@ def test_sources_have_their_headers():
             src = f.read()
         assert '#include "mma.cuh"' in src, name
         assert ('#include "attention.cuh"' in src) == (name != "favor"), name
-        # the TMA-fed kernels: the persistent forward and the bf16 stats
-        assert ('#include "tma.cuh"' in src) == (name != "attention_bwd"), \
-            name
+        # the TMA-fed kernels: the persistent forward and backward and the
+        # bf16 stats
+        assert '#include "tma.cuh"' in src, name
     for header in ("mma.cuh", "attention.cuh", "tma.cuh"):
         assert os.path.exists(os.path.join(build.CSRC_DIR, header))
         assert os.path.join(build.CSRC_DIR, header) in build.headers()

@@ -223,6 +223,88 @@ def test_forward_plans_match_the_library(cuda):
                     n, dtype, pairs, sms), (n, dtype, pairs, sms)
 
 
+# the persistent wgmma backward's sequence lengths (64 < N <= 128)
+WGMMA_BWD_SEQS = sorted(set(WGMMA_SEQS) | {97})
+
+
+def _grad_out(b, h, n, dtype, device, seed):
+    """dO as autograd delivers it after the merge of heads: [B,N,H,D]
+    storage seen as [B,H,N,D]."""
+    g = np.random.RandomState(seed)
+    do = torch.from_numpy(g.randn(b, n, h, 64).astype(np.float32))
+    return do.to(device, dtype).permute(0, 2, 1, 3)
+
+
+@pytest.mark.parametrize("n", WGMMA_BWD_SEQS)
+@pytest.mark.parametrize("dtype,atol", [(torch.float32, 2e-5),
+                                        (torch.bfloat16, 1e-2)])
+def test_wgmma_backward_sequence_lengths(cuda, n, dtype, atol):
+    """N across the persistent backward's range, against the plain version
+    on the float32 values; bf16 within 2 bf16 ulps of it (float32 takes
+    the CUDA-core kernel)."""
+    shape = (5, 8, n, 64)
+    q, k, v = _qkv(shape, dtype, cuda, seed=400 + n)
+    do = _grad_out(5, 8, n, dtype, cuda, seed=500 + n)
+    got = attention_bwd(q, k, v, do, 0.125)
+    torch.cuda.synchronize()
+    want = attention_bwd_reference(q.float(), k.float(), v.float(),
+                                   do.float(), 0.125)
+    for name, a, w in zip(("dq", "dk", "dv"), got, want):
+        assert a.dtype == dtype and a.shape == shape, name
+        torch.testing.assert_close(
+            a.float(), w, atol=atol,
+            rtol=atol if dtype == torch.bfloat16 else 0, msg=name)
+        if dtype == torch.bfloat16:
+            assert bf16_ulps(a, w).max().item() <= 2, name
+
+
+@pytest.mark.parametrize("b,h", [(1, 1), (7, 8), (133, 1), (265, 1),
+                                 (67, 4)])
+def test_wgmma_backward_pair_counts(cuda, b, h):
+    """B*H pairs that are not a multiple of the persistent grid: every
+    pair computed once, within 2 bf16 ulps, each equal to its own launch;
+    the launch plan is backward_plan's."""
+    from scat_tpu_torch.ops.attention import backward_plan, kernel_plan
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    assert kernel_plan(128, torch.bfloat16, b * h, sms,
+                       name="attention_bwd") == backward_plan(
+        128, torch.bfloat16, b * h, sms)
+    q, k, v = _qkv((b, h, 100, 64), torch.bfloat16, cuda, seed=b * h)
+    do = _grad_out(b, h, 100, torch.bfloat16, cuda, seed=b + h)
+    got = attention_bwd(q, k, v, do, 0.125)
+    one = attention_bwd(q[:1], k[:1], v[:1], do[:1], 0.125)
+    torch.cuda.synchronize()
+    want = attention_bwd_reference(q.float(), k.float(), v.float(),
+                                   do.float(), 0.125)
+    for name, a, w, o in zip(("dq", "dk", "dv"), got, want, one):
+        assert bf16_ulps(a, w).max().item() <= 2, name
+        assert torch.equal(a[:1], o), name
+
+
+def test_backward_plans_match_the_library(cuda):
+    """backward_plan (the CPU tests hold it) is what the library's host
+    code computes, for every design."""
+    from scat_tpu_torch.ops.attention import backward_plan, kernel_plan
+    for n in (1, 21, 64, 65, 97, 128):
+        for dtype in (torch.float32, torch.bfloat16):
+            for pairs, sms in ((1, 132), (768, 132), (265, 132), (50, 8)):
+                assert kernel_plan(n, dtype, pairs, sms,
+                                   name="attention_bwd") == backward_plan(
+                    n, dtype, pairs, sms), (n, dtype, pairs, sms)
+
+
+@pytest.mark.parametrize("shape", [(96, 8, 128, 64), (5, 8, 97, 64)])
+def test_wgmma_backward_bit_deterministic(cuda, shape):
+    """No atomics and a fixed order of every sum (the column statistics
+    combined in warp order): two launches agree bit for bit."""
+    b, h, n, _ = shape
+    q, k, v = _qkv(shape, torch.bfloat16, cuda, seed=n)
+    do = _grad_out(b, h, n, torch.bfloat16, cuda, seed=n + 1)
+    first = attention_bwd(q, k, v, do, 0.125)
+    again = attention_bwd(q, k, v, do, 0.125)
+    assert all(torch.equal(a, c) for a, c in zip(first, again))
+
+
 def _unaligned(x):
     """x's values in a [B,H,N,D] tensor whose rows start 6 bytes past
     16-byte boundaries."""
@@ -266,6 +348,20 @@ def test_backward_kernel_copies_unaligned_rows(cuda):
     do = torch.randn(2, 2, 21, 64, device=cuda).bfloat16()
     got = attention_bwd(odd, k, v, do, 0.125)
     want = attention_bwd(q.contiguous(), k, v, do, 0.125)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+
+
+def test_wgmma_backward_copies_unaligned_rows(cuda):
+    """At N = 128 (the persistent backward's TMA copies) bf16 rows that do
+    not start on 16 bytes are copied first; the result is the aligned
+    operands'."""
+    q, k, v = _qkv((3, 8, 128, 64), torch.bfloat16, cuda, seed=6)
+    do = _grad_out(3, 8, 128, torch.bfloat16, cuda, seed=7)
+    got = attention_bwd(_unaligned(q), k, _unaligned(v), _unaligned(do),
+                        0.125)
+    want = attention_bwd(q.contiguous(), k, v.contiguous(), do.contiguous(),
+                         0.125)
     for a, b in zip(got, want):
         assert torch.equal(a, b)
 
@@ -464,6 +560,30 @@ def test_graph_replay_equals_eager_kernels(cuda):
             assert torch.equal(o, flash_attention(q, k, v, 0.125))
             eager = favor.favor_stats(fk, fv, w)
             assert torch.equal(ksum, eager[0]) and torch.equal(kptv, eager[1])
+
+
+def test_graph_replay_equals_eager_backward(cuda):
+    """The persistent attention backward (N = 128, bf16) captured in a CUDA
+    graph (its seven TMA maps baked into the launch) and replayed on new
+    inputs copied into the captured ones: bit for bit the eager
+    launch's result."""
+    q, k, v = (t.contiguous() for t in _qkv((6, 8, 128, 64),
+                                            torch.bfloat16, cuda, seed=12))
+    do = _grad_out(6, 8, 128, torch.bfloat16, cuda, seed=13)
+    attention_bwd(q, k, v, do, 0.125)  # built and warmed up
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        grads = attention_bwd(q, k, v, do, 0.125)
+    for seed in (14, 15):
+        for dst, src in zip((q, k, v), _qkv((6, 8, 128, 64),
+                                            torch.bfloat16, cuda, seed=seed)):
+            dst.copy_(src)
+        do.copy_(_grad_out(6, 8, 128, torch.bfloat16, cuda, seed=seed + 10))
+        graph.replay()
+        torch.cuda.synchronize()
+        eager = attention_bwd(q, k, v, do, 0.125)
+        assert all(torch.equal(a, e) for a, e in zip(grads, eager))
 
 
 def test_favor_autograd_and_no_plain_on_cuda(cuda, monkeypatch):
