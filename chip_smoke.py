@@ -9,10 +9,10 @@ Phases, in order; any failure raises and exits non-zero:
   1. build    compile every kernel source under scat_tpu_torch/csrc
               (one nvcc each, in parallel), print what ptxas reports
               (registers, shared memory, spills) for the six bf16
-              tensor-core kernels (the three wgmma kernels fed by TMA,
-              the persistent attention forward and backward and the
-              FAVOR+ stats, must not spill), and the card's name and
-              power limit;
+              tensor-core kernels and the fused link (the three wgmma
+              kernels fed by TMA, the persistent attention forward and
+              backward and the FAVOR+ stats, must not spill), and the
+              card's name and power limit;
   2. kernels  each kernel against its plain PyTorch version on the card
               at the serving and training paths' shapes: float32 (TF32
               off) at atol 2e-5, bfloat16 at atol = rtol = 1e-2 against
@@ -36,7 +36,34 @@ Phases, in order; any failure raises and exits non-zero:
               that are not a multiple of their grid, their launch plans
               against forward_plan's and backward_plan's, the backward
               bit for bit the same on a second launch;
-  3. slice    the flagship --net reg_transformer predictor at full width
+  3. link     the fused 1x1-convolution link (ops/fused_link.py) against
+              its plain version on the card at the probe's five shapes
+              (ResNet-50's bottleneck links at bs 96,
+              benchmarks/probe_fused_link.py:112-118), at M of 1, 129,
+              3136 and 4704 (not whole 128-row tiles) and at N = 1024: y
+              within 1 bf16 ulp at max|y| of the plain version run in
+              float32 on the same bf16 inputs, s within 1e-5 of the
+              column's sum of |y| and ss within 2e-5 of itself (each plus
+              one row's float32 rounding, ops/fused_link.link_gaps), a
+              second launch bit for bit the same; the flagship's own
+              links (resnet50 at full width in train mode, bf16, bs 96, a
+              synthetic batch, seed 0), hooked at layer1.0 and layer2.0
+              (bn2 -> conv3), layer1.1, layer2.1 and layer3.1 (conv1):
+              fused_link on the hooked inputs (bn2's batch statistics and
+              affine folded into scale and shift) against the module
+              chain's conv output within 2% of its largest magnitude, the
+              next BatchNorm's batch statistics as sums against those of
+              the kernel's y within 1e-3 and against its s and ss (of the
+              float32 product before rounding) within 1e-3 plus y's
+              rounding, the launches counted there; then device times
+              at the five shapes: the kernel (its reduce launch), the plain
+              version, the unfused PyTorch chain (the probe's xla_link:
+              prologue, cuBLAS product, two reductions; library_ms) and
+              cuBLAS's product alone on a ready xn, each beside the bound,
+              and the chain / kernel ratio against the probe's 1.2 gate;
+              fused_link's counter reads 0 after every other phase (no
+              model path calls it, as in JAX);
+  4. slice    the flagship --net reg_transformer predictor at full width
               (resnet50, 224x224 crops, 784-dim tokens, 8 heads,
               iteration 3, bfloat16, weights from seed 0) serves uint8
               requests of 1, 7, 64 and 150 crops and one float32 request;
@@ -46,10 +73,10 @@ Phases, in order; any failure raises and exits non-zero:
               end-to-end rate (all crops of a window of back-to-back
               640-crop requests over its wall time) and, per bucket, the
               p50 chunk and request latencies are printed;
-  4. serve    the HTTP front end answers POST /predict (also with
+  5. serve    the HTTP front end answers POST /predict (also with
               micro-batching on) with exactly what predict returns, and
               GET /healthz;
-  5. export   the flagship (bf16, and a float32 copy, TF32 off) and
+  6. export   the flagship (bf16, and a float32 copy, TF32 off) and
               --net ViP (bf16) at full width exported by export_predictor
               to build/ (export time and artifact size printed) and loaded
               as ExportedPredictor: a fresh process serves the flagship's
@@ -70,7 +97,7 @@ Phases, in order; any failure raises and exits non-zero:
               launch; scat_tpu_torch.server --serve_artifact in a process
               of its own answers POST /predict as predict does, and GET
               /healthz names the artifact;
-  6. train    the Trainer at the canonical run's configuration
+  7. train    the Trainer at the canonical run's configuration
               (script/ablation_pose.sh on the synthetic task: resnet50,
               bs 96, 224x224, 8 heads, iteration 3, mask_rate 0.2, bf16
               compute, Adam with the warmup, seed 0) for 3 epochs of 8
@@ -85,7 +112,7 @@ Phases, in order; any failure raises and exits non-zero:
               message, tensorboardX's events or its CSV-only message, and
               a Chrome trace whose device kernels name both attention
               kernels;
-  7. stb      an STB tree written under build/ (two training and two
+  8. stb      an STB tree written under build/ (two training and two
               evaluation sequences of 96 smooth 640x480 PNG frames and
               their label pickles): which decoder serves (the native
               library or PIL) and the loader's ms per batch of 96 by
@@ -99,7 +126,7 @@ Phases, in order; any failure raises and exits non-zero:
               path: MPJPE within 1%, AUC within 1e-3 of its full scale)
               and its crops/s; predict_from_frames on 7 frames against
               frames_to_crops then predict;
-  8. datasets FreiHAND (224x224 JPEG), HO-3D (640x480 PNG), MHP (640x480
+  9. datasets FreiHAND (224x224 JPEG), HO-3D (640x480 PNG), MHP (640x480
               JPEG, data_15 webcam 1) and RHD (320x320 PNG) trees of 192
               samples written under build/ beside an STB tree: each
               loader's ms per batch of 96 by stage (host decode, labels,
@@ -116,7 +143,7 @@ Phases, in order; any failure raises and exits non-zero:
               STB's B1Counting and MHP's data_15_cam_1 (3 launches a frame,
               finite MPJPE, ACC and AUC, the same bounds against the plain
               path) and its frames/s;
-  9. group-norm  the flagship with --norm_layer group: requests of 1 and
+  10. group-norm  the flagship with --norm_layer group: requests of 1 and
               64 crops (3 launches a chunk, against the plain attention
               path within 2%), p50 chunk and request latencies at buckets
               1 and 64 beside BatchNorm's predictor; 8 synthetic training
@@ -124,7 +151,7 @@ Phases, in order; any failure raises and exits non-zero:
               step against the plain attention path) and the training
               rate, p50 step and device time a step beside the train
               phase's;
-  10. coarse   --net reg_transformer_coarse at the widths of
+  11. coarse   --net reg_transformer_coarse at the widths of
               script/ablation_pose.sh (resnet50, 21 tokens x 784, 8
               heads, depth 3, bf16, seed 0): requests of 1 and 64 crops
               and HTTP answers equal to predict; train_coarse's flag line
@@ -138,7 +165,7 @@ Phases, in order; any failure raises and exits non-zero:
               float32: 1e-5); the training rate and a profile; no
               attention-kernel launch anywhere (the coarse head's
               attention is the plain version: it returns P);
-  11. token-heads  backbone_hrnet (HRNet-W24, 56x56x128 read as 512 x
+  12. token-heads  backbone_hrnet (HRNet-W24, 56x56x128 read as 512 x
               28x28) and backbone_incepv3 (768x12x12 read as 192 x
               24x24), each to 128 tokens x 196, 8 heads, depth 3,
               iteration 3, seed 0, built by the factory on the plain
@@ -151,7 +178,7 @@ Phases, in order; any failure raises and exits non-zero:
               (3 + 3 launches; loss and gradient norm within 2%); device
               ms a forward and a forward+backward on each path, and the
               kernels' share of device time;
-  12. vit      --net ViT at the JAX package's defaults (224 px, 16x16
+  13. vit      --net ViT at the JAX package's defaults (224 px, 16x16
               patches, 197 tokens x 256, depth 3, 8 heads x 64, iteration
               1, bf16, seed 0; the plain attention, as in JAX): requests
               of 1, 7, 64 and 150 crops and HTTP equal to predict; the
@@ -163,7 +190,7 @@ Phases, in order; any failure raises and exits non-zero:
               the serving rate, p50 request latency at buckets 1 and 64,
               the training rate, p50 step and profiles; no attention-kernel
               launch;
-  13. mano     --net frankmocap (H3DW on resnet50, 224 px, bf16, the
+  14. mano     --net frankmocap (H3DW on resnet50, 224 px, bf16, the
               synthetic MANO of extra_data/hand.obj): rot_pose_beta_to_mesh
               in float32 on the card against the CPU at bs 96 within 1e-5
               (bf16 inputs decode in float32), its device ms and kernel
@@ -172,7 +199,7 @@ Phases, in order; any failure raises and exits non-zero:
               parameter files, the overlays or their skip message) and its
               images/s; the Evaluator through H3DWJointsEncoder on 2
               synthetic batches of 96;
-  14. video    VideoTrainer at the JAX package's defaults (resnet50 H3DW at
+  15. video    VideoTrainer at the JAX package's defaults (resnet50 H3DW at
               224 px, bf16; 16-frame windows at stride 8, 2 a step; GRU
               1024 x 2, attention pooling; VIBELossConfig()) for 2 epochs
               over 4 videos x 48 frames from seed 0: finite generator and
@@ -182,7 +209,7 @@ Phases, in order; any failure raises and exits non-zero:
               float32 (losses within 2%); sequences/s, p50 step, the
               synchronising calls of a step, a profile, and the step's
               parts (encoder, MANO decode, GRU, losses) each timed alone;
-  15. favor    the FAVOR+ stats and apply kernels against their plain
+  16. favor    the FAVOR+ stats and apply kernels against their plain
               versions at --net ViP's shapes (BH 4, 28, 256, 384 at
               T = 3137, e = 128, m = 64; T at chunk, slab, round and
               tile edges; e 96; e 64 / m 32) at rtol 1e-4 (atol 1e-5,
@@ -203,7 +230,7 @@ Phases, in order; any failure raises and exits non-zero:
               call computes FAVOR+, so no library time), each kernel's
               bound both as its tensor-core design's (bytes, and the
               bf16x3 products) and as the float32-operation figure;
-  16. vip-serve  the --net ViP predictor at full width (224 px, 3137
+  17. vip-serve  the --net ViP predictor at full width (224 px, 3137
               tokens x 512, 4 heads, depth 3, m 64, iteration 3, bf16,
               --use_pallas_favor True, weights from seed 0) serves uint8
               requests of 1, 7, 64 and 150 crops: 3 stats + 3 apply
@@ -212,17 +239,17 @@ Phases, in order; any failure raises and exits non-zero:
               model with the plain float32 FAVOR+ substituted (2%); the
               end-to-end rate, p50 request latency at buckets 1 and 64
               and a profile;
-  17. vip-train  the Trainer on --net ViP (bs 96, lr 5e-4, weights 1e5 /
+  18. vip-train  the Trainer on --net ViP (bs 96, lr 5e-4, weights 1e5 /
               10, bf16, dropout 0.1) for 3 epochs of 8 steps: 3 + 3
               launches a step, a falling loss; one step's loss and
               gradient norm against the plain float32 FAVOR+; remat_blocks
               against none (6 + 6 launches, the same loss and
               gradients); hand_net_final.pth served; the training rate,
               p50 step time and a profile;
-  18. vip-eval  the Evaluator on vip-train's hand_net_final.pth
+  19. vip-eval  the Evaluator on vip-train's hand_net_final.pth
               (synthetic batches): 3 + 3 FAVOR+ launches a batch and the
               file's frozen mains.{i}.w;
-  19. parallel  parallel/ in an NCCL group of one process: the Trainer at
+  20. parallel  parallel/ in an NCCL group of one process: the Trainer at
               the canonical run's widths (bs 96, bf16) under data:1 (DDP,
               BatchNorm over the group), --param_sharding fsdp (FSDP2) and
               data:1,model:1 (the Megatron split of the transformer's
@@ -234,7 +261,7 @@ Phases, in order; any failure raises and exits non-zero:
               within 2% of the blocks in sequence); the Evaluator at
               data:1 and a mesh= predictor over the card, the numbers of
               the same without a mesh;
-  20. files    validate_data --n 4 on the card on written STB, FreiHAND,
+  21. files    validate_data --n 4 on the card on written STB, FreiHAND,
               HO-3D and MHP trees of 8 samples (RHD's written K is the
               identity: its report is the rhd-projection error);
               convert --direction to_pth of train's hand_net_final.pth
@@ -244,7 +271,7 @@ Phases, in order; any failure raises and exits non-zero:
               torchvision ResNet .pth refused as an architecture
               mismatch; the export phase's flagship artifact: one
               weights.npz, its size and load time, 0.0 from live serving;
-  21. the card line, the kernels line, and the final
+  22. the card line, the kernels line, and the final
      {"ok": true, "device": ...} line.
 
 TF32 is off for the whole run (torch.backends.cuda.matmul.allow_tf32 and
@@ -285,6 +312,7 @@ from scat_tpu_torch.export import ExportedPredictor, export_predictor, op_nodes
 from scat_tpu_torch.kernels import build
 from scat_tpu_torch import train_coarse
 from scat_tpu_torch.models import build_model, mano, performer, vibe_loss
+from scat_tpu_torch.models.factory import compute_dtype
 from scat_tpu_torch.models.hand_net import (EncoderTransformerCoarse,
                                             H3DWJointsEncoder)
 from scat_tpu_torch.models.transformer import Attention
@@ -299,6 +327,8 @@ from scat_tpu_torch.ops.attention import occupancy as attention_occupancy
 from scat_tpu_torch.ops.favor import (favor_apply, favor_apply_reference,
                                       favor_attention, favor_attention_fused,
                                       favor_stats, favor_stats_reference)
+from scat_tpu_torch.ops.fused_link import (fused_link, fused_link_reference,
+                                           link_gaps)
 from scat_tpu_torch.server import make_server
 from scat_tpu_torch.serving import HandPosePredictor, frames_to_crops
 from scat_tpu_torch.training import adversarial, steps
@@ -391,7 +421,8 @@ VIP_WINDOW_REQUESTS, VIP_WINDOW_CROPS = 3, 256
 # elementwise arithmetic (adds, products, activations, dropout, the
 # optimizer)
 PROFILE_FAMILIES = (
-    ("hand-written kernels", ("attention_fwd", "attention_bwd", "favor_")),
+    ("hand-written kernels", ("attention_fwd", "attention_bwd", "favor_",
+                              "fused_link")),
     ("float32 GEMM", ("gemm_f32f32",)),
     ("GEMM and convolution", ("gemm", "nvjet", "xmma", "cutlass", "conv")),
     ("normalisation", ("norm",)),
@@ -426,8 +457,13 @@ KERNELS = [
     Kernel("favor_apply", "cuda", "scat_tpu_torch/csrc/favor.cu",
            "scat_tpu/ops/pallas_favor.py:90", favor_apply,
            ("favor_apply",)),
+    # on no model path (as in JAX): its launches are the link phase's run
+    # on the flagship's hooked links
+    Kernel("fused_link", "cuda", "scat_tpu_torch/csrc/fused_link.cu",
+           "benchmarks/probe_fused_link.py:31", fused_link,
+           ("fused_link", "fused_link_reduce")),
 ]
-FWD, BWD, STATS, APPLY = KERNELS
+FWD, BWD, STATS, APPLY, LINK = KERNELS
 
 
 def reset_counts():
@@ -476,14 +512,15 @@ def qkv_views(b, h, n, d, dtype, seed):
     return qkv.permute(2, 0, 3, 1, 4)
 
 
-# the kernels redesigned for the tensor cores, (source, kernel): their
-# registers, shared memory and spills are printed at build
+# the kernels on the tensor cores, (source, kernel): their registers,
+# shared memory and spills are printed at build
 PTXAS_KERNELS = (("attention_fwd", "attention_fwd_bf16_kernel"),
                  ("attention_fwd", "attention_fwd_wgmma_kernel"),
                  ("attention_bwd", "attention_bwd_bf16_kernel"),
                  ("attention_bwd", "attention_bwd_wgmma_kernel"),
                  ("favor", "favor_stats_wgmma_kernel"),
-                 ("favor", "favor_apply_bf16_kernel"))
+                 ("favor", "favor_apply_bf16_kernel"),
+                 ("fused_link", "fused_link_kernel"))
 # the wgmma kernels fed by TMA, whose accumulators a spill would stall
 NO_SPILL_KERNELS = ("attention_fwd_wgmma_kernel",
                     "attention_bwd_wgmma_kernel", "favor_stats_wgmma_kernel")
@@ -770,6 +807,215 @@ def time_bwd(b, n):
                 library_ms=dev["sdpa bwd"], bound_ms=ms, bound_by=by,
                 pair_ms=dev["kernels fwd+bwd"],
                 sdpa_pair_ms=dev["sdpa fwd+bwd"])
+
+
+# the probe's five shapes (benchmarks/probe_fused_link.py:112-118): the
+# bottleneck 1x1 links of ResNet-50 at bs 96, (M, K, N), and the
+# flagship's links of each
+LINK_SHAPES = [
+    ((TRAIN_BATCH * 56 * 56, 256, 64), "layer1.{1,2} conv1"),
+    ((TRAIN_BATCH * 56 * 56, 64, 256), "layer1.* bn2 -> conv3"),
+    ((TRAIN_BATCH * 28 * 28, 512, 128), "layer2.{1..3} conv1"),
+    ((TRAIN_BATCH * 28 * 28, 128, 512), "layer2.* bn2 -> conv3"),
+    ((TRAIN_BATCH * 14 * 14, 1024, 256), "layer3.{1..5} conv1")]
+# M that are not whole 128-row tiles (one row; a tile and a row; bs 1's
+# layer1 links; layer4's at bs 96) and N = 1024 (layer3's conv3)
+LINK_TAILS = [(1, 256, 64), (129, 64, 256), (56 * 56, 64, 256),
+              (TRAIN_BATCH * 7 * 7, 2048, 512),
+              (TRAIN_BATCH * 7 * 7, 512, 2048),
+              (TRAIN_BATCH * 14 * 14, 256, 1024)]
+# the probe's decision gate (benchmarks/probe_fused_link.py:12-13): the
+# fused link must beat the decomposed chain by more than 20%
+LINK_GATE = 1.2
+# the flagship's links hooked in the link phase: (block, link), where the
+# link "conv3" is bn2 -> relu -> conv3 (x bn2's input, bn2 folded into
+# scale and shift) and "conv1" the block's post-ReLU input -> conv1 (scale
+# 1, shift 0); each is one of the probe's shapes
+FLAGSHIP_LINKS = [("layer1.0", "conv3"), ("layer1.1", "conv1"),
+                  ("layer2.0", "conv3"), ("layer2.1", "conv1"),
+                  ("layer3.1", "conv1")]
+
+
+def link_operands(m, k, n, seed):
+    """x [M, K] (about 0.5) and w [K, N] (fan-in scaled) bf16 and a folded
+    BatchNorm's scale (about 1) and shift (about 0) [K] float32, drawn on
+    the card from ``seed``."""
+    g = torch.Generator("cuda").manual_seed(seed)
+    draw = lambda *shape: torch.randn(*shape, generator=g,  # noqa: E731
+                                      device="cuda")
+    return ((draw(m, k) * 0.5).bfloat16(), (draw(k, n) / k ** 0.5).bfloat16(),
+            1 + 0.2 * draw(k), 0.1 * draw(k))
+
+
+def unfused_link(x, w, scale, shift):
+    """The probe's comparison (xla_link, benchmarks/probe_fused_link.py:
+    85-91) in eager PyTorch on the card: the prologue in float32, cuBLAS's
+    bf16 product, the statistics as two reductions of the rounded y."""
+    xn = torch.addcmul(shift, x, scale).relu_().bfloat16()
+    y = xn @ w
+    yf = y.float()
+    return y, yf.sum(dim=0), yf.square().sum(dim=0)
+
+
+def flagship_link_inputs():
+    """The flagship's resnet50 at full width in train mode (bf16 autocast
+    over float32 parameters, channels_last, seed 0) on a synthetic batch
+    of 96: for each of ``FLAGSHIP_LINKS`` its x as [M, K] rows (the view
+    of the channels_last map), scale and shift, w [K, N], and the module
+    chain's conv output as rows, all taken by forward hooks."""
+    model, _ = build_model(TRAIN, IMAGE)
+    checkpoint.load_weights(model, "", seed=TRAIN.seed)
+    model = model.to("cuda", memory_format=torch.channels_last).train()
+    model.set_compute_dtype(compute_dtype(TRAIN))
+    seen, hooks = {}, []
+    for block_name, link in FLAGSHIP_LINKS:
+        block = model.main_encoder.get_submodule(block_name)
+        first, out = ((block.bn2, block.bn3) if link == "conv3" else
+                      (block, block.bn1))
+
+        def keep(key):
+            return lambda _, args: seen.__setitem__(key, args[0])
+        hooks += [first.register_forward_pre_hook(keep((block_name, "x"))),
+                  out.register_forward_pre_hook(keep((block_name, "y")))]
+    batch = next(iter(make_dataset(TRAIN, IMAGE, device="cuda")))
+    with torch.no_grad():
+        model(batch["image"].permute(0, 3, 1, 2))
+    for h in hooks:
+        h.remove()
+    links = {}
+    for block_name, link in FLAGSHIP_LINKS:
+        block = model.main_encoder.get_submodule(block_name)
+        x, y = seen[(block_name, "x")], seen[(block_name, "y")]
+        assert x.dtype == y.dtype == torch.bfloat16, (x.dtype, y.dtype)
+        assert x.is_contiguous(memory_format=torch.channels_last)
+        rows = x.permute(0, 2, 3, 1).reshape(-1, x.shape[1])
+        assert rows.data_ptr() == x.data_ptr(), "rows are not a view"
+        conv = getattr(block, link)
+        if link == "conv3":
+            var, mean = torch.var_mean(x.double(), dim=(0, 2, 3),
+                                       correction=0)
+            scale = block.bn2.weight.double() / torch.sqrt(
+                var + block.bn2.eps)
+            shift = block.bn2.bias.double() - mean * scale
+            scale, shift = scale.float().detach(), shift.float().detach()
+        else:
+            scale = torch.ones(x.shape[1], device="cuda")
+            shift = torch.zeros(x.shape[1], device="cuda")
+        w = conv.weight.detach().bfloat16()[:, :, 0, 0].t().contiguous()
+        links[f"{block_name} {'bn2 -> conv3' if link == 'conv3' else link}"] \
+            = (rows, w, scale, shift,
+               y.permute(0, 2, 3, 1).reshape(-1, y.shape[1]))
+    return links
+
+
+def phase_link():
+    card = card_line()
+    # the kernel against its plain version on the same bf16 inputs
+    cases = [shape for shape, _ in LINK_SHAPES] + LINK_TAILS
+    for i, (m, k, n) in enumerate(cases):
+        x, w, scale, shift = link_operands(m, k, n, seed=900 + i)
+        got = fused_link(x, w, scale, shift)
+        again = fused_link(x, w, scale, shift)
+        torch.cuda.synchronize()
+        want = fused_link_reference(x, w, scale, shift)
+        gaps = link_gaps(got, want, x, w, scale, shift)
+        same = all(torch.equal(a, b) for a, b in zip(got, again))
+        err = (got[0].float() - want[0].float()).abs().max().item()
+        print(f"[link] [{m},{k},{n}]: y max_abs_err {err:.3e} ({gaps['y']:g} "
+              f"bf16 ulp at max|y|), s at {gaps['s']:.3f} and ss at "
+              f"{gaps['ss']:.3f} of their bounds, against the plain version "
+              f"in float32; two launches {'equal' if same else 'DIFFER'}")
+        assert max(gaps.values()) <= 1, ((m, k, n), gaps)
+        assert same, f"fused_link differs between two launches at {m, k, n}"
+        if i == 0:
+            LINK.result["max_abs_err"] = err
+        del x, w, got, again, want
+
+    # the flagship's own links: the kernel on the hooked inputs against
+    # the module chain (conv(relu(bn2(x))), the next BatchNorm's batch
+    # statistics as sums) and the plain version; these launches are the
+    # kernel's counted run
+    links = flagship_link_inputs()
+    fused_link.launches = 0
+    outs = {name: fused_link(*args[:4]) for name, args in links.items()}
+    torch.cuda.synchronize()
+    launches = fused_link.launches
+    assert launches == len(links), launches
+    LINK.result["launches"] += launches
+    tiny = torch.finfo(torch.float64).tiny
+    for name, (x, w, scale, shift, chain) in links.items():
+        y, s, ss = outs[name]
+        shape = (x.shape[0], x.shape[1], w.shape[1])
+        assert shape in [sh for sh, _ in LINK_SHAPES], (name, shape)
+        gaps = link_gaps(outs[name], fused_link_reference(x, w, scale, shift),
+                         x, w, scale, shift)
+        assert max(gaps.values()) <= 1, (name, gaps)
+        # the next BatchNorm's batch statistics as sums: of the chain's
+        # bf16 y, where the kernel's s and ss are of its float32 product
+        # before rounding, so they differ by up to y's rounding, |acc -
+        # y| <= ulp(y) / 2 a row
+        cf, yk = chain.double(), y.double()
+        c_s, c_ss, c_abs = cf.sum(0), cf.square().sum(0), cf.abs().sum(0)
+        ulp = torch.exp2(torch.floor(torch.log2(yk.abs().clamp(min=tiny)))
+                         - 7)
+        round_s = (ulp / 2).sum(0)
+        round_ss = ((2 * yk.abs() + ulp / 2) * ulp / 2).sum(0)
+        y_gap = ((yk - cf).abs().max() / cf.abs().max()).item()
+        ys_gap = max(((yk.sum(0) - c_s).abs() / c_abs).max().item(),
+                     ((yk.square().sum(0) - c_ss).abs() / c_ss).max().item())
+        s_gap = ((s.double() - c_s).abs() / c_abs).max().item()
+        ss_gap = ((ss.double() - c_ss).abs() / c_ss).max().item()
+        s_share = ((s.double() - c_s).abs()
+                   / (1e-3 * c_abs + round_s)).max().item()
+        ss_share = ((ss.double() - c_ss).abs()
+                    / (1e-3 * c_ss + round_ss)).max().item()
+        print(f"[link] flagship {name} {list(shape)}: y within {y_gap:.3e} of "
+              f"the module chain's largest |y| (bound {BF16_REL}); the next "
+              f"BatchNorm's batch statistics as sums against those of the "
+              f"kernel's y {ys_gap:.3e} (bound 1e-3), against its s "
+              f"{s_gap:.3e} of the column's sum of |y| and ss {ss_gap:.3e} "
+              f"relative, at {s_share:.3f} and {ss_share:.3f} of 1e-3 plus "
+              f"y's rounding; against the plain version on the same inputs: "
+              f"y {gaps['y']:g} ulp, s and ss at {gaps['s']:.3f} and "
+              f"{gaps['ss']:.3f} of their bounds")
+        assert y_gap <= BF16_REL and ys_gap <= 1e-3, (name, y_gap, ys_gap)
+        assert s_share <= 1 and ss_share <= 1, (name, s_share, ss_share)
+    print(f"[link] fused_link launches on the flagship's links {launches}")
+    del links, outs
+
+    print(f"[link] device times in ms, bf16 x [M, K] and w [K, N], float32 "
+          f"scale and shift; 20 calls in one CUDA graph, timed by CUDA "
+          f"events; card {card}:")
+    for i, ((m, k, n), what) in enumerate(LINK_SHAPES):
+        x, w, scale, shift = link_operands(m, k, n, seed=950 + i)
+        xn = torch.addcmul(shift, x, scale).relu_().bfloat16()
+        calls = {
+            "kernel": lambda: fused_link(x, w, scale, shift),
+            "plain": lambda: fused_link_reference(x, w, scale, shift),
+            "chain": lambda: unfused_link(x, w, scale, shift),
+            "cublas": lambda: xn @ w}
+        with torch.no_grad():
+            dev = {name: device_ms(fn, iters=20) for name, fn in calls.items()}
+        # x, w and y once, scale and shift, s and ss
+        n_bytes = 2 * (m * k + k * n + m * n) + 4 * (2 * k + 2 * n)
+        flops = 2 * m * k * n
+        ms, by = bound(n_bytes, flops)
+        print(f"[link] shape {i + 1} [{m},{k},{n}] ({what}): kernel "
+              f"{dev['kernel']:.5f} plain {dev['plain']:.5f} chain "
+              f"{dev['chain']:.5f} | bound {ms:.6f} ({by}: {n_bytes} B, "
+              f"{flops} flop) | {100 * ms / dev['kernel']:.1f}% of the bound "
+              f"| card {card}")
+        ratio = dev["chain"] / dev["kernel"]
+        print(f"[link] shape {i + 1}: cuBLAS's product alone on a ready xn "
+              f"{dev['cublas']:.5f} ms ({100 * ms / dev['cublas']:.1f}% of "
+              f"the link's bound); the gate, chain / kernel = {ratio:.2f} "
+              f"against {LINK_GATE} "
+              f"({'met' if ratio > LINK_GATE else 'not met'})")
+        if i == 0:
+            LINK.result.update(ms=dev["kernel"], plain_ms=dev["plain"],
+                               bound_ms=ms, bound_by=by,
+                               library_ms=dev["chain"])
+        del x, w, scale, shift, xn, calls
 
 
 def n_chunks(n: int, big: int) -> int:
@@ -2149,8 +2395,8 @@ VIDEO_COUNT, VIDEO_FRAMES = 4, 48
 
 
 def no_kernel_launch(tag):
-    """The phase's path launched none of the four kernels (the JAX
-    package's ViT, MANO and temporal stage reach no Pallas kernel)."""
+    """The phase's path launched none of the kernels (the JAX package's
+    ViT, MANO and temporal stage reach no Pallas kernel)."""
     counts = {k.name: k.wrapper.launches for k in KERNELS}
     assert not any(counts.values()), (tag, counts)
 
@@ -3749,6 +3995,7 @@ def main(argv):
     phases = [
         ("build", phase_build),
         ("kernels", phase_kernels),
+        ("link", phase_link),
         ("slice", lambda: state.update(served=phase_slice(rng))),
         ("profile", lambda: phase_profile(state["served"][0], rng)),
         ("serve", lambda: phase_serve(*state.pop("served"))),
@@ -3782,7 +4029,11 @@ def main(argv):
             continue
         torch.cuda.empty_cache()
         t0 = time.perf_counter()
+        fused_link.launches = 0
         fn()
+        # no model path launches the fused link, as in JAX
+        assert name == "link" or fused_link.launches == 0, \
+            (name, fused_link.launches)
         print(f"[{name}] done in {time.perf_counter() - t0:.1f} s")
     print(f"[total] {time.perf_counter() - t_start:.1f} s")
 

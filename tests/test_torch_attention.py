@@ -418,21 +418,31 @@ def test_library_path_keyed_by_source(monkeypatch, tmp_path):
     assert first.startswith(build.BUILD_DIR) and first.endswith(".so")
 
 
+# the shared headers each source includes: mma.cuh in every one;
+# attention.cuh in the two attention kernels'; tma.cuh in those with a
+# TMA-fed kernel (the persistent forward and backward, the bf16 stats),
+# not in the fused link's, whose x streams by cp.async
+SOURCE_HEADERS = {
+    "attention_fwd": ("mma.cuh", "attention.cuh", "tma.cuh"),
+    "attention_bwd": ("mma.cuh", "attention.cuh", "tma.cuh"),
+    "favor": ("mma.cuh", "tma.cuh"),
+    "fused_link": ("mma.cuh",),
+}
+
+
 def test_sources_have_their_headers():
-    """Every source the build compiles exists, and the shared headers the
-    tensor-core kernels include (mma.cuh; attention.cuh for the two
-    attention kernels; tma.cuh for the TMA-fed ones, in every source) are
-    ones that the library path hashes."""
+    """Every source the build compiles exists and includes the shared
+    headers of SOURCE_HEADERS and no other, each one that the library
+    path hashes."""
+    assert set(build.SOURCES) == set(SOURCE_HEADERS)
     for name in build.SOURCES:
         assert os.path.exists(os.path.join(build.CSRC_DIR, f"{name}.cu"))
-    for name in ("attention_fwd", "attention_bwd", "favor"):
+    for name, wanted in SOURCE_HEADERS.items():
         with open(os.path.join(build.CSRC_DIR, f"{name}.cu")) as f:
             src = f.read()
-        assert '#include "mma.cuh"' in src, name
-        assert ('#include "attention.cuh"' in src) == (name != "favor"), name
-        # the TMA-fed kernels: the persistent forward and backward and the
-        # bf16 stats
-        assert '#include "tma.cuh"' in src, name
+        for header in ("mma.cuh", "attention.cuh", "tma.cuh"):
+            assert (f'#include "{header}"' in src) == (header in wanted), \
+                (name, header)
     for header in ("mma.cuh", "attention.cuh", "tma.cuh"):
         assert os.path.exists(os.path.join(build.CSRC_DIR, header))
         assert os.path.join(build.CSRC_DIR, header) in build.headers()

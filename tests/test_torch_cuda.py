@@ -1,8 +1,8 @@
-"""The port's CUDA kernels and their custom ops, and its loaders,
-stage-2 mix, Evaluator, demo, GroupNorm flagship, coarse head, 128-token
-heads, ViT, MANO decode, adversarial step and a served artifact's CUDA
-graphs, on the card (marker ``cuda``; skipped without a
-CUDA device).
+"""The port's CUDA kernels (the fused link's too) and their custom ops,
+and its loaders, stage-2 mix, Evaluator, demo, GroupNorm flagship,
+coarse head, 128-token heads, ViT, MANO decode, adversarial step and a
+served artifact's CUDA graphs, on the card (marker ``cuda``; skipped
+without a CUDA device).
 
 This file imports neither JAX nor the JAX package, so it also runs on a
 machine that has only the port's stack.  There the repository's
@@ -30,6 +30,7 @@ from scat_tpu_torch.models.hand_net import (
     EncoderTransformer, EncoderTransformerCoarse, EncoderTransformerHRNet,
     EncoderTransformerInception, H3DWEncoder, H3DWJointsEncoder)
 from scat_tpu_torch.ops import favor
+from scat_tpu_torch.ops import fused_link as fl
 from scat_tpu_torch.ops.attention import (attention_bwd,
                                           attention_bwd_reference,
                                           attention_reference, bf16_ulps,
@@ -628,6 +629,95 @@ def test_favor_kernels_refuse_what_they_do_not_take(cuda):
     ksum, kptv = favor.favor_stats(k, v, w)
     with pytest.raises(ValueError, match="favor_stats' contiguous"):
         favor.favor_apply(q, ksum, kptv.transpose(-1, -2), w)
+
+
+def _link_operands(m, k, n, device, seed=0):
+    """x [M, K] (about 0.5) and w [K, N] (fan-in scaled) bf16, a folded
+    BatchNorm's scale (about 1) and shift (about 0) [K] float32."""
+    g = np.random.RandomState(seed)
+    x = torch.from_numpy((g.randn(m, k) * 0.5).astype(np.float32))
+    w = torch.from_numpy((g.randn(k, n) / np.sqrt(k)).astype(np.float32))
+    scale = torch.from_numpy((1 + 0.2 * g.randn(k)).astype(np.float32))
+    shift = torch.from_numpy((0.1 * g.randn(k)).astype(np.float32))
+    return (x.to(device, torch.bfloat16), w.to(device, torch.bfloat16),
+            scale.to(device), shift.to(device))
+
+
+# (M, K, N): the probe's five shapes (ResNet-50's bottleneck links at bs
+# 96), M not whole 128-row tiles (1, 129, bs 1's 3136, layer4's 4704),
+# N = 1024 and N not whole 128-column tiles
+LINK_SHAPES = [(301056, 256, 64), (301056, 64, 256), (75264, 512, 128),
+               (75264, 128, 512), (18816, 1024, 256), (1, 256, 64),
+               (129, 64, 256), (3136, 64, 256), (4704, 2048, 512),
+               (4704, 512, 2048), (18816, 256, 1024), (200, 72, 200)]
+
+
+@pytest.mark.parametrize("shape", LINK_SHAPES)
+def test_fused_link_matches_plain(cuda, shape):
+    """The kernel against its plain version run in float32 on the same
+    bf16 inputs, at fused_link's bounds (link_gaps: y within 1 bf16 ulp at
+    max|y|, s and ss within 1e-5 and 2e-5 plus one row's rounding)."""
+    args = _link_operands(*shape, cuda, seed=sum(shape))
+    before = fl.fused_link.launches
+    got = fl.fused_link(*args)
+    torch.cuda.synchronize()
+    assert fl.fused_link.launches == before + 1
+    m, _, n = shape
+    y, s, ss = got
+    assert y.shape == (m, n) and y.dtype == torch.bfloat16 and y.is_cuda
+    assert s.shape == ss.shape == (n,) and s.dtype == torch.float32
+    gaps = fl.link_gaps(got, fl.fused_link_reference(*args), *args)
+    assert max(gaps.values()) <= 1, gaps
+
+
+@pytest.mark.parametrize("shape", [(301056, 64, 256), (4704, 512, 2048)])
+def test_fused_link_bit_deterministic(cuda, shape):
+    """No float atomics and a fixed order of every sum: three launches
+    agree bit for bit."""
+    args = _link_operands(*shape, cuda, seed=5)
+    first = fl.fused_link(*args)
+    for _ in range(2):
+        assert all(torch.equal(a, f) for a, f in zip(fl.fused_link(*args),
+                                                      first))
+
+
+def test_fused_link_refuses_unaligned_rows(cuda):
+    """Rows that are not 16-byte aligned (a row stride not a multiple of 8
+    elements, or a start off 16 bytes) and operands on two devices raise,
+    with no launch."""
+    x, w, scale, shift = _link_operands(256, 64, 128, cuda)
+    before = fl.fused_link.launches
+    wide = torch.zeros(256, 68, dtype=torch.bfloat16, device=cuda)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        fl.fused_link(wide[:, :64], w, scale, shift)
+    with pytest.raises(ValueError, match="start on 16 bytes"):
+        fl.fused_link(wide.view(-1)[4:4 + 256 * 64].view(256, 64), w, scale,
+                      shift)
+    with pytest.raises(ValueError, match="one device"):
+        fl.fused_link(x, w, scale.cpu(), shift)
+    with pytest.raises(TypeError, match="bf16 x"):
+        fl.fused_link(x.float(), w, scale, shift)
+    assert fl.fused_link.launches == before
+
+
+def test_fused_link_graph_replay_equals_eager(cuda):
+    """The link's two launches captured in a CUDA graph and replayed on
+    new inputs copied into the captured ones: bit for bit the eager
+    launch's result."""
+    args = _link_operands(4704, 512, 2048, cuda, seed=20)
+    fl.fused_link(*args)  # built and warmed up
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = fl.fused_link(*args)
+    for seed in (21, 22):
+        for dst, src in zip(args, _link_operands(4704, 512, 2048, cuda,
+                                                 seed=seed)):
+            dst.copy_(src)
+        graph.replay()
+        torch.cuda.synchronize()
+        assert all(torch.equal(a, e) for a, e in zip(out,
+                                                     fl.fused_link(*args)))
 
 
 @pytest.mark.parametrize("augment", [False, True])

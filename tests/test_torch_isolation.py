@@ -16,7 +16,8 @@ FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "scat_tpu")
 KERNEL_CALLS = {"flash_attention", "scat_attention_fwd", "_attention_fwd",
                 "attention_bwd", "scat_attention_bwd", "_library", "load",
                 "build_all", "favor_attention_fused", "favor_stats",
-                "favor_apply", "scat_favor_stats", "scat_favor_apply"}
+                "favor_apply", "scat_favor_stats", "scat_favor_apply",
+                "fused_link", "scat_fused_link"}
 
 
 def _sources():
