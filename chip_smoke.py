@@ -9,10 +9,10 @@ Phases, in order; any failure raises and exits non-zero:
   1. build    compile every kernel source under scat_tpu_torch/csrc
               (one nvcc each, in parallel), print what ptxas reports
               (registers, shared memory, spills) for the six bf16
-              tensor-core kernels and the fused link (the three wgmma
+              tensor-core kernels and the fused link (the four wgmma
               kernels fed by TMA, the persistent attention forward and
-              backward and the FAVOR+ stats, must not spill), and the
-              card's name and power limit;
+              backward, the FAVOR+ stats and the fused link, must not
+              spill), and the card's name and power limit;
   2. kernels  each kernel against its plain PyTorch version on the card
               at the serving and training paths' shapes: float32 (TF32
               off) at atol 2e-5, bfloat16 at atol = rtol = 1e-2 against
@@ -45,7 +45,13 @@ Phases, in order; any failure raises and exits non-zero:
               float32 on the same bf16 inputs, s within 1e-5 of the
               column's sum of |y| and ss within 2e-5 of itself (each plus
               one row's float32 rounding, ops/fused_link.link_gaps), a
-              second launch bit for bit the same; the flagship's own
+              second launch and, at the probe's shapes, a CUDA-graph
+              replay bit for bit the same; each shape's plan
+              (ops/fused_link.link_plan: tile, consumer warpgroups,
+              blocks, busiest block, block slots busy, w resident or
+              streamed, stages, shared memory against the kernel's own
+              count, bytes through the L2, ptxas registers and spills of
+              the instantiation it launches); the flagship's own
               links (resnet50 at full width in train mode, bf16, bs 96, a
               synthetic batch, seed 0), hooked at layer1.0 and layer2.0
               (bn2 -> conv3), layer1.1, layer2.1 and layer3.1 (conv1):
@@ -56,11 +62,14 @@ Phases, in order; any failure raises and exits non-zero:
               the kernel's y within 1e-3 and against its s and ss (of the
               float32 product before rounding) within 1e-3 plus y's
               rounding, the launches counted there; then device times
-              at the five shapes: the kernel (its reduce launch), the plain
-              version, the unfused PyTorch chain (the probe's xla_link:
-              prologue, cuBLAS product, two reductions; library_ms) and
-              cuBLAS's product alone on a ready xn, each beside the bound,
-              and the chain / kernel ratio against the probe's 1.2 gate;
+              at the five shapes: the kernel (and its second launch), the
+              plain version, the unfused PyTorch chain (the probe's
+              xla_link: prologue, cuBLAS product, two reductions;
+              library_ms) and cuBLAS's product alone on a ready xn, each
+              beside the bound, and the chain / kernel ratio against the
+              probe's 1.2 gate; layer3's shape again with x rotated over
+              3 copies in the graph (not L2-warm), and the second launch
+              (the ordered sum of the blocks' partials) timed alone;
               fused_link's counter reads 0 after every other phase (no
               model path calls it, as in JAX);
   4. slice    the flagship --net reg_transformer predictor at full width
@@ -327,8 +336,9 @@ from scat_tpu_torch.ops.attention import occupancy as attention_occupancy
 from scat_tpu_torch.ops.favor import (favor_apply, favor_apply_reference,
                                       favor_attention, favor_attention_fused,
                                       favor_stats, favor_stats_reference)
+from scat_tpu_torch.ops import fused_link as fused_link_op
 from scat_tpu_torch.ops.fused_link import (fused_link, fused_link_reference,
-                                           link_gaps)
+                                           link_gaps, link_plan)
 from scat_tpu_torch.server import make_server
 from scat_tpu_torch.serving import HandPosePredictor, frames_to_crops
 from scat_tpu_torch.training import adversarial, steps
@@ -523,7 +533,8 @@ PTXAS_KERNELS = (("attention_fwd", "attention_fwd_bf16_kernel"),
                  ("fused_link", "fused_link_kernel"))
 # the wgmma kernels fed by TMA, whose accumulators a spill would stall
 NO_SPILL_KERNELS = ("attention_fwd_wgmma_kernel",
-                    "attention_bwd_wgmma_kernel", "favor_stats_wgmma_kernel")
+                    "attention_bwd_wgmma_kernel", "favor_stats_wgmma_kernel",
+                    "fused_link_kernel")
 # the persistent kernels' sequence lengths (64 < N <= 128)
 WGMMA_SEQS = (65, 80, 97, 100, 127, 128)
 
@@ -908,9 +919,49 @@ def flagship_link_inputs():
     return links
 
 
+def link_traffic(plan, m, k, n):
+    """Bytes a plan moves through the L2 (MB): x read once a range, w's
+    [K x bn] slice once a block where resident, else once for each group
+    of a block's tiles, y written once."""
+    slice_bytes = -(-k // 64) * 64 * plan.bn * 2
+    if plan.resident:
+        w_bytes = plan.grid * slice_bytes
+    else:
+        tiles = [-(-(plan.m_tiles - q) // plan.per_range)
+                 for q in range(plan.per_range)]
+        w_bytes = plan.ranges * slice_bytes * sum(
+            -(-t // plan.groups) for t in tiles)
+    return (plan.ranges * m * k * 2 + w_bytes + m * n * 2) / 1e6
+
+
+def link_plan_line(m, k, n):
+    """The plan of [m, k, n], its L2 traffic, and what ptxas said of the
+    kernel it launches (registers, spills)."""
+    plan = link_plan(m, k, n, torch.cuda.get_device_properties(
+        0).multi_processor_count)
+    smem = fused_link_op._library().scat_fused_link_smem(
+        k, plan.bn, plan.groups, int(plan.resident), plan.stages)
+    assert smem == plan.smem, (smem, plan)
+    name = (f"fused_link_kernelILi{plan.bn}ELi{int(plan.resident)}"
+            f"ELi{plan.groups}E")
+    lines = ptxas_lines(build.LOGS.get("fused_link", ""), name)
+    regs = next((line.split(":", 1)[1].strip() for line in lines
+                 if "registers" in line), "loaded as built before")
+    spills = next((line for line in lines if "spill" in line), "")
+    return (f"tile 64x{plan.bn}, {plan.groups} consumer warpgroups, "
+            f"{plan.grid} blocks ({plan.ranges} range(s) x "
+            f"{plan.per_range}), {plan.rounds} M-tiles the busiest block, "
+            f"{100 * plan.fill:.1f}% of the block slots busy, w "
+            f"{'resident' if plan.resident else 'streamed'}, "
+            f"{plan.stages} stages, {plan.smem} B of shared memory, "
+            f"{link_traffic(plan, m, k, n):.1f} MB through the L2; ptxas: "
+            f"{regs}; {spills}")
+
+
 def phase_link():
     card = card_line()
-    # the kernel against its plain version on the same bf16 inputs
+    # the kernel against its plain version on the same bf16 inputs; at the
+    # probe's shapes also a CUDA-graph replay of one call
     cases = [shape for shape, _ in LINK_SHAPES] + LINK_TAILS
     for i, (m, k, n) in enumerate(cases):
         x, w, scale, shift = link_operands(m, k, n, seed=900 + i)
@@ -920,11 +971,23 @@ def phase_link():
         want = fused_link_reference(x, w, scale, shift)
         gaps = link_gaps(got, want, x, w, scale, shift)
         same = all(torch.equal(a, b) for a, b in zip(got, again))
+        replay = "-"
+        if i < len(LINK_SHAPES):
+            graph = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(graph):
+                captured = fused_link(x, w, scale, shift)
+            graph.replay()
+            torch.cuda.synchronize()
+            replay = all(torch.equal(a, b) for a, b in zip(captured, got))
+            assert replay, f"fused_link's graph replay differs at {m, k, n}"
+            del graph, captured
         err = (got[0].float() - want[0].float()).abs().max().item()
         print(f"[link] [{m},{k},{n}]: y max_abs_err {err:.3e} ({gaps['y']:g} "
               f"bf16 ulp at max|y|), s at {gaps['s']:.3f} and ss at "
               f"{gaps['ss']:.3f} of their bounds, against the plain version "
-              f"in float32; two launches {'equal' if same else 'DIFFER'}")
+              f"in float32; two launches {'equal' if same else 'DIFFER'}, "
+              f"a graph replay equal: {replay}")
+        print(f"[link] [{m},{k},{n}] plan: {link_plan_line(m, k, n)}")
         assert max(gaps.values()) <= 1, ((m, k, n), gaps)
         assert same, f"fused_link differs between two launches at {m, k, n}"
         if i == 0:
@@ -1015,7 +1078,49 @@ def phase_link():
             LINK.result.update(ms=dev["kernel"], plain_ms=dev["plain"],
                                bound_ms=ms, bound_by=by,
                                library_ms=dev["chain"])
+        if i == len(LINK_SHAPES) - 1:
+            link_cold_and_reduce(x, w, scale, shift, dev["kernel"], card)
         del x, w, scale, shift, xn, calls
+
+
+def link_cold_and_reduce(x, w, scale, shift, warm_ms, card):
+    """Layer3's shape once more with x rotated over three copies in the
+    graph (its operands, 48.7 MB, about fill the 50 MB L2), and the
+    second launch (the sum of the blocks' partials) timed alone."""
+    (m, k), n = x.shape, w.shape[1]
+    xs = [x, x.clone(), x.clone()]
+    turn = [0]
+
+    def rotated():
+        fused_link(xs[turn[0] % 3], w, scale, shift)
+        turn[0] += 1
+    with torch.no_grad():
+        cold = device_ms(rotated, iters=21)
+    print(f"[link] shape {len(LINK_SHAPES)} [{m},{k},{n}] with x rotated over "
+          f"3 copies in the graph: kernel {cold:.5f} ms (L2-warm "
+          f"{warm_ms:.5f}) | card {card}")
+    plan = link_plan(m, k, n, torch.cuda.get_device_properties(
+        0).multi_processor_count)
+    work = torch.rand(plan.workspace(n), device="cuda")
+    s = torch.empty(n, device="cuda")
+    ss = torch.empty(n, device="cuda")
+    lib = fused_link_op._library()
+
+    def reduce(dependent):
+        def call():
+            rc = lib.scat_fused_link_reduce(
+                work.data_ptr(), s.data_ptr(), ss.data_ptr(),
+                plan.per_range, n, dependent,
+                torch.cuda.current_stream().cuda_stream)
+            assert rc == 0, rc
+        return call
+    alone = device_ms(reduce(0), iters=20)
+    dep = device_ms(reduce(1), iters=20)
+    print(f"[link] the second launch (the sum of {plan.per_range} partial "
+          f"rows of {n} columns) alone: {alone:.5f} ms a launch, "
+          f"{dep:.5f} with programmatic stream serialisation after "
+          f"itself, against the link's {warm_ms:.5f} | card {card}")
+    del xs, work
 
 
 def n_chunks(n: int, big: int) -> int:

@@ -2,8 +2,8 @@
 // copies into shared memory, ldmatrix loads of 8x8 bf16 tiles, the bf16
 // mma.sync.m16n8k16 with float32 accumulation, the warpgroup's wgmma
 // (m64n64k16 and m64n128k16, operands from registers or from shared
-// memory, K-major or MN-major; sm_90a), and the mbarriers of a
-// producer / consumer ring.
+// memory, K-major or MN-major; sm_90a), the mbarriers of a producer /
+// consumer ring, TMA copies and stores, and programmatic dependent launch.
 //
 // Fragment layouts of mma.m16n8k16.row.col (lane = 4 * g + t):
 //   A [16 x 16] row-major, 4 registers of two bf16 each:
@@ -277,6 +277,39 @@ __device__ __forceinline__ void wgmma_64x64x16_bt(float (&d)[32],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(accumulate));
 }
 
+// the same over a 64 x 128 x 16 tile: A from registers, B MN-major (two
+// 64-column atoms of n, LBO apart)
+__device__ __forceinline__ void wgmma_64x128x16_bt(float (&d)[64],
+                                                   const uint32_t (&a)[4],
+                                                   uint64_t b,
+                                                   int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, "
+      "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, "
+      "%60, %61, %62, %63"
+      "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(accumulate));
+}
+
 // Operands in shared memory for the descriptors above, no swizzle: an
 // operand is cut into core matrices of 128 contiguous bytes, 8 rows of 16
 // bytes.  K-major (the default): a core is 8 m (or n) rows x 8 k elements;
@@ -366,6 +399,71 @@ __device__ __forceinline__ void tma_store_4d(const void* map,
       "%4, %5}], [%1];\n" ::"l"(reinterpret_cast<uint64_t>(map)),
       "r"(smem_addr(src)), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
       : "memory");
+}
+
+// how long a TMA load's lines should stay in the L2: read once (first
+// evicted), read again by other blocks soon (the default), or read by
+// every block (last evicted)
+enum class L2Keep { kFirstOut, kNormal, kLastOut };
+
+// a TMA copy of one box of a 2-D tensor map at (c0, c1) (innermost first)
+// into shared memory, completing on `bar`
+template <L2Keep Keep>
+__device__ __forceinline__ void tma_load_2d(void* dst, const void* map,
+                                            uint64_t* bar, int c0, int c1) {
+  if constexpr (Keep == L2Keep::kNormal) {
+    asm volatile(
+        "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::"
+        "complete_tx::bytes [%0], [%1, {%2, %3}], [%4];\n" ::"r"(
+            smem_addr(dst)),
+        "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1),
+        "r"(smem_addr(bar))
+        : "memory");
+  } else if constexpr (Keep == L2Keep::kFirstOut) {
+    asm volatile(
+        "{\n.reg .b64 pol;\n"
+        "createpolicy.fractional.L2::evict_first.b64 pol, 1.0;\n"
+        "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::"
+        "complete_tx::bytes.L2::cache_hint [%0], [%1, {%2, %3}], [%4], "
+        "pol;\n}\n" ::"r"(smem_addr(dst)),
+        "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1),
+        "r"(smem_addr(bar))
+        : "memory");
+  } else {
+    asm volatile(
+        "{\n.reg .b64 pol;\n"
+        "createpolicy.fractional.L2::evict_last.b64 pol, 1.0;\n"
+        "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::"
+        "complete_tx::bytes.L2::cache_hint [%0], [%1, {%2, %3}], [%4], "
+        "pol;\n}\n" ::"r"(smem_addr(dst)),
+        "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1),
+        "r"(smem_addr(bar))
+        : "memory");
+  }
+}
+
+// a TMA store of one box of a 2-D tensor map at (c0, c1) from shared
+// memory, in this thread's bulk async-group; what lies past the tensor's
+// edges is not written
+__device__ __forceinline__ void tma_store_2d(const void* map,
+                                             const void* src, int c0,
+                                             int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.global.shared::cta.bulk_group [%0, {%2, "
+      "%3}], [%1];\n" ::"l"(reinterpret_cast<uint64_t>(map)),
+      "r"(smem_addr(src)), "r"(c0), "r"(c1)
+      : "memory");
+}
+
+// programmatic dependent launch (sm_90): a primary grid lets the grid
+// launched after it with programmatic stream serialisation start (its
+// blocks may then run up to their wait), and that grid waits until the
+// primary grid has completed and its writes are visible
+__device__ __forceinline__ void grid_launch_dependents() {
+  asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");
+}
+__device__ __forceinline__ void grid_dependency_wait() {
+  asm volatile("griddepcontrol.wait;\n" ::: "memory");
 }
 
 __device__ __forceinline__ void bulk_commit() {

@@ -20,13 +20,16 @@ The statistics come from the float32 accumulator before y is rounded,
 as in the TPU kernel; the probe's ``xla_link`` takes them from the
 rounded y, which is not the kernel's function.  ``fused_link_reference``
 is the plain version.  The kernel is ``csrc/fused_link.cu``; what bounds
-it and how it is laid out is written there.  Where the JAX function
-takes M in whole tiles of 128 rows or more (and refuses other M), the
-port takes every M >= 1: rows past M are masked.
+it and how it is laid out is written there.  ``link_plan`` chooses its
+tiles, ring and grid for each (M, K, N).  Where the JAX function takes M
+in whole tiles of 128 rows or more (and refuses other M), the port takes
+every M >= 1: rows past M are masked.  K is at most 12,480 (17,600 where
+N <= 64): a block holds scale and shift in shared memory beside its ring,
+and ``link_plan`` refuses a larger K (ResNet-50's largest is 2048).
 
 The kernel is a ``torch.library`` custom op, ``scat_tpu_torch::
 fused_link``: a CUDA implementation (the launch, the workspace of the
-M-tiles' partial statistics, the counter), a CPU implementation (the
+blocks' partial statistics, the counter), a CPU implementation (the
 plain version) and a fake giving the outputs' shapes.  ``fused_link``
 calls the op: CUDA tensors launch the kernel or raise, never falling
 back; CPU tensors take the plain version.  Forward only, as the TPU
@@ -37,16 +40,26 @@ from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Tuple
+from typing import NamedTuple, Tuple
 
 import torch
 
 from scat_tpu_torch.kernels import abi, build
 
-# the rows of one M-tile (csrc/fused_link.cu kBM): each writes one row of
-# partial statistics to the workspace, which the kernel's second launch
-# sums
-BLOCK_ROWS = 128
+# the kernel's tiles and shared memory (csrc/fused_link.cu): M-tiles of 64
+# rows, k slices of 64, a ring stage of one x box (8 KB) for each consumer
+# warpgroup (2 or 3) and, where w streams, the slice's w; 3 to 8 stages; a
+# staging tile of 16 rows for each consumer warp; what a block of an H100
+# may take
+TILE_ROWS = SLICE = 64
+BOX_BYTES = TILE_ROWS * SLICE * 2
+MIN_STAGES, MAX_STAGES = 3, 8
+SMEM_LIMIT = 232448
+# a third consumer warpgroup where a tile's products are many against its
+# bytes: K * bn / (K + bn) flop for each bf16 of x read and y written at
+# or above this (on an H100 at 700 W it helped at 64 and above and cost at
+# 51 and below: PERF.md §6)
+DENSE_TILE = 60
 # what the kernel is held to against the plain version (float32 sums in
 # another order): y within 1 bf16 ulp at max|y|; s within 1e-5 of the
 # column's sum of |y|, ss within 2e-5 of itself, each plus one row's
@@ -93,12 +106,95 @@ def link_gaps(got, want, x: torch.Tensor, w: torch.Tensor,
             "ss": ((ss - wss).abs() / ss_bound.clamp(min=tiny)).max().item()}
 
 
+def smem_bytes(k: int, bn: int, groups: int, resident: bool,
+               stages: int) -> int:
+    """The kernel's dynamic shared memory for a plan (csrc/fused_link.cu
+    ``smem_bytes``): 1 KB of alignment slack, the ring, w's resident [K
+    x bn] slice, the consumer warps' staging tiles, scale and shift, and
+    the barriers."""
+    k_pad = -(-k // SLICE) * SLICE
+    stage = groups * BOX_BYTES + (0 if resident else SLICE * bn * 2)
+    return (1024 + stages * stage + (k_pad * bn * 2 if resident else 0)
+            + 4 * groups * 16 * bn * 2 + 8 * k_pad + 8 * (2 * stages + 1))
+
+
+class LinkPlan(NamedTuple):
+    """How the kernel cuts (M, K, N): tiles of 64 rows x ``bn`` columns,
+    one each for ``groups`` consumer warpgroups at a time; w's [K x bn]
+    slice ``resident`` in shared memory (else streamed through the ring);
+    ``stages`` ring stages; ``ranges`` N-ranges of ``per_range`` blocks
+    each (the grid), each block walking the 64-row M-tiles q, q +
+    per_range, ...; ``rounds`` the M-tiles of the busiest block; ``fill``
+    the share of the SMs' block slots that do work over all rounds;
+    ``smem`` the kernel's dynamic shared memory."""
+    bn: int
+    groups: int
+    resident: bool
+    stages: int
+    ranges: int
+    per_range: int
+    m_tiles: int
+    rounds: int
+    fill: float
+    smem: int
+
+    @property
+    def grid(self) -> int:
+        return self.ranges * self.per_range
+
+    def workspace(self, n: int) -> int:
+        """float32 elements of the partial statistics: one row of s
+        and one of ss a block of a range."""
+        return 2 * self.per_range * n
+
+
+def link_plan(m: int, k: int, n: int, sms: int = 132) -> LinkPlan:
+    """The kernel's plan for x [m, k] and w [k, n] on a card of ``sms``
+    SMs: N-tiles of 128 columns (64 where n <= 64: the widest whose
+    accumulators stay in a thread's registers, so x is read and its
+    prologue applied once an N-range); w resident where its slice fits
+    beside a ring of 3 stages for 2 consumer warpgroups; 3 warpgroups
+    where the tile is dense (``DENSE_TILE``: a warpgroup's slices run one
+    after another, so a third keeps more products in flight) and they
+    still fit, else 2 and a deeper ring; the deepest ring that fits (at
+    most 8); blocks split evenly over the N-ranges, at most one an SM and
+    one an M-tile."""
+    bn = 64 if n <= 64 else 128
+    resident = smem_bytes(k, bn, 2, True, MIN_STAGES) <= SMEM_LIMIT
+    dense = k * bn >= DENSE_TILE * (k + bn)
+    groups = 3 if dense and smem_bytes(k, bn, 3, resident,
+                                       MIN_STAGES) <= SMEM_LIMIT else 2
+    fits = [st for st in range(MIN_STAGES, MAX_STAGES + 1)
+            if smem_bytes(k, bn, groups, resident, st) <= SMEM_LIMIT]
+    if not fits:
+        raise ValueError(f"fused_link: no plan fits K={k} in a block's "
+                         f"shared memory")
+    ranges = -(-n // bn)
+    m_tiles = -(-m // TILE_ROWS)
+    per_range = max(1, min(sms // ranges, m_tiles))
+    rounds = -(-m_tiles // per_range)
+    fill = m_tiles * ranges / (rounds * max(sms, ranges * per_range))
+    return LinkPlan(bn, groups, resident, fits[-1], ranges, per_range,
+                    m_tiles, rounds, fill,
+                    smem_bytes(k, bn, groups, resident, fits[-1]))
+
+
+@functools.lru_cache(maxsize=None)
+def _sms(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
 @functools.lru_cache(maxsize=None)
 def _library() -> ctypes.CDLL:
     lib = build.load("fused_link")
     ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    lib.scat_fused_link.argtypes = [ptr] * 8 + [i32] * 3 + [i64] * 2 + [ptr]
+    lib.scat_fused_link.argtypes = ([ptr] * 8 + [i32] * 3 + [i64] * 2
+                                    + [i32] * 5 + [ptr])
     lib.scat_fused_link.restype = i32
+    lib.scat_fused_link_reduce.argtypes = [ptr] * 3 + [i32] * 3 + [ptr]
+    lib.scat_fused_link_reduce.restype = i32
+    lib.scat_fused_link_smem.argtypes = [i32] * 5
+    lib.scat_fused_link_smem.restype = i64
     lib.scat_cuda_error_string.argtypes = [i32]
     lib.scat_cuda_error_string.restype = ctypes.c_char_p
     return lib
@@ -146,21 +242,28 @@ def _check(x: torch.Tensor, w: torch.Tensor, scale: torch.Tensor,
 def _fused_link(x: torch.Tensor, w: torch.Tensor, scale: torch.Tensor,
                 shift: torch.Tensor
                 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """The kernel on CUDA tensors (counted)."""
+    """The kernel on CUDA tensors (counted), by ``link_plan``'s plan.
+    Rows that overlap (a row stride below K or N: a broadcast) are copied
+    first: the tensor maps take no such stride."""
     _check(x, w, scale, shift)
     (m, k), n = x.shape, w.shape[1]
+    if m > 1 and x.stride(0) < k:
+        x = x.contiguous()
+    if w.stride(0) < n:
+        w = w.contiguous()
+    plan = link_plan(m, k, n, _sms(x.device.index))
     y = torch.empty((m, n), dtype=torch.bfloat16, device=x.device)
     s = torch.empty(n, dtype=torch.float32, device=x.device)
     ss = torch.empty(n, dtype=torch.float32, device=x.device)
-    # each M-tile's partial s and ss (the last tile partial), summed by
-    # the second launch
-    work = torch.empty(2 * -(-m // BLOCK_ROWS) * n, dtype=torch.float32,
+    # each block's partial s and ss, summed by the second launch
+    work = torch.empty(plan.workspace(n), dtype=torch.float32,
                        device=x.device)
     with torch.cuda.device(x.device):
         rc = _library().scat_fused_link(
             x.data_ptr(), w.data_ptr(), scale.data_ptr(), shift.data_ptr(),
             y.data_ptr(), s.data_ptr(), ss.data_ptr(), work.data_ptr(), m,
-            k, n, x.stride(0), w.stride(0),
+            k, n, x.stride(0), w.stride(0), plan.bn, plan.groups,
+            int(plan.resident), plan.stages, plan.per_range,
             torch.cuda.current_stream(x.device).cuda_stream)
     abi.raise_on(rc, _library(), "fused_link")
     fused_link.launches += 1

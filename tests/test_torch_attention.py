@@ -420,13 +420,13 @@ def test_library_path_keyed_by_source(monkeypatch, tmp_path):
 
 # the shared headers each source includes: mma.cuh in every one;
 # attention.cuh in the two attention kernels'; tma.cuh in those with a
-# TMA-fed kernel (the persistent forward and backward, the bf16 stats),
-# not in the fused link's, whose x streams by cp.async
+# TMA-fed kernel (the persistent forward and backward, the bf16 stats,
+# the fused link)
 SOURCE_HEADERS = {
     "attention_fwd": ("mma.cuh", "attention.cuh", "tma.cuh"),
     "attention_bwd": ("mma.cuh", "attention.cuh", "tma.cuh"),
     "favor": ("mma.cuh", "tma.cuh"),
-    "fused_link": ("mma.cuh",),
+    "fused_link": ("mma.cuh", "tma.cuh"),
 }
 
 

@@ -720,6 +720,73 @@ def test_fused_link_graph_replay_equals_eager(cuda):
                                                      fl.fused_link(*args)))
 
 
+def test_fused_link_graph_replays_and_two_streams(cuda):
+    """Two graph replays in a row, then two graphs replayed at once on two
+    streams with inputs and outputs of their own, and two eager launches
+    at once on two streams: each bit for bit the eager launch on its own
+    (the partials' sum is a dependent launch; no state lives between
+    calls)."""
+    shape = (18816, 1024, 256)
+    args = [_link_operands(*shape, cuda, seed=30 + i) for i in range(2)]
+    want = [fl.fused_link(*a) for a in args]
+    torch.cuda.synchronize()
+    streams = [torch.cuda.Stream(), torch.cuda.Stream()]
+    graphs = [torch.cuda.CUDAGraph(), torch.cuda.CUDAGraph()]
+    outs = []
+    for a, g, st in zip(args, graphs, streams):
+        with torch.cuda.graph(g, stream=st):
+            outs.append(fl.fused_link(*a))
+
+    def same(got, exp):
+        return all(torch.equal(x, y) for x, y in zip(got, exp))
+    for _ in range(2):
+        graphs[0].replay()
+        torch.cuda.synchronize()
+        assert same(outs[0], want[0])
+    for g, st in zip(graphs, streams):
+        st.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(st):
+            g.replay()
+    torch.cuda.synchronize()
+    assert same(outs[0], want[0]) and same(outs[1], want[1])
+    eager = []
+    for a, st in zip(args, streams):
+        with torch.cuda.stream(st):
+            eager.append(fl.fused_link(*a))
+    torch.cuda.synchronize()
+    assert same(eager[0], want[0]) and same(eager[1], want[1])
+
+
+@pytest.mark.parametrize("shape", LINK_SHAPES)
+def test_fused_link_reads_strided_x(cuda, shape):
+    """x as a view of wider rows (row stride K + 8, read in place by the
+    tensor map): within fused_link's bounds of the plain version, and bit
+    for bit the contiguous x's result."""
+    m, k, n = shape
+    x, w, scale, shift = _link_operands(m, k, n, cuda, seed=sum(shape) + 1)
+    wide = torch.zeros(m, k + 8, dtype=torch.bfloat16, device=cuda)
+    wide[:, :k] = x
+    view = wide[:, :k]
+    assert view.stride(0) == k + 8
+    got = fl.fused_link(view, w, scale, shift)
+    gaps = fl.link_gaps(got, fl.fused_link_reference(x, w, scale, shift), x,
+                        w, scale, shift)
+    assert max(gaps.values()) <= 1, gaps
+    assert all(torch.equal(a, b)
+               for a, b in zip(got, fl.fused_link(x, w, scale, shift)))
+
+
+def test_fused_link_plan_matches_the_kernel(cuda):
+    """link_plan's shared memory is the kernel's own count for the plans
+    of every link shape."""
+    lib = fl._library()
+    for m, k, n in LINK_SHAPES:
+        plan = fl.link_plan(m, k, n)
+        assert lib.scat_fused_link_smem(k, plan.bn, plan.groups,
+                                        int(plan.resident),
+                                        plan.stages) == plan.smem
+
+
 @pytest.mark.parametrize("augment", [False, True])
 def test_stb_batch_on_card_equals_cpu(cuda, tmp_path, augment):
     """The PIL path's batch made on the card (upload, blur, warp, labels)

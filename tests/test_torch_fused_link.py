@@ -282,3 +282,56 @@ def test_bottleneck_link_equals_fused_link(link):
                                atol=1e-3 * want.abs().sum(0).double().max())
     torch.testing.assert_close(ss.double(), (var + mean * mean) * count,
                                rtol=1e-3, atol=0)
+
+
+# every shape of tests/test_torch_cuda.py's LINK_SHAPES: the probe's five
+# (ResNet-50's bottleneck links at bs 96), then the tails (M of 1, 129,
+# 3136 and 4704, N = 1024 and 2048, N not whole 128-column tiles)
+PROBE_SHAPES = [(301056, 256, 64), (301056, 64, 256), (75264, 512, 128),
+                (75264, 128, 512), (18816, 1024, 256)]
+TAIL_SHAPES = [(1, 256, 64), (129, 64, 256), (3136, 64, 256),
+               (4704, 2048, 512), (4704, 512, 2048), (18816, 256, 1024),
+               (200, 72, 200)]
+
+
+@pytest.mark.parametrize("shape", PROBE_SHAPES + TAIL_SHAPES)
+def test_plan_fits_and_sizes_its_workspace(shape):
+    """link_plan on an H100's 132 SMs: the plan's shared memory (the
+    kernel's layout, smem_bytes) fits in a block's 232,448 B; its N-ranges
+    cover N, its blocks at most one an SM and one an M-tile each, its
+    rounds cover the 64-row M-tiles; the workspace is one row of s and one
+    of ss a block of a range; the probe's shapes keep at least 85% of the
+    grid's block slots busy over all rounds."""
+    m, k, n = shape
+    plan = fl.link_plan(m, k, n, sms=132)
+    assert plan.smem == fl.smem_bytes(k, plan.bn, plan.groups, plan.resident,
+                                      plan.stages) <= fl.SMEM_LIMIT == 232448
+    assert plan.groups in (2, 3)
+    assert fl.MIN_STAGES <= plan.stages <= fl.MAX_STAGES
+    assert plan.bn == (64 if n <= 64 else 128)
+    assert plan.bn * (plan.ranges - 1) < n <= plan.bn * plan.ranges
+    assert plan.m_tiles == -(-m // fl.TILE_ROWS)
+    assert 1 <= plan.per_range <= plan.m_tiles
+    assert plan.grid == plan.ranges * plan.per_range <= 132
+    assert (plan.rounds - 1) * plan.per_range < plan.m_tiles \
+        <= plan.rounds * plan.per_range
+    assert plan.workspace(n) == 2 * plan.per_range * n
+    # w resident wherever its slice fits beside the smallest ring of two
+    # warpgroups; three warpgroups for dense tiles wherever they fit
+    assert plan.resident == (fl.smem_bytes(k, plan.bn, 2, True,
+                                           fl.MIN_STAGES) <= fl.SMEM_LIMIT)
+    dense = k * plan.bn >= fl.DENSE_TILE * (k + plan.bn)
+    assert (plan.groups == 3) == (dense and fl.smem_bytes(
+        k, plan.bn, 3, plan.resident, fl.MIN_STAGES) <= fl.SMEM_LIMIT)
+    if shape in PROBE_SHAPES:
+        assert plan.fill >= 0.85, plan
+
+
+def test_plan_refuses_k_past_shared_memory():
+    """scale and shift stay in a block's shared memory beside the
+    smallest ring: K 12,480 is the largest at N > 64 (17,600 at N <= 64),
+    and one slice more finds no plan."""
+    for n, k_max in ((128, 12480), (64, 17600)):
+        assert fl.link_plan(1000, k_max, n).smem <= fl.SMEM_LIMIT
+        with pytest.raises(ValueError, match="no plan fits"):
+            fl.link_plan(1000, k_max + 64, n)
