@@ -280,7 +280,22 @@ Phases, in order; any failure raises and exits non-zero:
               torchvision ResNet .pth refused as an architecture
               mismatch; the export phase's flagship artifact: one
               weights.npz, its size and load time, 0.0 from live serving;
-  22. the card line, the kernels line, and the final
+  22. examples  the port's example scripts (examples/*_torch.py) run
+              in-process in a cwd under build/, with PyTorch's default
+              TF32 settings, as a user runs them: quickstart_torch at 224
+              px in float32 (24 train steps at bs 8, 3 + 3 attention
+              launches a step, 3 a held-out eval batch, the p50 step, both
+              evaluations' PA-MPJPE and the example's own reload assertion,
+              within 1e-3 mm); serve_artifact_torch with no argument (the
+              full-width bf16 flagship exported and served: export and
+              load seconds, the request's one CUDA graph with 3 + 3
+              launches in its capture and warm-up, none on a replay, the
+              replay equal to the first answer, the artifact within 2% of
+              the live predictor, the replayed request's p50);
+              check_dataset_torch on a written STB tree (synthetic and STB
+              batches on the card, FreiHAND and HO-3D skipped, the plot or
+              matplotlib's skip line);
+  23. the card line, the kernels line, and the final
      {"ok": true, "device": ...} line.
 
 TF32 is off for the whole run (torch.backends.cuda.matmul.allow_tf32 and
@@ -296,6 +311,7 @@ import importlib.util
 import json
 import os
 import pickle
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -479,6 +495,17 @@ FWD, BWD, STATS, APPLY, LINK = KERNELS
 def reset_counts():
     for k in KERNELS:
         k.wrapper.launches = 0
+
+
+@contextlib.contextmanager
+def patched(owner, name, value):
+    """``owner.name`` is ``value`` inside the block."""
+    old = getattr(owner, name)
+    setattr(owner, name, value)
+    try:
+        yield
+    finally:
+        setattr(owner, name, old)
 
 
 def card_line() -> str:
@@ -3141,17 +3168,11 @@ def plain_favor(q, k, v, w):
     return favor_apply_reference(q, *favor_stats_reference(k, v, w), w)
 
 
-@contextlib.contextmanager
 def plain_favor_inside():
     """Substitute the plain float32 FAVOR+ for the kernel wrapper in the
     Performer blocks (a comparison of this script, not a package
     option)."""
-    real = performer.favor_attention_fused
-    performer.favor_attention_fused = plain_favor
-    try:
-        yield
-    finally:
-        performer.favor_attention_fused = real
+    return patched(performer, "favor_attention_fused", plain_favor)
 
 
 def compare(tag, pairs):
@@ -4081,6 +4102,172 @@ def phase_files(rng):
     assert max(gaps) == 0.0, gaps
 
 
+def load_example(name):
+    """``examples/{name}.py`` as a module (``examples/`` is not a
+    package)."""
+    spec = importlib.util.spec_from_file_location(
+        f"example_{name}", os.path.join(REPO_ROOT, "examples", f"{name}.py"))
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+def timed(fn, seconds):
+    """``fn`` that appends each call's seconds, the card synchronised on
+    both sides, to ``seconds``."""
+    def call(*args, **kwargs):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn(*args, **kwargs)
+        torch.cuda.synchronize()
+        seconds.append(time.perf_counter() - t0)
+        return out
+    return call
+
+
+@contextlib.contextmanager
+def example_run(root):
+    """Run an example as a user would: in ``root`` as its cwd and temporary
+    directory, with PyTorch's default TF32 settings (TF32 convolutions,
+    float32 products)."""
+    cwd, tmp = os.getcwd(), tempfile.tempdir
+    tf32 = (torch.backends.cuda.matmul.allow_tf32,
+            torch.backends.cudnn.allow_tf32)
+    os.chdir(root)
+    tempfile.tempdir = root
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        yield
+    finally:
+        os.chdir(cwd)
+        tempfile.tempdir = tmp
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32) = tf32
+
+
+def example_quickstart(card):
+    """examples/quickstart_torch.py at 224 px: 24 train steps, 3 + 3
+    attention launches each; the Evaluator's 3 launches a held-out batch
+    (the reload evaluates on the plain attention path: none); the
+    example's own reload assertion."""
+    module = load_example("quickstart_torch")
+    make, step_s = steps.make_train_step, []
+
+    def make_train_step(*args, **kwargs):
+        return timed(make(*args, **kwargs), step_s)
+
+    reset_counts()
+    t0 = time.perf_counter()
+    with patched(steps, "make_train_step", make_train_step):
+        out = module.main()
+    dt = time.perf_counter() - t0
+    fwd, bwd = flash_attention.launches, attention_bwd.launches
+    n_eval = len(out["held_out"])
+    res, res2 = out["eval"], out["reload"]
+    gap = abs(res2["mpjpe_mm"] - res["mpjpe_mm"])
+    print(f"[examples] quickstart_torch on the card at 224 px, float32: "
+          f"{dt:.1f} s; {len(step_s)} train steps at bs 8, p50 step "
+          f"{np.median(step_s[1:]) * 1e3:.3f} ms (first "
+          f"{step_s[0] * 1e3:.1f} ms); attention_fwd x{fwd}, attention_bwd "
+          f"x{bwd} ({len(step_s)} steps x 3 + {n_eval} eval forwards x 3); "
+          f"PA-MPJPE {res['mpjpe_mm']!r} mm (kernel path), reloaded .pth "
+          f"{res2['mpjpe_mm']!r} mm (plain path), gap {gap!r} (bound 1e-3); "
+          f"AUC {res['auc']!r} and {res2['auc']!r} ({card})")
+    assert len(step_s) == 24 and all(np.isfinite(list(out["losses"].values())))
+    assert (fwd, bwd) == (3 * len(step_s) + 3 * n_eval, 3 * len(step_s)), \
+        (fwd, bwd)
+    assert gap < 1e-3 and np.isfinite(res["auc"]), (res, res2)
+    FWD.result["launches"] += fwd
+    BWD.result["launches"] += bwd
+
+
+def example_serve_artifact(card):
+    """examples/serve_artifact_torch.py with no argument: the full-width
+    flagship (bf16) exported and served; its request captures one CUDA
+    graph (3 attention_fwd launches in the capture and 3 in its eager
+    warm-up run), a replay launches none and returns the same outputs;
+    the artifact within 2% of the live predictor on the same crops."""
+    from scat_tpu_torch import export as export_lib
+    module = load_example("serve_artifact_torch")
+    export_s, load_s, request_s = [], [], []
+    reset_counts()
+    with patched(export_lib, "export_predictor",
+                 timed(export_lib.export_predictor, export_s)), \
+            patched(export_lib, "load_artifact",
+                    timed(export_lib.load_artifact, load_s)), \
+            patched(ExportedPredictor, "predict",
+                    timed(ExportedPredictor.predict, request_s)):
+        out = module.main()
+    served, live, crops = out["served"], out["live"], out["crops"]
+    graphs = sum(len(r.keys) for r in served._forwards.values())
+    captured = flash_attention.launches
+    assert graphs == 1 and captured == 2 * 3 * graphs, (graphs, captured)
+    assert served.image_size == IMAGE and served.manifest["device"] == "cuda"
+    FWD.result["launches"] += captured
+    reset_counts()
+    again = served.predict(crops)
+    assert flash_attention.launches == 0, flash_attention.launches
+    for k in again:
+        np.testing.assert_array_equal(again[k], out["out"][k], err_msg=k)
+    replay_s = []
+    for _ in range(20):
+        t0 = time.perf_counter()
+        served.predict(crops)
+        replay_s.append(time.perf_counter() - t0)
+    print(f"[examples] serve_artifact_torch (the fresh-init flagship, "
+          f"resnet50, 224 px, bf16): export_predictor {export_s[0]:.1f} s, "
+          f"load_artifact {load_s[0]:.1f} s, the 5-crop request "
+          f"{request_s[0] * 1e3:.1f} ms with its capture; {graphs} graph, "
+          f"attention_fwd x{captured} in the capture and its warm-up, x0 on "
+          f"a replay; replayed request p50 "
+          f"{np.median(replay_s) * 1e3:.3f} ms (20 requests, host clock) "
+          f"({card})")
+    check_output(out["out"], len(crops), root_centred=False)
+    want = live.predict(crops)
+    compare("examples", [(f"serve_artifact_torch vs live, 5 uint8 crops, "
+                          f"{k}", out["out"][k], want[k], None)
+                         for k in want])
+    shutil.rmtree(out["artifact"])
+
+
+def example_check_dataset(root, rng, card):
+    """examples/check_dataset_torch.py on an STB tree of 8 frames a
+    sequence: the synthetic and STB batches on the card, FreiHAND and
+    HO-3D skipped (no tree beside it), the plot or matplotlib's skip
+    line."""
+    module = load_example("check_dataset_torch")
+    tree = os.path.join(root, "STB")
+    write_stb_tree(tree, rng, frames=8)
+    t0 = time.perf_counter()
+    seen, text = capture_stdout(module.main, [
+        "--data_dir", tree, "--n", "2", "--out_dir", root])
+    print(f"[examples] check_dataset_torch on the card: "
+          f"{time.perf_counter() - t0:.1f} s ({card})")
+    assert [len(seen[k] or ()) for k in seen] == [2, 2, 0, 0], seen
+    assert "== FreiHAND: no data, skipped" in text
+    assert "== HO3D: no data, skipped" in text
+    for name in ("synthetic", "STB"):
+        assert all("image(4, 224, 224, 3)" in line and "valid=1.00" in line
+                   for line in seen[name]), seen[name]
+        assert os.path.exists(os.path.join(root, f"{name}_debug.png")) or \
+            "matplotlib unavailable, skipping the dataset debug plot" in text
+
+
+def phase_examples(rng):
+    """The port's three example scripts on the card, in-process, in a cwd
+    under build/: the quickstart at 224 px, serve_artifact with no
+    argument, check_dataset on a written STB tree."""
+    card = card_line()
+    os.makedirs("build", exist_ok=True)
+    with tempfile.TemporaryDirectory(prefix="examples_", dir="build") as tmp:
+        root = os.path.abspath(tmp)
+        with example_run(root):
+            example_quickstart(card)
+            example_serve_artifact(card)
+            example_check_dataset(root, rng, card)
+
+
 # a phase's inputs come from the phase named here, which a partial run
 # adds
 NEEDS = {"profile": ("slice",), "serve": ("slice",), "stb": ("train",),
@@ -4119,7 +4306,8 @@ def main(argv):
         ("vip-train", lambda: state.update(vip=phase_vip_train(rng))),
         ("vip-eval", lambda: phase_vip_eval(*state["vip"])),
         ("parallel", lambda: phase_parallel(rng)),
-        ("files", lambda: phase_files(rng))]
+        ("files", lambda: phase_files(rng)),
+        ("examples", lambda: phase_examples(rng))]
     names = [name for name, _ in phases]
     chosen = set(argv) or set(names)
     unknown = chosen - set(names)

@@ -1,8 +1,12 @@
-"""The port stands alone: no module of scat_tpu_torch, and not
-chip_smoke.py, imports jax, flax or the JAX package, and no kernel
-launch sits inside a try/except that could fall back."""
+"""The port stands alone: no module of scat_tpu_torch, not chip_smoke.py
+and not the port's examples (``examples/*_torch.py``) imports jax, flax
+or the JAX package, and no kernel launch sits inside a try/except that
+could fall back.  The port is whole: every module of scat_tpu has its
+counterpart in scat_tpu_torch, and every JAX example a ``*_torch.py``
+sibling."""
 
 import ast
+import glob
 import os
 import subprocess
 import sys
@@ -11,6 +15,8 @@ import pytest
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PKG = os.path.join(REPO, "scat_tpu_torch")
+JAX_PKG = os.path.join(REPO, "scat_tpu")
+EXAMPLES = os.path.join(REPO, "examples")
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "scat_tpu")
 # the kernel wrappers and the calls that reach a compiled kernel
 KERNEL_CALLS = {"flash_attention", "scat_attention_fwd", "_attention_fwd",
@@ -20,11 +26,19 @@ KERNEL_CALLS = {"flash_attention", "scat_attention_fwd", "_attention_fwd",
                 "fused_link", "scat_fused_link"}
 
 
+def _modules(package):
+    """The .py files under ``package``, relative to it."""
+    paths = []
+    for root, _, files in os.walk(package):
+        paths += [os.path.relpath(os.path.join(root, f), package)
+                  for f in sorted(files) if f.endswith(".py")]
+    return sorted(paths)
+
+
 def _sources():
     paths = [os.path.join(REPO, "chip_smoke.py")]
-    for root, _, files in os.walk(PKG):
-        paths += [os.path.join(root, f) for f in sorted(files)
-                  if f.endswith(".py")]
+    paths += [os.path.join(PKG, rel) for rel in _modules(PKG)]
+    paths += sorted(glob.glob(os.path.join(EXAMPLES, "*_torch.py")))
     return paths
 
 
@@ -129,3 +143,55 @@ def test_runtime_imports_stay_clean():
     env = dict(os.environ, PYTHONPATH=REPO)
     subprocess.run([sys.executable, "-c", code], check=True, env=env,
                    cwd=REPO, timeout=300)
+
+
+# scat_tpu module -> its counterpart under another name in scat_tpu_torch
+RENAMES = {"ops/pallas_attention.py": "ops/attention.py",
+           "ops/pallas_favor.py": "ops/favor.py",
+           "utils/torch_import.py": "utils/weights.py"}
+# scat_tpu modules that are Pallas plumbing (interpret mode, padding): the
+# port has no interpret mode, and its CUDA kernels take any N unpadded
+PLUMBING = ("ops/pallas_common.py",)
+
+
+@pytest.mark.parametrize("rel", _modules(JAX_PKG))
+def test_every_scat_tpu_module_has_a_counterpart(rel):
+    """ROADMAP's "done means" as a check: each module of scat_tpu is
+    ported under its own name or its rename, or is Pallas plumbing."""
+    if rel in PLUMBING:
+        assert not os.path.exists(os.path.join(PKG, rel)), rel
+        return
+    counterpart = RENAMES.get(rel, rel)
+    assert os.path.isfile(os.path.join(PKG, counterpart)), \
+        f"scat_tpu/{rel} has no counterpart scat_tpu_torch/{counterpart}"
+    assert os.path.join(PKG, counterpart) in _sources()
+
+
+@pytest.mark.parametrize("old", sorted(RENAMES) + list(PLUMBING))
+def test_rename_table_names_jax_modules(old):
+    """Each entry of the tables is a module of scat_tpu that the port has
+    no module of that name for."""
+    assert os.path.isfile(os.path.join(JAX_PKG, old)), old
+    assert not os.path.exists(os.path.join(PKG, old)), old
+
+
+JAX_EXAMPLES = sorted(os.path.basename(p) for p in glob.glob(
+    os.path.join(EXAMPLES, "*.py")) if not p.endswith("_torch.py"))
+
+
+def test_jax_examples_listed():
+    assert JAX_EXAMPLES == ["check_dataset.py", "quickstart.py",
+                            "serve_artifact.py"], JAX_EXAMPLES
+
+
+@pytest.mark.parametrize("name", JAX_EXAMPLES)
+def test_every_example_has_a_torch_sibling(name):
+    """``examples/{name}`` has ``examples/{stem}_torch.py``, under the
+    checks above, with a ``main`` and a ``__main__`` guard."""
+    path = os.path.join(EXAMPLES, name[:-3] + "_torch.py")
+    assert path in _sources(), path
+    with open(path) as f:
+        tree = ast.parse(f.read(), path)
+    names = {n.id for n in ast.walk(tree) if isinstance(n, ast.Name)}
+    functions = {n.name for n in tree.body if isinstance(n, ast.FunctionDef)}
+    assert "main" in functions and "__name__" in names, name
