@@ -81,7 +81,7 @@ Phases, in order; any failure raises and exits non-zero:
               same predictor on the plain attention path; then the
               end-to-end rate (all crops of a window of back-to-back
               640-crop requests over its wall time) and, per bucket, the
-              p50 chunk and request latencies are printed;
+              p50 request latency are printed;
   5. serve    the HTTP front end answers POST /predict (also with
               micro-batching on) with exactly what predict returns, and
               GET /healthz;
@@ -93,8 +93,9 @@ Phases, in order; any failure raises and exits non-zero:
               program holds 3 attention_fwd nodes (ViP: 3 favor_stats and 3
               favor_apply); warmup captures one CUDA graph per (bucket,
               dtype), 14, counting 3 launches of each kernel in each
-              capture and in its eager warm-up run; the artifact against
-              the live predictor on uint8 requests of 1, 7, 64 and 150
+              capture and in its eager warm-up run, and the runners'
+              replay tally 3 in the replay of each; the artifact
+              against the live predictor on uint8 requests of 1, 7, 64 and 150
               crops and one float32 request (bf16: within 2% of the
               largest magnitude, the gap printed; float32: 1e-4, joints_2d
               1e-4 of their 112 pixels a unit); live and artifact in turns
@@ -102,10 +103,11 @@ Phases, in order; any failure raises and exits non-zero:
               at buckets 1 and 64, the device idle share of a 256-crop
               request each, and a profile of the replayed request that
               counts the hand-written kernels (3 a chunk), the graph
-              launches (1 a chunk), no eager layer op and no counted
-              launch; scat_tpu_torch.server --serve_artifact in a process
-              of its own answers POST /predict as predict does, and GET
-              /healthz names the artifact;
+              launches (1 a chunk), no eager layer op, no counted launch
+              and the runners' replay tally 3 a chunk, as the profile;
+              scat_tpu_torch.server --serve_artifact in a process of its
+              own answers POST /predict as predict does, and GET /healthz
+              names the artifact;
   7. train    the Trainer at the canonical run's configuration
               (script/ablation_pose.sh on the synthetic task: resnet50,
               bs 96, 224x224, 8 heads, iteration 3, mask_rate 0.2, bf16
@@ -154,7 +156,7 @@ Phases, in order; any failure raises and exits non-zero:
               path) and its frames/s;
   10. group-norm  the flagship with --norm_layer group: requests of 1 and
               64 crops (3 launches a chunk, against the plain attention
-              path within 2%), p50 chunk and request latencies at buckets
+              path within 2%), p50 request latencies at buckets
               1 and 64 beside BatchNorm's predictor; 8 synthetic training
               steps at bs 96 (3 + 3 launches a step, a falling loss, one
               step against the plain attention path) and the training
@@ -289,8 +291,9 @@ Phases, in order; any failure raises and exits non-zero:
               within 1e-3 mm); serve_artifact_torch with no argument (the
               full-width bf16 flagship exported and served: export and
               load seconds, the request's one CUDA graph with 3 + 3
-              launches in its capture and warm-up, none on a replay, the
-              replay equal to the first answer, the artifact within 2% of
+              launches in its capture and warm-up, none on a replay and
+              3 in the runner's replay tally, the replay equal to the
+              first answer, the artifact within 2% of
               the live predictor, the replayed request's p50);
               check_dataset_torch on a written STB tree (synthetic and STB
               batches on the card, FreiHAND and HO-3D skipped, the plot or
@@ -302,6 +305,7 @@ TF32 is off for the whole run (torch.backends.cuda.matmul.allow_tf32 and
 torch.backends.cudnn.allow_tf32), so float32 comparisons are float32.
 """
 
+import collections
 import contextlib
 import copy
 import csv
@@ -1249,20 +1253,16 @@ def phase_slice(rng):
           f"{dt * 1e3:.1f} ms: {n / dt:.1f} crops/s")
     del window
 
-    print("[slice] per bucket (uint8, 20 requests each): p50 chunk "
-          "latency (upload done -> joints on the host, measurement mode, "
-          "one chunk at a time) and p50 request latency (host clock, "
-          "pipelined path)")
+    print("[slice] per bucket (uint8, 20 requests each): p50 request "
+          "latency (host clock, pipelined path)")
     for b in pred._buckets:
         x = rng.randint(0, 256, (b, IMAGE, IMAGE, 3), dtype=np.uint8)
-        chunk_t, req_t = [], []
+        req_t = []
         for _ in range(20):
-            pred.predict(x, chunk_device_times=chunk_t)
             t0 = time.perf_counter()
             pred.predict(x)
             req_t.append(time.perf_counter() - t0)
-        print(f"[slice] bucket {b:2d}: p50 chunk "
-              f"{np.median(chunk_t) * 1e3:.3f} ms, p50 request "
+        print(f"[slice] bucket {b:2d}: p50 request "
               f"{np.median(req_t) * 1e3:.3f} ms")
     return pred, crops
 
@@ -2175,14 +2175,13 @@ def phase_group_norm(rng, synth):
         x = crops[b]
         row = []
         for name, p in preds.items():
-            chunk_t, req_t = [], []
+            req_t = []
             for _ in range(20):
-                p.predict(x, chunk_device_times=chunk_t)
                 t0 = time.perf_counter()
                 p.predict(x)
                 req_t.append(time.perf_counter() - t0)
-            row.append(f"{name} norm p50 chunk {np.median(chunk_t) * 1e3:.3f} "
-                       f"ms, p50 request {np.median(req_t) * 1e3:.3f} ms")
+            row.append(f"{name} norm p50 request "
+                       f"{np.median(req_t) * 1e3:.3f} ms")
         print(f"[group-norm] bucket {b:2d} (20 requests each): "
               + "; ".join(row) + f"; card {card}")
     del preds, pred
@@ -3567,35 +3566,51 @@ def check_nodes(tag, art, want):
         assert got == want, (name, got, want)
 
 
+def replayed(art):
+    """By kernel, the launches the replays of ``art``'s CUDA graphs ran
+    (the runners' tally: each replay runs what its capture counted)."""
+    tally = collections.Counter()
+    for runner in art._forwards.values():
+        tally.update(runner.replayed)
+    return {k.name: tally[k.wrapper.__name__] for k in KERNELS}
+
+
 def check_captures(tag, art, per_forward):
-    """``warmup`` captures one graph per (bucket, dtype); each capture
-    and its eager warm-up run count ``per_forward`` launches of each
-    kernel, which are added to the kernels' launches."""
+    """``warmup`` captures one graph per (bucket, dtype) and replays it
+    once; each capture and its eager warm-up run count ``per_forward``
+    launches of each kernel, which are added to the kernels' launches,
+    and the replay adds as many to the runners' tally."""
     reset_counts()
+    before = replayed(art)
     t0 = time.perf_counter()
     art.warmup()
     dt = time.perf_counter() - t0
     keys = sum(len(r.keys) for r in art._forwards.values())
     assert keys == 2 * len(art._buckets), keys
     counts = {k.name: k.wrapper.launches for k in KERNELS}
+    replays = {k: n - before[k] for k, n in replayed(art).items()}
     for k in KERNELS:
         k.result["launches"] += k.wrapper.launches
     print(f"[{tag}] warmup captured {keys} graphs (buckets "
           f"{art._buckets} x uint8, float32) in {dt:.1f} s; launches "
           f"counted {counts}: {per_forward} in each capture and in its "
-          f"eager warm-up run")
+          f"eager warm-up run; replayed {replays}")
     assert counts == {k.name: 2 * keys * per_forward.get(k.name, 0)
                       for k in KERNELS}, counts
+    assert replays == {k.name: keys * per_forward.get(k.name, 0)
+                       for k in KERNELS}, replays
 
 
 def replayed_profile(tag, art, x, big, per_chunk):
     """torch.profiler over one replayed request of ``x``: each kernel of
     ``per_chunk`` (profile key -> device kernels a chunk) runs that many
     times a chunk, one graph launch a chunk, and no model layer launches
-    eagerly; the counters count no replay.  Returns device_profile's
-    (busy ms, busy %)."""
+    eagerly; the counters count no replay, and the runners' tally adds
+    as many launches as the profile counts kernels.  Returns
+    device_profile's (busy ms, busy %)."""
     chunks = n_chunks(x.shape[0], big)
     reset_counts()
+    before = replayed(art)
 
     def check(events):
         device = [e for e in events
@@ -3616,6 +3631,10 @@ def replayed_profile(tag, art, x, big, per_chunk):
                           check=check)
     counts = {k.name: k.wrapper.launches for k in KERNELS}
     assert not any(counts.values()), counts
+    replays = {k: n - before[k] for k, n in replayed(art).items()}
+    print(f"[{tag}] replayed {x.shape[0]} crops: runners' tally {replays}")
+    assert replays == {k.name: chunks * per_chunk.get(k.name, 0)
+                       for k in KERNELS}, replays
     return busy
 
 
@@ -4186,8 +4205,9 @@ def example_serve_artifact(card):
     """examples/serve_artifact_torch.py with no argument: the full-width
     flagship (bf16) exported and served; its request captures one CUDA
     graph (3 attention_fwd launches in the capture and 3 in its eager
-    warm-up run), a replay launches none and returns the same outputs;
-    the artifact within 2% of the live predictor on the same crops."""
+    warm-up run), a replay launches none and returns the same outputs,
+    and the runner's tally adds 3 for it; the artifact within 2% of the
+    live predictor on the same crops."""
     from scat_tpu_torch import export as export_lib
     module = load_example("serve_artifact_torch")
     export_s, load_s, request_s = [], [], []
@@ -4206,8 +4226,11 @@ def example_serve_artifact(card):
     assert served.image_size == IMAGE and served.manifest["device"] == "cuda"
     FWD.result["launches"] += captured
     reset_counts()
+    before = replayed(served)["attention_fwd"]
     again = served.predict(crops)
-    assert flash_attention.launches == 0, flash_attention.launches
+    tally = replayed(served)["attention_fwd"] - before
+    assert flash_attention.launches == 0 and tally == 3, \
+        (flash_attention.launches, tally)
     for k in again:
         np.testing.assert_array_equal(again[k], out["out"][k], err_msg=k)
     replay_s = []
@@ -4220,7 +4243,8 @@ def example_serve_artifact(card):
           f"load_artifact {load_s[0]:.1f} s, the 5-crop request "
           f"{request_s[0] * 1e3:.1f} ms with its capture; {graphs} graph, "
           f"attention_fwd x{captured} in the capture and its warm-up, x0 on "
-          f"a replay; replayed request p50 "
+          f"a replay, x{tally} in the runner's replay tally; replayed "
+          f"request p50 "
           f"{np.median(replay_s) * 1e3:.3f} ms (20 requests, host clock) "
           f"({card})")
     check_output(out["out"], len(crops), root_centred=False)

@@ -70,6 +70,7 @@ from scat_tpu_torch.ops import widen
 from scat_tpu_torch.models.transformer import (
     PyramidTransformer, PyramidTransformerAttn, random_token_mask,
     sinusoidal_position_encoding)
+from scat_tpu_torch.utils.profiling import span
 
 NUM_TOKENS = 21  # one token per joint
 _NORM_LAYERS = (nn.BatchNorm2d, nn.GroupNorm, nn.LayerNorm)
@@ -201,10 +202,13 @@ class EncoderTransformer(_TokenEncoder):
         """``token_mask``: bool [21] flags of the tokens to mask (training
         with 0.1 <= mask_rate <= 0.9 only); drawn here when omitted."""
         with self._autocast(x.device.type):
-            main_feat, _, x2, _, _ = self.main_encoder(
-                x.to(self.conv1x1_channel_reduction.weight.dtype))
-            feat_visual = self.conv1x1_channel_reduction(x2)
-            out = self.transformer(self._tokens(feat_visual, token_mask))
+            with span("scat.model.encoder"):
+                main_feat, _, x2, _, _ = self.main_encoder(
+                    x.to(self.conv1x1_channel_reduction.weight.dtype))
+                feat_visual = self.conv1x1_channel_reduction(x2)
+            with span("scat.model.tokens"):
+                out = self.transformer(self._tokens(feat_visual,
+                                                    token_mask))
             feat_out = widen(out.reshape(out.shape[0], -1))  # [B,63]
         pl_grad = self._pl_probe(feat_out, feat_visual)
 

@@ -74,6 +74,7 @@ import torch
 from torch.autograd.function import once_differentiable
 
 from scat_tpu_torch.kernels import abi, build
+from scat_tpu_torch.ops import counted
 
 HEAD_DIM = 64
 MAX_SEQ = 128
@@ -382,5 +383,5 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return _attention_fwd(q, k, v, scale)
 
 
-flash_attention.launches = 0
-attention_bwd.launches = 0
+counted(flash_attention)
+counted(attention_bwd)

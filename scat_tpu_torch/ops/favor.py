@@ -59,7 +59,7 @@ import math
 from typing import Callable, Optional, Tuple
 
 import torch
-from scat_tpu_torch.ops import widen
+from scat_tpu_torch.ops import counted, widen
 from torch.autograd.function import once_differentiable
 
 from scat_tpu_torch.kernels import abi, build
@@ -453,5 +453,5 @@ def favor_attention_fused(q: torch.Tensor, k: torch.Tensor,
     return favor_apply(q, *favor_stats(k, v, w), w)
 
 
-favor_stats.launches = 0
-favor_apply.launches = 0
+counted(favor_stats)
+counted(favor_apply)

@@ -45,6 +45,7 @@ from typing import NamedTuple, Tuple
 import torch
 
 from scat_tpu_torch.kernels import abi, build
+from scat_tpu_torch.ops import counted
 
 # the kernel's tiles and shared memory (csrc/fused_link.cu): M-tiles of 64
 # rows, k slices of 64, a ring stage of one x box (8 KB) for each consumer
@@ -293,4 +294,4 @@ def fused_link(x: torch.Tensor, w: torch.Tensor, scale: torch.Tensor,
     return _fused_link(x, w, scale, shift)
 
 
-fused_link.launches = 0
+counted(fused_link)

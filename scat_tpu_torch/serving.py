@@ -36,8 +36,8 @@ whose outputs are gathered on the first device.
 
 from __future__ import annotations
 
+import collections
 import dataclasses
-import time
 from typing import Callable, Dict, Optional, Union
 
 import numpy as np
@@ -47,8 +47,10 @@ from torch import nn
 from scat_tpu_torch.config import Options
 from scat_tpu_torch.data import preprocess
 from scat_tpu_torch.devices import resolve_device
+from scat_tpu_torch.ops import COUNTED
 from scat_tpu_torch.ops.geometry import batch_orth_proj_idrot, project_2d
 from scat_tpu_torch.utils.checkpoint import load_weights
+from scat_tpu_torch.utils.profiling import span
 
 
 def check_image_dtype(x: np.ndarray) -> None:
@@ -79,9 +81,7 @@ def bucket_ladder(max_batch: int, base: int = 1) -> list:
 
 
 def run_bucketed(forward: Callable, x: np.ndarray, buckets, put: Callable,
-                 window: int = 4,
-                 chunk_device_times: Optional[list] = None
-                 ) -> Dict[str, np.ndarray]:
+                 window: int = 4) -> Dict[str, np.ndarray]:
     """Stream a request through ``forward`` in bucket-sized chunks.
 
     The request is padded so that every chunk is exactly a bucket size:
@@ -89,11 +89,8 @@ def run_bucketed(forward: Callable, x: np.ndarray, buckets, put: Callable,
     chunks are in flight (launched, not yet fetched), so the device
     computes chunk k+1 while chunk k's outputs come back; fetching as it
     goes keeps a large request from holding every chunk on the device.
-
-    ``chunk_device_times``: pass a list to record each chunk's device
-    latency in seconds (dispatch -> outputs on the host, measured after
-    the chunk's upload has finished).  Timing waits on every chunk, so
-    this mode gives up the in-flight overlap: it is for measurement."""
+    Each chunk's upload, launch and fetch is a span of its own
+    (``utils.profiling``), siblings with no span around the request."""
     n = x.shape[0]
     big = buckets[-1]
     rem = n % big
@@ -114,19 +111,15 @@ def run_bucketed(forward: Callable, x: np.ndarray, buckets, put: Callable,
 
     for s in range(0, x.shape[0], big):
         if len(inflight) >= window:
-            drain_one()
-        xb = put(x[s:s + big])
-        if chunk_device_times is None:
+            with span("scat.serve.fetch"):
+                drain_one()
+        with span("scat.serve.upload"):
+            xb = put(x[s:s + big])
+        with span("scat.serve.launch"):
             inflight.append(forward(xb))
-        else:
-            if xb.is_cuda:
-                torch.cuda.synchronize(xb.device)  # upload complete
-            t0 = time.perf_counter()
-            out = tuple(o.cpu() for o in forward(xb))
-            chunk_device_times.append(time.perf_counter() - t0)
-            inflight.append(out)
     while inflight:
-        drain_one()
+        with span("scat.serve.fetch"):
+            drain_one()
     return {"camera": np.concatenate(cams)[:n],
             "joints_3d": np.concatenate(j3ds)[:n],
             "joints_2d": np.concatenate(j2ds)[:n]}
@@ -175,14 +168,18 @@ class GraphRunner:
     returns copies of the static outputs made on the device before the
     call returns, so a later replay of the same graph cannot overwrite
     what an earlier call handed out (``run_bucketed`` keeps several
-    chunks in flight).  A capture that fails raises.  Kernel launch
-    counters count the warm-up run and the capture, not replays."""
+    chunks in flight).  A capture that fails raises.  The kernels' launch
+    counters (``ops.COUNTED``) count the warm-up run and the capture,
+    not replays; ``replayed`` tallies, by kernel, the launches the
+    replays ran: each replay runs what its capture counted."""
 
     def __init__(self, fn: Callable, device: Union[str, torch.device]):
         self._fn = fn
         self.device = torch.device(device)
         self._graphs: dict = {}
+        self._captured: dict = {}   # key -> launches its capture counted
         self._pool = None
+        self.replayed: collections.Counter = collections.Counter()
 
     @property
     def keys(self) -> list:
@@ -203,9 +200,13 @@ class GraphRunner:
             stream.wait_stream(side)
             if self._pool is None:
                 self._pool = torch.cuda.graph_pool_handle()
+            before = {n: w.launches for n, w in COUNTED.items()}
             graph = torch.cuda.CUDAGraph()
             with torch.no_grad(), torch.cuda.graph(graph, pool=self._pool):
                 outs = self._fn(static)
+            self._captured[key] = {
+                n: w.launches - before.get(n, 0)
+                for n, w in COUNTED.items() if w.launches != before.get(n, 0)}
             self._graphs[key] = (graph, static, tuple(outs))
         return self._graphs[key]
 
@@ -213,6 +214,7 @@ class GraphRunner:
         graph, static, outs = self.capture(x.shape, x.dtype)
         static.copy_(x)
         graph.replay()
+        self.replayed.update(self._captured[(tuple(x.shape), x.dtype)])
         return tuple(o.clone() for o in outs)
 
 
@@ -305,22 +307,17 @@ class HandPosePredictor:
                 for t in self._forward(self._put(x)):
                     t.cpu()
 
-    def predict(self, images,
-                chunk_device_times: Optional[list] = None
-                ) -> Dict[str, np.ndarray]:
+    def predict(self, images) -> Dict[str, np.ndarray]:
         """``images``: [N,H,W,3] uint8 [0,255] or float [-1,1] crops, N
         arbitrary.  Returns numpy ``camera [N,3]``, ``joints_3d [N,21,3]``
         (root-centred by ``reg_transformer`` and
         ``reg_transformer_coarse``; ``ViT`` and ``ViP`` predict joint 1
-        like the others) and ``joints_2d [N,21,2]`` (crop pixels).
-
-        ``chunk_device_times``: measurement mode, see ``run_bucketed``."""
+        like the others) and ``joints_2d [N,21,2]`` (crop pixels)."""
         x = np.asarray(images)
         check_image_dtype(x)
         if x.dtype != np.uint8:
             x = x.astype(np.float32, copy=False)
-        return run_bucketed(self._forward, x, self._buckets, self._put,
-                            chunk_device_times=chunk_device_times)
+        return run_bucketed(self._forward, x, self._buckets, self._put)
 
     def predict_from_frames(self, frames: np.ndarray,
                             joints_2d_hint: np.ndarray

@@ -23,6 +23,7 @@ from scat_tpu_torch.ops import metrics as metrics_lib
 from scat_tpu_torch.ops import procrustes
 from scat_tpu_torch.ops.geometry import batch_orth_proj_idrot, project_2d
 from scat_tpu_torch.training.state import TrainState
+from scat_tpu_torch.utils.profiling import span
 
 Batch = Dict[str, torch.Tensor]
 
@@ -164,10 +165,11 @@ def make_train_step(l_weight_3d: float, l_weight_2d: float,
             inputs = shard_inputs(train_inputs(model, m * d, state.generator),
                                   rank, d)
             with _no_sync(forward, i == grad_accum - 1):
-                bd, pl_mean, j3d, j2d = forward_loss(
-                    forward, images[sl], labels[sl], valid[sl], l_weight_3d,
-                    l_weight_2d, pl_reg, pl_mean, ema_reset_compat, group,
-                    **inputs)
+                with span("scat.train.forward"):
+                    bd, pl_mean, j3d, j2d = forward_loss(
+                        forward, images[sl], labels[sl], valid[sl],
+                        l_weight_3d, l_weight_2d, pl_reg, pl_mean,
+                        ema_reset_compat, group, **inputs)
                 if grad_accum == 1:
                     total, parts = bd.total, (bd.total, bd.l_3d, bd.l_2d,
                                               bd.l_pl)
@@ -178,7 +180,9 @@ def make_train_step(l_weight_3d: float, l_weight_2d: float,
                     total = w * (bd.total - pl_part) + w_pl * pl_part
                     parts = (total, w * bd.l_3d, w * bd.l_2d,
                              w_pl * bd.l_pl)
-                (total * scale if mesh is not None else total).backward()
+                with span("scat.train.backward"):
+                    (total * scale if mesh is not None
+                     else total).backward()
             sums += torch.stack(parts).detach()
             pl_mean = pl_mean.detach()
             if pred0 is None:
@@ -186,8 +190,9 @@ def make_train_step(l_weight_3d: float, l_weight_2d: float,
         if state.reduce_gradients is not None:
             state.reduce_gradients()
         sums = global_sum(sums)
-        state.optimizer.step()
-        state.scheduler.step()
+        with span("scat.train.optimizer"):
+            state.optimizer.step()
+            state.scheduler.step()
         state.step += 1
         state.pl_mean = pl_mean
         return {"loss": sums[0],

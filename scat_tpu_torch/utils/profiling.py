@@ -1,14 +1,16 @@
-"""Step timing and profiler traces (the port's own copy of
+"""Spans and profiler traces (the port's counterpart of
 ``scat_tpu/utils/profiling.py``).
 
 The reference takes t0..t6 wall-clock checkpoints around data, forward,
 loss and backward and never reports them (reference train.py:128-208).
-Here: ``StepTimer`` (device-synchronised step timing and samples/s),
-``TraceWindow`` (a ``torch.profiler`` Chrome trace of a window of
-training steps, ``--profile_trace_dir``), ``profiler_trace`` (the same
-around any block) and ``benchmark_fn``.  The JAX package's
-``enable_compilation_cache`` has no counterpart: PyTorch runs eagerly,
-and the hand-written kernels keep their own build cache
+Here the program marks its layer boundaries with ``span(name)``: while
+a ``torch.profiler`` records, a span is a ``record_function`` range on
+the profiler's own clock, beside the device events of the same trace;
+otherwise it is one shared no-op context.  The profiler being on is
+the only switch.  ``TraceWindow`` writes a Chrome trace of a window of
+training steps (``--profile_trace_dir``), spans included.  The JAX
+package's ``enable_compilation_cache`` has no counterpart: PyTorch runs
+eagerly, and the hand-written kernels keep their own build cache
 (``kernels/build.py``).
 """
 
@@ -16,12 +18,38 @@ from __future__ import annotations
 
 import contextlib
 import os
-import time
-from typing import Callable, Dict, Optional
+from typing import Optional
 
 import torch
+import torch.autograd.profiler as _autograd_profiler
 
 TRACE_FILE = "trace.json"
+
+# every span of the program, each read by one per-layer metric of the
+# benchmark (portbench/metrics/<metric>.py, through harness/spans.py)
+SPANS = (
+    "scat.train.forward",    # forward_host_ms.train.flagship
+    "scat.train.backward",   # backward_host_ms.train.flagship
+    "scat.train.optimizer",  # optimizer_host_ms.train.flagship
+    "scat.model.encoder",    # encoder_host_ms.train.flagship
+    "scat.model.tokens",     # tokens_host_ms.train.flagship
+    "scat.serve.upload",     # upload_host_ms.serve.{flagship,vip}
+    "scat.serve.launch",     # launch_host_ms.serve.{flagship,vip}
+    "scat.serve.fetch",      # fetch_wait_ms.serve.{flagship,vip}
+)
+_NAMES = frozenset(SPANS)
+_OFF = contextlib.nullcontext()
+
+
+def span(name: str):
+    """A ``record_function(name)`` range while a profiler records, else
+    one shared no-op context (no allocation, no clock read).  ``name``
+    must be one of ``SPANS``."""
+    if name not in _NAMES:
+        raise ValueError(f"unknown span {name!r}; the spans are {SPANS}")
+    if not _autograd_profiler._is_profiler_enabled:
+        return _OFF
+    return torch.profiler.record_function(name)
 
 
 def _sync(result=None) -> None:
@@ -30,49 +58,6 @@ def _sync(result=None) -> None:
     if result is not None and torch.cuda.is_available() and \
             torch.cuda.is_initialized():
         torch.cuda.synchronize()
-
-
-class StepTimer:
-    """Rolling samples/s and ms/step with the device synchronised before
-    the clock stops."""
-
-    def __init__(self, batch_size: int, warmup: int = 1):
-        self.batch_size = batch_size
-        self.warmup = warmup
-        self.reset()
-
-    def reset(self) -> None:
-        self._steps = 0
-        self._t0 = None
-        self._elapsed = 0.0
-
-    def tick(self, result=None) -> None:
-        """Call once per step; given the step's output, the device is
-        synchronised first so that queued work is not left out."""
-        _sync(result)
-        now = time.perf_counter()
-        if self._steps >= self.warmup and self._t0 is not None:
-            self._elapsed += now - self._t0
-        self._t0 = now
-        self._steps += 1
-
-    @property
-    def counted_steps(self) -> int:
-        return max(self._steps - self.warmup, 0)
-
-    @property
-    def ms_per_step(self) -> float:
-        n = self.counted_steps
-        return self._elapsed / n * 1000 if n else float("nan")
-
-    @property
-    def samples_per_sec(self) -> float:
-        n = self.counted_steps
-        return (self.batch_size * n / self._elapsed
-                if n and self._elapsed else float("nan"))
-
-    def samples_per_sec_per_chip(self) -> float:
-        return self.samples_per_sec / max(torch.cuda.device_count(), 1)
 
 
 def _profile(log_dir: str) -> torch.profiler.profile:
@@ -135,37 +120,3 @@ class TraceWindow:
             print(f"WARNING: the run ended before step {self._start}; "
                   f"no profiler trace was captured in {self._dir}")
         self._done = True
-
-
-@contextlib.contextmanager
-def profiler_trace(log_dir: Optional[str]):
-    """A ``torch.profiler`` trace of the block, written to
-    ``{log_dir}/trace.json``; nothing when ``log_dir`` is None."""
-    if log_dir is None:
-        yield
-        return
-    prof = _profile(log_dir)
-    with prof:
-        yield
-    prof.export_chrome_trace(os.path.join(log_dir, TRACE_FILE))
-
-
-def benchmark_fn(fn: Callable, *args, iters: int = 20, warmup: int = 1,
-                 batch_size: Optional[int] = None) -> Dict[str, float]:
-    """Time ``fn(*args)`` after ``warmup`` calls, the device synchronised
-    around the timed calls; ms/step, and samples/s given the batch
-    size."""
-    for _ in range(max(warmup, 1)):
-        out = fn(*args)
-    _sync(out)
-    t0 = time.perf_counter()
-    for _ in range(iters):
-        out = fn(*args)
-    _sync(out)
-    dt = time.perf_counter() - t0
-    res = {"ms_per_step": dt / iters * 1000}
-    if batch_size is not None:
-        res["samples_per_sec"] = batch_size * iters / dt
-        res["samples_per_sec_per_chip"] = (
-            res["samples_per_sec"] / max(torch.cuda.device_count(), 1))
-    return res

@@ -1094,7 +1094,9 @@ def test_graph_replay_matches_eager(cuda):
     """A small flagship (resnet18, 64 px, float32) served from its
     artifact through one CUDA graph per bucket equals the live predictor;
     the attention op is captured (3 launches counted a capture, none a
-    replay); check_graph_consistency holds on the card."""
+    replay) and the runner's tally counts 3 a replay, as many as the
+    live predictor's eager forward; check_graph_consistency holds on the
+    card."""
     import tempfile
 
     from scat_tpu_torch.export import ExportedPredictor, export_predictor
@@ -1112,14 +1114,19 @@ def test_graph_replay_matches_eager(cuda):
     with tempfile.TemporaryDirectory() as path:
         export_predictor(live, path)
         art = ExportedPredictor(path)
+        runner = art._forwards["uint8"]
         before = flash_attention.launches
         got = art.predict(x)
         # 13 crops are two chunks of bucket 8: one graph (bucket 8,
         # uint8), its eager warm-up run and its capture counted
         assert flash_attention.launches == before + 6
+        assert runner.replayed["flash_attention"] == 6
         again = art.predict(x)
         assert flash_attention.launches == before + 6
+        assert runner.replayed["flash_attention"] == 12
+    before = flash_attention.launches
     want = live.predict(x)
+    assert flash_attention.launches - before == 6
     for k in want:
         np.testing.assert_array_equal(got[k], again[k])
         np.testing.assert_allclose(got[k], want[k], atol=1e-5, rtol=0)

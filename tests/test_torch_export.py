@@ -132,11 +132,17 @@ def test_predict_from_frames(flagship):
 
 
 def test_flagship_graphs_hold_the_attention_op(flagship):
-    """3 attention_fwd nodes in each program: one per pyramid layer."""
+    """3 attention_fwd nodes in each program: one per pyramid layer; no
+    profiler op (the model's spans record nothing while no profiler
+    runs, as under torch.export)."""
     art = flagship[-1]
     assert set(art.programs) == {"uint8", "float32"}
     for name, module in art.programs.items():
         assert export.op_nodes(module) == {"attention_fwd": 3}, name
+        targets = [str(node.target) for sub in module.modules()
+                   if getattr(sub, "graph", None) is not None
+                   for node in sub.graph.nodes]
+        assert targets and not [t for t in targets if "profiler" in t], name
 
 
 def test_vip_artifact_matches_live(tmp_path):

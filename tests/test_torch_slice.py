@@ -139,13 +139,19 @@ def test_predict_uint8_matches_float(predictor, rng):
 
 
 def test_oversized_request_chunks_and_device_times(pair, rng):
+    """9 crops at max_batch 4 are three chunks (4 + 4 + 1): under a CPU
+    profiler, three upload, launch and fetch spans, and the answers of
+    an untraced call."""
     p = HandPosePredictor(model=pair[-1], image_size=IMG, max_batch=4,
                           device="cpu")
     assert p._buckets == [1, 2, 4]
     imgs = (rng.rand(9, IMG, IMG, 3) * 255).astype(np.uint8)
-    times = []
-    timed = p.predict(imgs, chunk_device_times=times)
-    assert len(times) == 3 and all(t > 0 for t in times)  # 4 + 4 + 1
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+        timed = p.predict(imgs)
+    names = [e.name for e in prof.events()]
+    for phase in ("upload", "launch", "fetch"):
+        assert names.count(f"scat.serve.{phase}") == 3, phase
     fast = p.predict(imgs)
     for k in fast:
         assert fast[k].shape[0] == 9

@@ -1,11 +1,10 @@
 """The port's training utilities on the CPU, against the JAX package's
-where it has them: ``utils/profiling.py`` (``StepTimer``,
-``TraceWindow``, ``profiler_trace``, ``benchmark_fn``),
-``utils/debugging.py``, the TensorBoard mirror of ``utils/logging.py``,
-``viz/draw.py``'s debug figures, ``viz/render.py``,
-``models/config_test.py``, and the Trainer's ``--debug``,
-``--profile_trace_dir`` and ``--tensorboard`` with the Evaluator's
-``--tensorboard``."""
+where it has them: ``utils/profiling.TraceWindow`` (the spans are
+tested in ``tests/test_torch_tracing.py``), ``utils/debugging.py``,
+the TensorBoard mirror of ``utils/logging.py``, ``viz/draw.py``'s debug
+figures, ``viz/render.py``, ``models/config_test.py``, and the
+Trainer's ``--debug``, ``--profile_trace_dir`` and ``--tensorboard``
+with the Evaluator's ``--tensorboard``."""
 
 import dataclasses
 import glob
@@ -58,18 +57,6 @@ def _png(path):
 
 # --- profiling --------------------------------------------------------
 
-def test_step_timer_counts_after_warmup():
-    timer = profiling.StepTimer(batch_size=4, warmup=1)
-    for _ in range(4):
-        timer.tick(torch.zeros(1))
-    assert timer.counted_steps == 3
-    assert timer.ms_per_step > 0
-    assert timer.samples_per_sec == pytest.approx(
-        4 * 3 / (timer.ms_per_step * 3 / 1000))
-    timer.reset()
-    assert timer.counted_steps == 0 and np.isnan(timer.ms_per_step)
-
-
 def test_trace_window_writes_its_steps(tmp_path):
     """The window opens at step(3), after the 3rd step, and closes at
     step(5): steps 4 and 5 of six are traced into trace.json, with the
@@ -104,18 +91,6 @@ def test_trace_window_off_without_a_dir():
         window.step(step)
     window.stop()
     assert window.path is None
-
-
-def test_profiler_trace_and_benchmark_fn(tmp_path):
-    with profiling.profiler_trace(str(tmp_path)):
-        torch.ones(3).sum()
-    assert os.path.exists(tmp_path / profiling.TRACE_FILE)
-    with profiling.profiler_trace(None):
-        pass
-    res = profiling.benchmark_fn(lambda x: x * 2, torch.ones(4), iters=3,
-                                 batch_size=4)
-    assert res["ms_per_step"] > 0 and res["samples_per_sec"] > 0
-    assert res["samples_per_sec_per_chip"] == res["samples_per_sec"]
 
 
 # --- debugging --------------------------------------------------------
