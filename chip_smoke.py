@@ -234,13 +234,22 @@ Phases, in order; any failure raises and exits non-zero:
               to float64 than the float32 plain versions are), the
               float32 plain apply's distance printed beside; the bf16
               stats' kptv off float64 at the training shape, at most the
-              mma.sync design's 2.8e-6 of its largest magnitude;
-              favor_attention_fused's autograd against autograd through
-              favor_attention; then each kernel timed beside its plain
-              version, and the plain three-einsum path (no single PyTorch
-              call computes FAVOR+, so no library time), each kernel's
+              mma.sync design's 2.8e-6 of its largest magnitude; the
+              backward kernels (favor_bwd_q, favor_bwd_kv) at ViP's
+              training shape, a ragged T with e 72 / m 16 and e 36,
+              float32 and bf16, against the closed form in float64
+              (within 1e-5 of the largest magnitude past rtol 1e-4 and
+              the output's rounding; the share of bf16 outputs off
+              float64's rounding printed), bit for bit alike twice;
+              favor_attention_fused's output against favor_attention in
+              float32 and its gradients against autograd through it in
+              float64; then each kernel timed beside its plain version,
+              and the plain three-einsum path (no single PyTorch call
+              computes FAVOR+, so no library time), each forward kernel's
               bound both as its tensor-core design's (bytes, and the
-              bf16x3 products) and as the float32-operation figure;
+              bf16x3 products) and as the float32-operation figure, the
+              backward's as portbench's favor_bwd_roofline.train reckons
+              it, beside autograd's float32 recompute it replaced;
   17. vip-serve  the --net ViP predictor at full width (224 px, 3137
               tokens x 512, 4 heads, depth 3, m 64, iteration 3, bf16,
               --use_pallas_favor True, weights from seed 0) serves uint8
@@ -252,10 +261,10 @@ Phases, in order; any failure raises and exits non-zero:
               and a profile;
   18. vip-train  the Trainer on --net ViP (bs 96, lr 5e-4, weights 1e5 /
               10, bf16, dropout 0.1) for 3 epochs of 8 steps: 3 + 3
-              launches a step, a falling loss; one step's loss and
-              gradient norm against the plain float32 FAVOR+; remat_blocks
-              against none (6 + 6 launches, the same loss and
-              gradients); hand_net_final.pth served; the training rate,
+              forward and 3 + 3 backward launches a step, a falling loss;
+              one step's loss and gradient norm against the plain float32
+              FAVOR+; remat_blocks against none (6 + 6 forward and 3 + 3
+              backward launches, the same loss and gradients); hand_net_final.pth served; the training rate,
               p50 step time and a profile;
   19. vip-eval  the Evaluator on vip-train's hand_net_final.pth
               (synthetic batches): 3 + 3 FAVOR+ launches a batch and the
@@ -355,6 +364,8 @@ from scat_tpu_torch.ops.attention import (backward_plan, forward_plan,
 from scat_tpu_torch.ops.attention import occupancy as attention_occupancy
 from scat_tpu_torch.ops.favor import (favor_apply, favor_apply_reference,
                                       favor_attention, favor_attention_fused,
+                                      favor_backward_reference, favor_bwd_kv,
+                                      favor_bwd_q, favor_bwd_q_reference,
                                       favor_stats, favor_stats_reference)
 from scat_tpu_torch.ops import fused_link as fused_link_op
 from scat_tpu_torch.ops.fused_link import (fused_link, fused_link_reference,
@@ -492,13 +503,20 @@ KERNELS = [
     Kernel("fused_link", "cuda", "scat_tpu_torch/csrc/fused_link.cu",
            "benchmarks/probe_fused_link.py:31", fused_link,
            ("fused_link", "fused_link_reduce")),
+    # FAVOR+'s backward: no TPU kernel (scat_tpu/ops/pallas_favor.py:168
+    # _favor_bwd is a vjp through jax ops); favor_bwd_q counts the q pass,
+    # favor_bwd_kv the k, v pass beside it
+    Kernel("favor_bwd", "cuda", "scat_tpu_torch/csrc/favor_bwd.cu",
+           "none (scat_tpu/ops/pallas_favor.py:168 _favor_bwd, a vjp)",
+           favor_bwd_q, ("favor_bwd",)),
 ]
-FWD, BWD, STATS, APPLY, LINK = KERNELS
+FWD, BWD, STATS, APPLY, LINK, FAVOR_BWD = KERNELS
 
 
 def reset_counts():
     for k in KERNELS:
         k.wrapper.launches = 0
+    favor_bwd_kv.launches = 0
 
 
 @contextlib.contextmanager
@@ -561,6 +579,8 @@ PTXAS_KERNELS = (("attention_fwd", "attention_fwd_bf16_kernel"),
                  ("attention_bwd", "attention_bwd_wgmma_kernel"),
                  ("favor", "favor_stats_wgmma_kernel"),
                  ("favor", "favor_apply_bf16_kernel"),
+                 ("favor_bwd", "favor_bwd_q_bf16_kernel"),
+                 ("favor_bwd", "favor_bwd_kv_bf16_kernel"),
                  ("fused_link", "fused_link_kernel"))
 # the wgmma kernels fed by TMA, whose accumulators a spill would stall
 NO_SPILL_KERNELS = ("attention_fwd_wgmma_kernel",
@@ -3096,26 +3116,36 @@ def phase_favor_kernels():
                 del ks64, kv64
             del q, k, v, ksum, kptv, y, wks, wkv, wy, chain
 
-    # the autograd.Function against autograd through the plain path,
-    # float32, on the strided views the block passes
+    # the backward kernels against the closed form in float64, and the
+    # autograd.Function's gradients (float32) against autograd through the
+    # plain path in float64
+    for i, shape in enumerate(BWD_SHAPES):
+        for dtype in (torch.float32, torch.bfloat16):
+            err = check_favor_backward(shape, dtype, seed=250 + i)
+            if shape == FAVOR_TRAIN and dtype == torch.bfloat16:
+                FAVOR_BWD.result["max_abs_err"] = err
     shape = (8, VIP_HEADS, VIP_T, VIP_E, VIP_M)
     q, k, v, w = favor_operands(*shape, torch.float32, seed=300)
     g = torch.randn(q.shape, device="cuda")
     leaves = [t.detach().requires_grad_(True) for t in (q, k, v)]
+    before = (favor_bwd_q.launches, favor_bwd_kv.launches)
     out = favor_attention_fused(*leaves, w)
     got = torch.autograd.grad((out * g).sum(), leaves)
-    ref = [t.detach().requires_grad_(True) for t in (q, k, v)]
-    want_out = favor_attention(*ref, w)
-    want = torch.autograd.grad((want_out * g).sum(), ref)
-    torch.testing.assert_close(out, want_out, rtol=FAVOR_RTOL,
-                               atol=FAVOR_ATOL)
-    err = max((a - b).abs().max().item() for a, b in zip(got, want))
-    for a, b in zip(got, want):
-        torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-6)
+    assert (favor_bwd_q.launches, favor_bwd_kv.launches) == (
+        before[0] + 1, before[1] + 1)
+    with torch.no_grad():
+        out32 = favor_attention(q, k, v, w)
+    torch.testing.assert_close(out, out32, rtol=FAVOR_RTOL, atol=FAVOR_ATOL)
+    ref = [t.detach().double().requires_grad_(True) for t in (q, k, v)]
+    want_out = favor_attention(*ref, w.double())
+    want = torch.autograd.grad((want_out * g.double()).sum(), ref)
+    err = max(bwd_excess(a, b) for a, b in zip(got, want))
     print(f"[favor] favor_attention_fused autograd {list(shape[:4])} "
-          f"float32 vs autograd through favor_attention: forward max_abs_err "
-          f"{(out - want_out).abs().max().item():.3e}, gradients "
-          f"{err:.3e} (rtol 1e-05, atol 1e-06)")
+          f"float32: forward max_abs_err {(out - out32).abs().max().item():.3e}"
+          f" against favor_attention in float32; gradients {err:.3e} of "
+          f"their largest magnitude past rtol {FAVOR_RTOL} from autograd "
+          f"through favor_attention in float64 (bound {FAVOR_ATOL})")
+    assert err <= FAVOR_ATOL, err
     del q, k, v, g, leaves, out, got, ref, want_out, want
 
     print("[favor] device times in ms, bf16 q/k/v strided views as the "
@@ -3159,7 +3189,129 @@ def phase_favor_kernels():
         print(f"[favor] [{b},4,3137,128]: the two kernels (stats + apply) "
               f"{dev['kernels']:.5f}, the plain three-einsum path that "
               f"--use_pallas_favor False runs {dev['three-einsum path']:.5f}")
+        time_favor_backward(b, q, k, v, w, ksum, kptv, seed=500 + b)
         del q, k, v, ksum, kptv, calls
+
+
+# the backward kernels' shapes: ViP's training shape, a ragged T with e 72
+# and m 16, and e 36 (rows that bulk copies cannot take: plain loads)
+BWD_SHAPES = [FAVOR_TRAIN, (1, 3, 1049, 72, 16), (2, 2, 100, 36, 16)]
+
+
+def bwd_excess(got, want):
+    """How far ``got`` lies from the float64 ``want`` past FAVOR_RTOL of
+    each element and past half an ulp of ``got``'s dtype (the rounding of
+    a bf16 output), in units of ``want``'s largest magnitude: within
+    FAVOR_ATOL for a float32-accurate result; a bf16-level one lies 1e-3
+    and more past it."""
+    slack = FAVOR_RTOL * want.abs()
+    if got.dtype == torch.bfloat16:
+        _, ex = torch.frexp(want)
+        slack = slack + torch.ldexp(torch.ones_like(want), ex - 9)
+    return (((got.double() - want).abs() - slack).clamp_min(0).max()
+            / want.abs().max()).item()
+
+
+def check_favor_backward(shape, dtype, seed):
+    """favor_bwd_q and favor_bwd_kv on the Performer block's strided views
+    and a dy in the apply kernel's [B,T,H,e] layout, against the closed
+    form in float64 (dq, dk, dv past their output's rounding; the moments'
+    gradients at rtol / atol times their largest magnitude), and bit for
+    bit alike on a second run.  Returns dq, dk and dv's largest excess."""
+    b, h, t, e, m = shape
+    q, k, v, w = favor_operands(*shape, dtype, seed=seed)
+    g = torch.randn(b, t, h, e, device="cuda",
+                    generator=torch.Generator("cuda").manual_seed(seed))
+    dy = g.permute(0, 2, 1, 3)
+    ksum, kptv = favor_stats(k, v, w)
+    before = (favor_bwd_q.launches, favor_bwd_kv.launches)
+    dq, dkptv, dksum = favor_bwd_q(q, dy, ksum, kptv, w)
+    dk, dv = favor_bwd_kv(k, v, dkptv, dksum, w)
+    torch.cuda.synchronize()
+    assert (favor_bwd_q.launches, favor_bwd_kv.launches) == (
+        before[0] + 1, before[1] + 1)
+    wide = [x.double() for x in (q, k, v, dy, w)]
+    ks64, kv64 = favor_stats_reference(wide[1], wide[2], wide[4])
+    want = favor_backward_reference(wide[0], wide[1], wide[2], wide[3],
+                                    ks64, kv64, wide[4])
+    moments = favor_bwd_q_reference(wide[0], wide[3], ks64, kv64,
+                                    wide[4])[1:]
+    errs = {name: bwd_excess(got, ref)
+            for name, got, ref in zip(("dq", "dk", "dv"), (dq, dk, dv), want)}
+    off = {name: (got.double() != ref.to(dtype).double()).double()
+           .mean().item()
+           for name, got, ref in zip(("dq", "dk", "dv"), (dq, dk, dv), want)}
+    for got, ref in zip((dkptv, dksum), moments):
+        torch.testing.assert_close(
+            got.double(), ref, rtol=FAVOR_RTOL,
+            atol=FAVOR_ATOL * ref.abs().max().item())
+    again = favor_bwd_q(q, dy, ksum, kptv, w)
+    same = torch.equal(again[0], dq) and torch.equal(again[1], dkptv)
+    again = favor_bwd_kv(k, v, dkptv, dksum, w)
+    same = same and torch.equal(again[0], dk) and torch.equal(again[1], dv)
+    print(f"[favor] backward {list(shape)} {str(dtype)[6:]}: excess over "
+          f"float64 (past rtol {FAVOR_RTOL} and the output's rounding, of "
+          f"the largest magnitude) " + ", ".join(
+              f"{n} {x:.3e}" for n, x in errs.items())
+          + (", outputs off float64's bf16 rounding " + ", ".join(
+              f"{n} {100 * x:.2f}%" for n, x in off.items())
+             if dtype == torch.bfloat16 else "")
+          + f" (bound {FAVOR_ATOL}); deterministic {same}")
+    assert max(errs.values()) <= FAVOR_ATOL, errs
+    assert same, "the backward kernels are not deterministic"
+    return max(errs.values())
+
+
+def time_favor_backward(b, q, k, v, w, ksum, kptv, seed):
+    """The two backward kernels at [b,4,3137,128] bf16 (a dy in the apply
+    kernel's layout) beside the plain closed form and autograd's float32
+    recompute that the kernels replace; the bound reckoned as
+    portbench's favor_bwd_roofline.train reckons it."""
+    g = torch.randn(b, VIP_T, VIP_HEADS, VIP_E, device="cuda",
+                    generator=torch.Generator("cuda").manual_seed(seed))
+    dy = g.permute(0, 2, 1, 3)
+    dq, dkptv, dksum = favor_bwd_q(q, dy, ksum, kptv, w)
+
+    def recompute():
+        with torch.enable_grad():
+            leaves = [t.detach().float().requires_grad_(True)
+                      for t in (q, k, v)]
+            y = favor_attention(*leaves, w)
+            return torch.autograd.grad(y, leaves, dy)
+
+    with torch.no_grad():
+        dev = {"kernels": device_ms(
+            lambda: favor_bwd_kv(k, v, *favor_bwd_q(q, dy, ksum, kptv,
+                                                   w)[1:], w), iters=20),
+               "q pass": device_ms(lambda: favor_bwd_q(q, dy, ksum, kptv, w),
+                                   iters=20),
+               "k, v pass": device_ms(
+                   lambda: favor_bwd_kv(k, v, dkptv, dksum, w), iters=20),
+               "plain": device_ms(lambda: favor_backward_reference(
+                   q, k, v, dy, ksum, kptv, w), iters=5)}
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    recompute()
+    start.record()
+    for _ in range(5):
+        recompute()
+    end.record()
+    end.synchronize()
+    dev["recompute"] = start.elapsed_time(end) / 5
+    rows = b * VIP_HEADS * VIP_T
+    n_bytes = (rows * VIP_E * (3 * 2 + 4 + 3 * 2) + VIP_M * VIP_E * 4
+               + b * VIP_HEADS * (VIP_M + VIP_M * VIP_E) * 4)
+    ms, by = bound(n_bytes, 8 * 2 * VIP_M * VIP_E * rows)
+    print(f"[favor] favor_bwd [{b},4,3137,128] m 64 bf16: kernels "
+          f"{dev['kernels']:.5f} (q pass {dev['q pass']:.5f}, k, v pass "
+          f"{dev['k, v pass']:.5f}) plain {dev['plain']:.5f} | bound "
+          f"{ms:.6f} ({by}: {n_bytes} B, the eight products' "
+          f"{16 * VIP_M * VIP_E * rows} flop) | {100 * ms / dev['kernels']:.1f}%"
+          f" of the bound; autograd's float32 recompute it replaces "
+          f"{dev['recompute']:.5f} (events over 5 calls)")
+    if b == TRAIN_BATCH:
+        FAVOR_BWD.result.update(ms=dev["kernels"], plain_ms=dev["plain"],
+                                bound_ms=ms, bound_by=by, library_ms=None)
 
 
 def plain_favor(q, k, v, w):
@@ -3280,13 +3432,17 @@ def phase_vip_train(rng):
     t0 = time.perf_counter()
     trainer.train()
     st, ap = favor_stats.launches, favor_apply.launches
+    bq, bkv = favor_bwd_q.launches, favor_bwd_kv.launches
     print(f"[vip-train] {VIP_TRAIN.epoch} epochs x "
           f"{VIP_TRAIN.steps_per_epoch} steps in "
           f"{time.perf_counter() - t0:.1f} s (first steps and saves "
-          f"included); favor_stats launches {st}, favor_apply launches {ap}")
+          f"included); favor_stats launches {st}, favor_apply launches {ap}, "
+          f"favor_bwd_q {bq}, favor_bwd_kv {bkv}")
     STATS.result["launches"] += st
     APPLY.result["launches"] += ap
+    FAVOR_BWD.result["launches"] += bq
     assert st == 3 * n_steps and ap == 3 * n_steps, (st, ap, n_steps)
+    assert bq == bkv == 3 * n_steps, (bq, bkv, n_steps)
     assert flash_attention.launches == 0 and attention_bwd.launches == 0
     with open(log) as f:
         losses = [float(r["loss"]) for r in csv.DictReader(f)]
@@ -3317,6 +3473,7 @@ def phase_vip_train(rng):
     reset_counts()
     loss_k, norm_k, grads_k = loss_and_grads()
     assert (favor_stats.launches, favor_apply.launches) == (3, 3)
+    assert (favor_bwd_q.launches, favor_bwd_kv.launches) == (3, 3)
     with plain_favor_inside():
         loss_p, norm_p, _ = loss_and_grads()
     assert (favor_stats.launches, favor_apply.launches) == (3, 3), \
@@ -3334,7 +3491,8 @@ def phase_vip_train(rng):
     model.remat = True
     reset_counts()
     loss_r, norm_r, grads_r = loss_and_grads()
-    launches = (favor_stats.launches, favor_apply.launches)
+    launches = (favor_stats.launches, favor_apply.launches,
+                favor_bwd_q.launches, favor_bwd_kv.launches)
     model.remat = False
     model.zero_grad(set_to_none=True)
     rel = max(((a - b).abs().max() / b.abs().max().clamp(min=1e-30)).item()
@@ -3343,7 +3501,7 @@ def phase_vip_train(rng):
           f"{loss_k:.6g}, gradient norm {norm_r:.6g} vs {norm_k:.6g}, "
           f"largest gradient difference {rel:.3e} of the tensor's largest "
           f"entry (bound 1e-5); launches {launches}")
-    assert launches == (6, 6), launches
+    assert launches == (6, 6, 3, 3), launches
     assert loss_r == loss_k and rel <= 1e-5, (loss_r, loss_k, rel)
     del grads_k, grads_r
 

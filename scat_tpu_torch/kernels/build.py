@@ -43,7 +43,8 @@ def build_dir() -> str:
     if os.access(probe, os.W_OK):
         return BUILD_DIR
     return os.path.expanduser(USER_CACHE_DIR)
-SOURCES = ("attention_fwd", "attention_bwd", "favor", "fused_link")
+SOURCES = ("attention_fwd", "attention_bwd", "favor", "favor_bwd",
+           "fused_link")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 NVCC_DEFAULT = "/usr/local/cuda/bin/nvcc"

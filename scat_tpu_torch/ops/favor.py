@@ -43,11 +43,20 @@ and strides, so ``torch.export`` records them as nodes and a CUDA graph
 captures their launches.  ``favor_attention_fused`` (and the wrappers
 ``favor_stats`` and ``favor_apply``) call the ops: CUDA tensors launch
 the kernels or raise, never falling back; CPU tensors take the plain
-versions.  The
-backward recomputes by autograd through ``favor_attention`` at HIGHEST
-in float32, as the JAX package's ``_favor_bwd`` does; ``w`` gets no
-gradient.  The launch counters are ``favor_stats.launches`` and
-``favor_apply.launches``.
+versions.
+
+The backward is two more hand-written kernels, ``csrc/favor_bwd.cu``
+(the JAX package's ``_favor_bwd`` :168-172 is a vjp through plain jax
+ops, with no kernel to port): ``scat_tpu_torch::favor_bwd_q`` takes q
+and dy with the forward's saved ksum and kptv and gives dq with the
+gradients of the two moments (dkptv, dksum); ``::favor_bwd_kv`` takes k
+and v with those and gives dk and dv, the gradient in closed form
+(``favor_backward_reference`` repeats it in plain PyTorch, float32 or
+float64 for float64 operands), bf16x3 on the tensor cores for bf16
+operands and IEEE float32 on CUDA cores for float32 ones; ``w`` gets
+no gradient.  The launch counters are ``favor_stats.launches``,
+``favor_apply.launches``, ``favor_bwd_q.launches`` and
+``favor_bwd_kv.launches``.
 """
 
 from __future__ import annotations
@@ -80,6 +89,13 @@ TC_BLOCKS_PER_SM = 1
 TC_APPLY_CHUNK_ROWS = 192
 TC_APPLY_BLOCKS_PER_SM = 1
 MAX_TILES = 64
+# the backward kernels' (csrc/favor_bwd.cu): the float32 ones take 32-row
+# chunks (kRows; 125 KB and 117 KB of shared memory, one block an SM), the
+# bf16 ones rounds of 128 rows (kBwRows: two warpgroups, 64 each; 226 KB
+# and 198 KB, one block an SM)
+BWD_CHUNK_ROWS = 32
+TC_BWD_CHUNK_ROWS = 128
+BWD_BLOCKS_PER_SM = 1
 
 # (feature-dot, contraction-dot) precision of each rung
 # (scat_tpu/models/performer.py:26-42): the feature dot feeds exp, so
@@ -231,6 +247,68 @@ def apply_tiling(dtype: torch.dtype) -> Tuple[int, int]:
     return CHUNK_ROWS, BLOCKS_PER_SM
 
 
+def backward_tiling(dtype: torch.dtype) -> Tuple[int, int]:
+    """(chunk rows, blocks an SM) of the backward kernels that ``dtype``
+    operands launch: the tensor-core kernels for bf16, the CUDA-core ones
+    for float32."""
+    if dtype == torch.bfloat16:
+        return TC_BWD_CHUNK_ROWS, BWD_BLOCKS_PER_SM
+    return BWD_CHUNK_ROWS, BWD_BLOCKS_PER_SM
+
+
+def favor_bwd_q_reference(q, dy, ksum, kptv, w):
+    """The q-pass kernel's plain version, the first half of
+    ``favor_backward_reference``: (dq, dkptv, dksum) in float32 (float64
+    for float64 operands)."""
+    wide = torch.promote_types(torch.promote_types(q.dtype, dy.dtype),
+                               torch.float32)
+    q, dy, ksum, kptv, w = (x.to(wide) for x in (q, dy, ksum, kptv, w))
+    qp = _prm(q, w)
+    d = _dot("...tm,...m->...t", qp, ksum, "highest")[..., None]
+    a = _dot("...te,...me->...tm", dy, kptv, "highest")
+    gy = (qp * a).sum(dim=-1, keepdim=True) / d
+    u = (a - gy * ksum[..., None, :]) / d * qp
+    dq = _dot("...tm,me->...te", u, w, "highest") - q * u.sum(
+        dim=-1, keepdim=True)
+    p = qp / d
+    dkptv = _dot("...tm,...te->...me", p, dy, "highest")
+    return dq, dkptv, -(p * gy).sum(dim=-2)
+
+
+def favor_bwd_kv_reference(k, v, dkptv, dksum, w):
+    """The k, v-pass kernel's plain version, the second half of
+    ``favor_backward_reference``: (dk, dv) in float32 (float64 for
+    float64 operands)."""
+    wide = torch.promote_types(k.dtype, dkptv.dtype)
+    k, v, dkptv, dksum, w = (x.to(wide) for x in (k, v, dkptv, dksum, w))
+    kp = _prm(k, w)
+    dv = _dot("...tm,...me->...te", kp, dkptv, "highest")
+    u = (_dot("...te,...me->...tm", v, dkptv, "highest")
+         + dksum[..., None, :]) * kp
+    dk = _dot("...tm,me->...te", u, w, "highest") - k * u.sum(
+        dim=-1, keepdim=True)
+    return dk, dv
+
+
+def favor_backward_reference(q: torch.Tensor, k: torch.Tensor,
+                             v: torch.Tensor, dy: torch.Tensor,
+                             ksum: torch.Tensor, kptv: torch.Tensor,
+                             w: torch.Tensor
+                             ) -> Tuple[torch.Tensor, torch.Tensor,
+                                        torch.Tensor]:
+    """The backward kernels' plain version: (dq, dk, dv) of FAVOR+ for
+    the output gradient ``dy`` [..., T, e], in closed form from the
+    forward's moments ``ksum`` = sum_t phi(k) and ``kptv`` = phi(k)^T v,
+    float32 (float64 for float64 operands).  Per row, with D = phi(q) .
+    ksum: a = kptv dy, gy = phi(q) . a / D, u = (a - gy ksum) / D *
+    phi(q), dq = u w - q sum(u); over the rows dkptv = sum (phi(q) / D)
+    dy^T and dksum = -sum phi(q) gy / D; then per row u' = (dkptv v +
+    dksum) * phi(k), dv = phi(k) dkptv, dk = u' w - k sum(u')."""
+    with torch.autocast(q.device.type, enabled=False):
+        dq, dkptv, dksum = favor_bwd_q_reference(q, dy, ksum, kptv, w)
+        return (dq, *favor_bwd_kv_reference(k, v, dkptv, dksum, w))
+
+
 @functools.lru_cache(maxsize=None)
 def _sm_count(index: int) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count
@@ -245,6 +323,20 @@ def _library() -> ctypes.CDLL:
     lib.scat_favor_stats.argtypes = [ptr] * 6 + [i32] * 5 + tail
     lib.scat_favor_apply.argtypes = [ptr] * 5 + [i32] * 5 + tail
     lib.scat_favor_stats.restype = lib.scat_favor_apply.restype = i32
+    lib.scat_cuda_error_string.argtypes = [i32]
+    lib.scat_cuda_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+@functools.lru_cache(maxsize=None)
+def _bwd_library() -> ctypes.CDLL:
+    lib = build.load("favor_bwd")
+    ptr, i32 = ctypes.c_void_p, ctypes.c_int
+    tail = [ctypes.POINTER(ctypes.c_longlong), i32, ctypes.c_float, i32,
+            ptr]
+    lib.scat_favor_bwd_q.argtypes = [ptr] * 9 + [i32] * 5 + tail
+    lib.scat_favor_bwd_kv.argtypes = [ptr] * 7 + [i32] * 5 + tail
+    lib.scat_favor_bwd_q.restype = lib.scat_favor_bwd_kv.restype = i32
     lib.scat_cuda_error_string.argtypes = [i32]
     lib.scat_cuda_error_string.restype = ctypes.c_char_p
     return lib
@@ -310,6 +402,17 @@ def _heads_last(y: torch.Tensor) -> torch.Tensor:
     return y.transpose(1, 2).contiguous().transpose(1, 2)
 
 
+def _check_moments(ksum, kptv, b, h, m, e, name, source):
+    """``ksum`` [B,H,m] and ``kptv`` [B,H,m,e] as the op named by the
+    possessive ``source`` leaves them: contiguous float32."""
+    if (ksum.shape != (b, h, m) or kptv.shape != (b, h, m, e)
+            or ksum.dtype != torch.float32 or kptv.dtype != torch.float32
+            or not ksum.is_contiguous() or not kptv.is_contiguous()):
+        raise ValueError(f"{name} takes {source} contiguous float32 "
+                         f"outputs [B,H,m] and [B,H,m,e], got "
+                         f"{tuple(ksum.shape)} and {tuple(kptv.shape)}")
+
+
 @torch.library.custom_op("scat_tpu_torch::favor_stats", mutates_args=(),
                          device_types="cuda")
 def _favor_stats(k: torch.Tensor, v: torch.Tensor, w: torch.Tensor
@@ -362,12 +465,7 @@ def _favor_apply(q: torch.Tensor, ksum: torch.Tensor, kptv: torch.Tensor,
     _check((q,), w)
     b, h, t, e = q.shape
     m = w.shape[0]
-    if (ksum.shape != (b, h, m) or kptv.shape != (b, h, m, e)
-            or ksum.dtype != torch.float32 or kptv.dtype != torch.float32
-            or not ksum.is_contiguous() or not kptv.is_contiguous()):
-        raise ValueError("favor_apply takes favor_stats' contiguous float32 "
-                         f"outputs [B,H,m] and [B,H,m,e], got "
-                         f"{tuple(ksum.shape)} and {tuple(kptv.shape)}")
+    _check_moments(ksum, kptv, b, h, m, e, "favor_apply", "favor_stats'")
     # y is stored [B,T,H,e] and returned as its [B,H,T,e] view, so that
     # the caller's merge of heads back to [B,T,H*e] needs no copy
     y = torch.empty((b, t, h, e), dtype=torch.float32,
@@ -397,6 +495,107 @@ def _(q, ksum, kptv, w):
     return q.new_empty((b, t, h, e), dtype=dtype).permute(0, 2, 1, 3)
 
 
+@torch.library.custom_op("scat_tpu_torch::favor_bwd_q", mutates_args=(),
+                         device_types="cuda")
+def _favor_bwd_q(q: torch.Tensor, dy: torch.Tensor, ksum: torch.Tensor,
+                 kptv: torch.Tensor, w: torch.Tensor
+                 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The backward's q pass on CUDA tensors (counted): dq in q's dtype,
+    the moments' gradients dkptv [B,H,m,e] and dksum [B,H,m] float32."""
+    _on_cuda("favor_bwd_q", q, dy, ksum, kptv, w)
+    _check((q,), w)
+    b, h, t, e = q.shape
+    m = w.shape[0]
+    _check_moments(ksum, kptv, b, h, m, e, "favor_bwd_q", "favor_stats'")
+    if dy.shape != q.shape or dy.dtype != torch.float32:
+        raise TypeError(f"favor_bwd_q takes a float32 dy of q's shape, got "
+                        f"{dy.dtype} {tuple(dy.shape)}")
+    # dy by its strides (the [B,T,H,e] storage that favor_apply's y
+    # gives its gradient), its rows contiguous
+    q = _tma_rows(q)
+    if dy.stride(-1) != 1:
+        dy = dy.contiguous()
+    tiles = t_tiles(b * h, t, _sm_count(q.device.index),
+                    *backward_tiling(q.dtype))
+    dq = torch.empty((b, h, t, e), dtype=q.dtype, device=q.device)
+    dkptv = torch.empty((b, h, m, e), dtype=torch.float32, device=q.device)
+    dksum = torch.empty((b, h, m), dtype=torch.float32, device=q.device)
+    # per-tile partials of the moments' gradients, summed in tile order
+    work = (torch.empty(b * h * tiles * (m * e + m), dtype=torch.float32,
+                        device=q.device) if tiles > 1 else None)
+    with torch.cuda.device(q.device):
+        rc = _bwd_library().scat_favor_bwd_q(
+            q.data_ptr(), dy.data_ptr(), w.data_ptr(), ksum.data_ptr(),
+            kptv.data_ptr(), dq.data_ptr(), dkptv.data_ptr(),
+            dksum.data_ptr(), None if work is None else work.data_ptr(),
+            b, h, t, e, m, abi.strides(q, dy, dq), tiles,
+            1.0 / math.sqrt(m), abi.DTYPE_CODES[q.dtype],
+            torch.cuda.current_stream(q.device).cuda_stream)
+    abi.raise_on(rc, _bwd_library(), "favor_bwd_q")
+    favor_bwd_q.launches += 1
+    return dq, dkptv, dksum
+
+
+@_favor_bwd_q.register_kernel("cpu")
+def _(q, dy, ksum, kptv, w):
+    with torch.autocast("cpu", enabled=False):
+        dq, dkptv, dksum = favor_bwd_q_reference(q, dy, ksum, kptv, w)
+    return dq.to(q.dtype).contiguous(), dkptv.contiguous(), \
+        dksum.contiguous()
+
+
+@_favor_bwd_q.register_fake
+def _(q, dy, ksum, kptv, w):
+    b, h, t, e = q.shape
+    m = w.shape[0]
+    dtype = torch.promote_types(torch.promote_types(q.dtype, dy.dtype),
+                                torch.float32)
+    return (q.new_empty((b, h, t, e)), q.new_empty((b, h, m, e), dtype=dtype),
+            q.new_empty((b, h, m), dtype=dtype))
+
+
+@torch.library.custom_op("scat_tpu_torch::favor_bwd_kv", mutates_args=(),
+                         device_types="cuda")
+def _favor_bwd_kv(k: torch.Tensor, v: torch.Tensor, dkptv: torch.Tensor,
+                  dksum: torch.Tensor, w: torch.Tensor
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The backward's k, v pass on CUDA tensors (counted): dk and dv in
+    k's dtype, from favor_bwd_q's dkptv and dksum."""
+    _on_cuda("favor_bwd_kv", k, v, dkptv, dksum, w)
+    _check((k, v), w)
+    b, h, t, e = k.shape
+    m = w.shape[0]
+    _check_moments(dksum, dkptv, b, h, m, e, "favor_bwd_kv",
+                   "favor_bwd_q's")
+    k, v = _tma_rows(k), _tma_rows(v)
+    dk = torch.empty((b, h, t, e), dtype=k.dtype, device=k.device)
+    dv = torch.empty((b, h, t, e), dtype=k.dtype, device=k.device)
+    with torch.cuda.device(k.device):
+        rc = _bwd_library().scat_favor_bwd_kv(
+            k.data_ptr(), v.data_ptr(), w.data_ptr(), dkptv.data_ptr(),
+            dksum.data_ptr(), dk.data_ptr(), dv.data_ptr(), b, h, t, e, m,
+            abi.strides(k, v, dk, dv),
+            t_tiles(b * h, t, _sm_count(k.device.index),
+                    *backward_tiling(k.dtype)),
+            1.0 / math.sqrt(m), abi.DTYPE_CODES[k.dtype],
+            torch.cuda.current_stream(k.device).cuda_stream)
+    abi.raise_on(rc, _bwd_library(), "favor_bwd_kv")
+    favor_bwd_kv.launches += 1
+    return dk, dv
+
+
+@_favor_bwd_kv.register_kernel("cpu")
+def _(k, v, dkptv, dksum, w):
+    with torch.autocast("cpu", enabled=False):
+        dk, dv = favor_bwd_kv_reference(k, v, dkptv, dksum, w)
+    return dk.to(k.dtype).contiguous(), dv.to(k.dtype).contiguous()
+
+
+@_favor_bwd_kv.register_fake
+def _(k, v, dkptv, dksum, w):
+    return k.new_empty(k.shape), k.new_empty(k.shape)
+
+
 def favor_stats(k: torch.Tensor, v: torch.Tensor, w: torch.Tensor
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(sum_t phi(k) [B,H,m], phi(k)^T v [B,H,m,e]) float32 for k, v
@@ -415,26 +614,43 @@ def favor_apply(q: torch.Tensor, ksum: torch.Tensor, kptv: torch.Tensor,
     return _favor_apply(q, ksum, kptv, w)
 
 
+def favor_bwd_q(q: torch.Tensor, dy: torch.Tensor, ksum: torch.Tensor,
+                kptv: torch.Tensor, w: torch.Tensor
+                ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(dq in q's dtype, dkptv [B,H,m,e], dksum [B,H,m] float32) for q,
+    dy [B,H,T,e] and the forward's moments: the backward's q-pass kernel
+    on CUDA tensors, the plain version on CPU tensors."""
+    _on_cuda_or_cpu("favor_bwd_q", q)
+    return _favor_bwd_q(q, dy, ksum, kptv, w)
+
+
+def favor_bwd_kv(k: torch.Tensor, v: torch.Tensor, dkptv: torch.Tensor,
+                 dksum: torch.Tensor, w: torch.Tensor
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(dk, dv) in k's dtype for k, v [B,H,T,e] and favor_bwd_q's moment
+    gradients: the backward's k, v-pass kernel on CUDA tensors, the plain
+    version on CPU tensors."""
+    _on_cuda_or_cpu("favor_bwd_kv", k)
+    return _favor_bwd_kv(k, v, dkptv, dksum, w)
+
+
 class _FavorAttention(torch.autograd.Function):
     """The ``_favor_core`` custom VJP: the stats and apply kernels
-    forward; the backward recomputes by autograd through
-    ``favor_attention`` on the float32 operands at HIGHEST."""
+    forward, saving the moments; the two backward kernels in closed form
+    from them (the plain version on CPU tensors)."""
 
     @staticmethod
     def forward(ctx, q, k, v, w):
-        ctx.save_for_backward(q, k, v, w)
-        return favor_apply(q, *favor_stats(k, v, w), w)
+        ksum, kptv = favor_stats(k, v, w)
+        ctx.save_for_backward(q, k, v, w, ksum, kptv)
+        return favor_apply(q, ksum, kptv, w)
 
     @staticmethod
     @once_differentiable
     def backward(ctx, dy):
-        q, k, v, w = ctx.saved_tensors
-        with torch.enable_grad():
-            leaves = [t.detach().float().requires_grad_(True)
-                      for t in (q, k, v)]
-            y = favor_attention(*leaves, w.float())
-            grads = torch.autograd.grad(y, leaves, dy)
-        return (*(g.to(t.dtype) for g, t in zip(grads, (q, k, v))), None)
+        q, k, v, w, ksum, kptv = ctx.saved_tensors
+        dq, dkptv, dksum = favor_bwd_q(q, dy, ksum, kptv, w)
+        return (dq, *favor_bwd_kv(k, v, dkptv, dksum, w), None)
 
 
 def favor_attention_fused(q: torch.Tensor, k: torch.Tensor,
@@ -455,3 +671,5 @@ def favor_attention_fused(q: torch.Tensor, k: torch.Tensor,
 
 counted(favor_stats)
 counted(favor_apply)
+counted(favor_bwd_q)
+counted(favor_bwd_kv)

@@ -587,30 +587,138 @@ def test_graph_replay_equals_eager_backward(cuda):
         assert all(torch.equal(a, e) for a, e in zip(grads, eager))
 
 
+def _bwd_excess(got, want):
+    """How far ``got`` lies from the float64 ``want`` past FAVOR_RTOL of
+    each element and past half an ulp of ``got``'s dtype (a bf16 output's
+    rounding), in units of ``want``'s largest magnitude: the forward
+    kernels' tolerance, FAVOR_ATOL, holds a float32-accurate result; a
+    bf16-level one lies 1e-3 and more past it."""
+    slack = FAVOR_RTOL * want.abs()
+    if got.dtype == torch.bfloat16:
+        _, ex = torch.frexp(want)
+        slack = slack + torch.ldexp(torch.ones_like(want), ex - 9)
+    return (((got.double() - want).abs() - slack).clamp_min(0).max()
+            / want.abs().max()).item()
+
+
 def test_favor_autograd_and_no_plain_on_cuda(cuda, monkeypatch):
-    """favor_attention_fused on CUDA tensors launches the kernels (the
-    plain versions, patched to raise, are never reached) and its
-    gradients equal autograd's through favor_attention (float32)."""
+    """favor_attention_fused on CUDA tensors launches the forward and
+    backward kernels (the plain versions, patched to raise, are never
+    reached); its output equals favor_attention's (float32) and its
+    gradients (float32) lie within the kernels' tolerance of autograd's
+    through favor_attention in float64."""
     def refuse(*_):
         raise AssertionError("a CUDA tensor reached the plain version")
 
     q, k, v, w = _favor_operands(2, 4, 300, 128, 64, torch.float32, cuda)
     leaves = [t.detach().clone().requires_grad_(True) for t in (q, k, v)]
-    monkeypatch.setattr(favor, "favor_stats_reference", refuse)
-    monkeypatch.setattr(favor, "favor_apply_reference", refuse)
-    before = favor.favor_stats.launches
+    for name in ("favor_stats_reference", "favor_apply_reference",
+                 "favor_bwd_q_reference", "favor_bwd_kv_reference"):
+        monkeypatch.setattr(favor, name, refuse)
+    before = (favor.favor_stats.launches, favor.favor_bwd_q.launches,
+              favor.favor_bwd_kv.launches)
     out = favor.favor_attention_fused(*leaves, w)
     g = torch.randn_like(out)
     grads = torch.autograd.grad((out * g).sum(), leaves)
-    assert favor.favor_stats.launches == before + 1
+    assert (favor.favor_stats.launches, favor.favor_bwd_q.launches,
+            favor.favor_bwd_kv.launches) == tuple(n + 1 for n in before)
     monkeypatch.undo()
-    ref = [t.detach().clone().requires_grad_(True) for t in (q, k, v)]
-    want_out = favor.favor_attention(*ref, w)
-    want = torch.autograd.grad((want_out * g).sum(), ref)
+    with torch.no_grad():
+        want_out = favor.favor_attention(q, k, v, w)
     torch.testing.assert_close(out, want_out, rtol=FAVOR_RTOL,
                                atol=FAVOR_ATOL)
+    ref = [t.detach().double().requires_grad_(True) for t in (q, k, v)]
+    want = torch.autograd.grad(
+        (favor.favor_attention(*ref, w.double()) * g.double()).sum(), ref)
     for a, b in zip(grads, want):
-        torch.testing.assert_close(a, b, rtol=1e-6, atol=1e-6)
+        assert a.dtype == torch.float32
+        assert _bwd_excess(a, b) <= FAVOR_ATOL
+
+
+# [B, H, T, e, m]: ViP's training shape; T off the bf16 kernels' 64-row
+# slabs and 128-row rounds with e 72, m 16; e 36 (rows that the slabs'
+# 16-byte copies cannot take: plain loads)
+FAVOR_BWD_SHAPES = [(96, 4, 3137, 128, 64), (1, 3, 1049, 72, 16),
+                    (2, 2, 65, 128, 64), (2, 2, 100, 36, 16)]
+
+
+@pytest.mark.parametrize("shape", FAVOR_BWD_SHAPES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_favor_backward_kernels_match_float64(cuda, shape, dtype):
+    """favor_bwd_q and favor_bwd_kv on the Performer block's strided views
+    and a dy in the apply kernel's layout, against the closed form in
+    float64: dq, dk and dv within the forward kernels' tolerance past
+    their dtype's rounding, the moments' gradients at rtol / atol times
+    their largest magnitude; one launch each, counted; bit for bit alike
+    on a second run."""
+    b, h, t, e, m = shape
+    q, k, v, w = _favor_operands(b, h, t, e, m, dtype, cuda, seed=21)
+    dy = torch.from_numpy(np.random.RandomState(22).randn(
+        b, t, h, e).astype(np.float32)).to(cuda).permute(0, 2, 1, 3)
+    ksum, kptv = favor.favor_stats(k, v, w)
+    before = (favor.favor_bwd_q.launches, favor.favor_bwd_kv.launches)
+    dq, dkptv, dksum = favor.favor_bwd_q(q, dy, ksum, kptv, w)
+    dk, dv = favor.favor_bwd_kv(k, v, dkptv, dksum, w)
+    torch.cuda.synchronize()
+    assert (favor.favor_bwd_q.launches, favor.favor_bwd_kv.launches) == (
+        before[0] + 1, before[1] + 1)
+    wq, wk, wv, wdy, ww = (x.double() for x in (q, k, v, dy, w))
+    ks64, kv64 = favor.favor_stats_reference(wk, wv, ww)
+    want = favor.favor_backward_reference(wq, wk, wv, wdy, ks64, kv64, ww)
+    for got, ref in zip((dq, dk, dv), want):
+        assert got.dtype == dtype and got.shape == (b, h, t, e)
+        assert _bwd_excess(got, ref) <= FAVOR_ATOL
+    del want
+    moments = favor.favor_bwd_q_reference(wq, wdy, ks64, kv64, ww)[1:]
+    for got, ref in zip((dkptv, dksum), moments):
+        assert got.dtype == torch.float32
+        torch.testing.assert_close(got.double(), ref, rtol=FAVOR_RTOL,
+                                   atol=FAVOR_ATOL * ref.abs().max().item())
+    again = favor.favor_bwd_q(q, dy, ksum, kptv, w)
+    assert torch.equal(again[0], dq) and torch.equal(again[1], dkptv)
+    again = favor.favor_bwd_kv(k, v, dkptv, dksum, w)
+    assert torch.equal(again[0], dk) and torch.equal(again[1], dv)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_favor_backward_in_a_vip_block(cuda, dtype, monkeypatch):
+    """One ViP block (3137 tokens x 512, 4 heads, m 64) at bs 2, float32
+    or under bf16 autocast as ViP trains: the parameters' gradients on the
+    kernel path against the plain path's, whose FAVOR+ is favor_attention
+    on the operands' float32 values (the kernels' formula) under autograd,
+    float32 at HIGHEST."""
+    import copy
+
+    from scat_tpu_torch.models import performer
+    torch.manual_seed(0)
+    block = performer.PerformerBlock(128, 4, use_kernel=True).to(cuda)
+    plain = copy.deepcopy(block)
+    plain.use_kernel = False
+    x = torch.randn(2, 3137, 512, device=cuda)
+    g = torch.randn(2, 3137, 512, device=cuda)
+    upcast = performer.favor_attention
+    monkeypatch.setattr(performer, "favor_attention",
+                        lambda q, k, v, w, p: upcast(q.float(), k.float(),
+                                                     v.float(), w, p))
+    grads = []
+    for blk in (block, plain):
+        with torch.autocast("cuda", dtype=torch.bfloat16,
+                            enabled=dtype == torch.bfloat16):
+            out = blk(x)
+        (out.float() * g).sum().backward()
+        grads.append({n: p.grad for n, p in blk.named_parameters()})
+    bound = FAVOR_BWD_BLOCK_REL[dtype]
+    for name, want in grads[1].items():
+        gap = ((grads[0][name] - want).abs().max()
+               / want.abs().max()).item()
+        assert gap <= bound, (name, gap)
+
+
+# the block's parameter gradients, kernel against plain path, as a share of
+# each one's largest magnitude: float32 arithmetic on both sides; under bf16
+# autocast both round dq, dk and dv to bf16 and differ where a float32-level
+# gap flips a rounding (about 1% of dq's elements)
+FAVOR_BWD_BLOCK_REL = {torch.float32: 1e-4, torch.bfloat16: 1e-2}
 
 
 def test_favor_kernels_refuse_what_they_do_not_take(cuda):
@@ -1065,11 +1173,19 @@ def _op_operands(name, device):
     q, k, v, w = _favor_operands(2, 4, 300, 128, 64, torch.float32, device)
     if name == "favor_stats":
         return k, v, w
-    return (q, *favor.favor_stats(k, v, w), w)
+    ksum, kptv = favor.favor_stats(k, v, w)
+    if name == "favor_apply":
+        return q, ksum, kptv, w
+    dy = torch.from_numpy(np.random.RandomState(6).randn(
+        2, 300, 4, 128).astype(np.float32)).to(device).permute(0, 2, 1, 3)
+    if name == "favor_bwd_q":
+        return q, dy, ksum, kptv, w
+    return (k, v, *favor.favor_bwd_q(q, dy, ksum, kptv, w)[1:], w)
 
 
 @pytest.mark.parametrize("name", ["attention_fwd", "attention_bwd",
-                                  "favor_stats", "favor_apply"])
+                                  "favor_stats", "favor_apply",
+                                  "favor_bwd_q", "favor_bwd_kv"])
 def test_custom_op_cuda_matches_its_cpu_implementation(cuda, name):
     """torch.ops.scat_tpu_torch.<name> on CUDA tensors (the kernel)
     against the same op on the tensors' CPU copies (the plain version),

@@ -481,3 +481,111 @@ def test_other_devices_raise():
     with pytest.raises(ValueError, match="cuda or cpu"):
         tf.favor_apply(x, torch.empty(1, 1, 2, device="meta"),
                        torch.empty(1, 1, 2, 8, device="meta"), w)
+
+
+def _grads_through(fn, q, k, v, w, g):
+    leaves = [t.detach().clone().requires_grad_(True) for t in (q, k, v)]
+    return torch.autograd.grad(fn(*leaves, w), leaves, g)
+
+
+# [B, H, T, e, m]: T off the backward kernels' row chunks (32 float32, 128
+# bf16) and their edges, e 72 and 128, m 16 and 64
+BWD_SHAPES = [(2, 3, 37, 72, 16), (1, 2, 129, 128, 64),
+              (2, 1, 33, 128, 16), (1, 2, 65, 72, 64)]
+
+
+@pytest.mark.parametrize("shape", BWD_SHAPES)
+def test_backward_reference_matches_autograd(rng, shape):
+    """favor_backward_reference (the backward kernels' closed form) against
+    torch.autograd.grad through favor_attention, both in float64, from the
+    forward's moments."""
+    b, h, t, e, m = shape
+    q, k, v, w = (torch.from_numpy(a).double()
+                  for a in _qkvw(rng, (b, h, t, e), m, scale=0.5))
+    g = torch.from_numpy(rng.randn(b, h, t, e))
+    ksum, kptv = tf.favor_stats_reference(k, v, w)
+    got = tf.favor_backward_reference(q, k, v, g, ksum, kptv, w)
+    want = _grads_through(tf.favor_attention, q, k, v, w, g)
+    for name, a, c in zip("qkv", got, want):
+        assert a.dtype == torch.float64 and a.shape == c.shape
+        torch.testing.assert_close(a, c, rtol=1e-10, atol=1e-12,
+                                   msg=f"d{name}")
+
+
+@pytest.mark.parametrize("shape", [(3, 37, 72, 16), (2, 130, 128, 64)])
+def test_fused_backward_3d_matches_autograd(rng, shape):
+    """The [B,T,e] entry: favor_attention_fused's gradients (the backward
+    ops' CPU implementations) against autograd through favor_attention,
+    float64."""
+    b, t, e, m = shape
+    q, k, v, w = (torch.from_numpy(a).double()
+                  for a in _qkvw(rng, (b, t, e), m, scale=0.5))
+    g = torch.from_numpy(rng.randn(b, t, e))
+    got = _grads_through(tf.favor_attention_fused, q, k, v, w, g)
+    want = _grads_through(tf.favor_attention, q, k, v, w, g)
+    for a, c in zip(got, want):
+        assert a.shape == (b, t, e)
+        torch.testing.assert_close(a, c, rtol=1e-10, atol=1e-12)
+
+
+def _bwd_op_cases():
+    g = torch.Generator().manual_seed(3)
+    q, k, v = (torch.randn(2, 3, 37, 72, generator=g) * 0.5
+               for _ in range(3))
+    w = torch.randn(16, 72, generator=g)
+    dy = torch.randn(2, 37, 3, 72, generator=g).permute(0, 2, 1, 3)
+    ksum, kptv = tf.favor_stats_reference(k, v, w)
+    dq, dkptv, dksum = tf._favor_bwd_q(q, dy, ksum, kptv, w)
+    bf = [t.bfloat16() for t in (q, k, v)]
+    return {
+        "favor_bwd_q": (tf._favor_bwd_q, (q, dy, ksum, kptv, w)),
+        "favor_bwd_q-bf16": (tf._favor_bwd_q, (bf[0], dy, ksum, kptv, w)),
+        "favor_bwd_kv": (tf._favor_bwd_kv, (k, v, dkptv, dksum, w)),
+        "favor_bwd_kv-bf16": (tf._favor_bwd_kv,
+                              (bf[1], bf[2], dkptv, dksum, w)),
+    }
+
+
+@pytest.mark.parametrize("case", sorted(_bwd_op_cases()))
+def test_backward_ops_pass_opcheck(case):
+    """The backward ops' schema, fake implementation (the CPU outputs'
+    shapes, dtypes and strides) and dispatch under opcheck; the outputs
+    in the operands' dtype, the moments' gradients in float32."""
+    op, args = _bwd_op_cases()[case]
+    result = torch.library.opcheck(op, args)
+    assert all(r == "SUCCESS" for r in result.values()), result
+    out = op(*args)
+    assert out[0].dtype == args[0].dtype and out[0].shape == args[0].shape
+    if case.startswith("favor_bwd_q"):
+        assert out[1].dtype == out[2].dtype == torch.float32
+
+
+def test_backward_wrappers_are_counted():
+    from scat_tpu_torch.ops import COUNTED
+    for name in ("favor_bwd_q", "favor_bwd_kv", "favor_stats",
+                 "favor_apply"):
+        assert COUNTED[name] is getattr(tf, name)
+    assert tf.backward_tiling(torch.bfloat16) == (tf.TC_BWD_CHUNK_ROWS, 1)
+    assert tf.backward_tiling(torch.float32) == (tf.BWD_CHUNK_ROWS, 1)
+
+
+def test_backward_runs_no_forward_pass(rng, monkeypatch):
+    """_FavorAttention's backward on CPU tensors takes the two backward
+    ops once each from the forward's saved moments, and runs neither the
+    stats nor the apply pass again; bf16 operands get bf16 gradients."""
+    calls = []
+
+    def spy(name):
+        inner = getattr(tf, name)
+        return lambda *a: calls.append(name) or inner(*a)
+
+    for name in ("favor_stats", "favor_apply", "favor_bwd_q",
+                 "favor_bwd_kv"):
+        monkeypatch.setattr(tf, name, spy(name))
+    q, k, v, w = _t(*_qkvw(rng, (2, 2, 40, 32), 16))
+    leaves = [t.bfloat16().requires_grad_(True) for t in (q, k, v)]
+    out = tf.favor_attention_fused(*leaves, w)
+    assert calls == ["favor_stats", "favor_apply"]
+    grads = torch.autograd.grad(out, leaves, torch.randn_like(out))
+    assert calls[2:] == ["favor_bwd_q", "favor_bwd_kv"]
+    assert all(g.dtype == torch.bfloat16 for g in grads)
