@@ -179,9 +179,10 @@ Phases, in order; any failure raises and exits non-zero:
   12. token-heads  backbone_hrnet (HRNet-W24, 56x56x128 read as 512 x
               28x28) and backbone_incepv3 (768x12x12 read as 192 x
               24x24), each to 128 tokens x 196, 8 heads, depth 3,
-              iteration 3, seed 0, built by the factory on the plain
-              attention path: eval forwards at bs 1, 64 and 96 with the
-              kernels (use_kernel) against the plain path on the same
+              iteration 3, seed 0, built by the factory, which routes
+              them to the kernels under --use_pallas_attention: eval
+              forwards at bs 1, 64 and 96 with the kernels against the
+              plain path (use_kernel off) on the same
               weights (pred less its mean within 2% in bf16, 1e-3 in
               float32; 3 attention_fwd launches at N = 128 a forward);
               a train-mode forward+backward at bs 96, bf16, 25 of the 128
@@ -2426,8 +2427,8 @@ def phase_token_heads(rng):
         opt = dataclasses.replace(FLAGSHIP, net=net, mask_rate=0.2)
         model, mean = build_model(opt, IMAGE)
         attns = [m for m in model.modules() if isinstance(m, Attention)]
-        assert len(attns) == 3 and not any(a.use_kernel for a in attns), \
-            "the factory routes the 128-token heads to plain attention"
+        assert len(attns) == 3 and all(a.use_kernel for a in attns), \
+            "--use_pallas_attention routes the 128-token heads to the kernels"
         assert model.mask_token.shape == (1, 1, 196)
         checkpoint.init_weights(model, seed=0)
         model = model.to("cuda", memory_format=torch.channels_last)

@@ -11,15 +11,17 @@ the JAX package's pyramid ignores its ``mlp_dim`` (the FFN hidden width
 is ``(dim*3)//4``).  Like the JAX package's, it takes the plain
 attention: no flag routes it to the kernels.
 
-The 128-token heads take the plain attention path, as the JAX package
-builds them (``factory.py:69-81``): ``--use_pallas_attention`` is the
-flagship's flag and never routes them.  Their kernel path is
-``use_kernel=True`` on the constructor, the counterpart of the JAX
-package's ``clone(use_pallas=True)``."""
+``--use_pallas_attention`` routes the attention of the flagship and of
+the 128-token heads through the hand-written kernels (N = 21 and
+N = 128), and ``--pl_reg`` takes the flagship back to the plain path.
+The JAX package builds the 128-token heads on its plain path
+(``factory.py:69-81``); the port's kernels are its path on the card.
+
+A 61-dim head is served through its MANO decode (``keypoint_decode``)."""
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
@@ -28,8 +30,10 @@ from torch import nn
 from scat_tpu_torch import assets
 from scat_tpu_torch.config import Options
 from scat_tpu_torch.models.hand_net import (
-    EncoderTransformer, EncoderTransformerCoarse, EncoderTransformerHRNet,
-    EncoderTransformerInception, H3DWEncoder, H3DWJointsEncoder)
+    MANO_PARAMS, EncoderTransformer, EncoderTransformerCoarse,
+    EncoderTransformerHRNet, EncoderTransformerInception, H3DWEncoder,
+    H3DWJointsEncoder)
+from scat_tpu_torch.models.mano import ManoDecode
 from scat_tpu_torch.models.performer import ViP
 from scat_tpu_torch.models.vit import ViT
 from scat_tpu_torch.ops.favor import PRECISIONS
@@ -53,6 +57,22 @@ def check_keypoint_head(model: nn.Module, who: str) -> None:
             "parameters")
 
 
+def keypoint_decode(model: nn.Module) -> Optional[nn.Module]:
+    """What a served forward of ``model`` runs on its output: nothing
+    (None) for a head of the 66-dim camera + 21x3 joints contract; for a
+    head of the 61 MANO parameters (the bare heads of
+    ``MANO_PARAM_NETS``), their decode to that contract,
+    ``mano.ManoDecode``, on the model's device.  Another width raises."""
+    out_dim = getattr(model, "out_dim", KEYPOINT_DIM)
+    if out_dim == KEYPOINT_DIM:
+        return None
+    if out_dim != MANO_PARAMS:
+        raise ValueError(f"{type(model).__name__} predicts {out_dim} "
+                         f"numbers: neither the {KEYPOINT_DIM}-dim camera + "
+                         f"joints nor {MANO_PARAMS} MANO parameters")
+    return ManoDecode().to(next(model.parameters()).device)
+
+
 def compute_dtype(opt: Options) -> torch.dtype:
     dtype = getattr(torch, opt.compute_dtype, None)
     if dtype not in (torch.float32, torch.bfloat16):
@@ -72,6 +92,11 @@ def build_model(opt: Options, image_size: int = 224,
     test.py:332-348)."""
     if opt.net not in NETS:
         raise ValueError(f"unknown --net {opt.net!r}")
+    # --pl_reg differentiates twice through the attention stack (the loss
+    # takes the gradient of the path-length probe); the kernel's backward
+    # is once_differentiable, so pl_reg takes the plain attention path,
+    # as the JAX package's factory.py:46-60 does
+    use_kernel = opt.use_pallas_attention and not opt.pl_reg
     if opt.net == "frankmocap":
         mean = assets.load_mean_mano_pose(opt.mean_mano_param)
         cls = H3DWJointsEncoder if for_keypoints else H3DWEncoder
@@ -83,7 +108,8 @@ def build_model(opt: Options, image_size: int = 224,
         model = cls(mean_params=torch.from_numpy(mean),
                     iteration=opt.iteration, heads=opt.vit_heads,
                     depth=opt.vit_depth, mask_rate=opt.mask_rate,
-                    pos_embed=opt.pos_embed, image_size=image_size)
+                    pos_embed=opt.pos_embed, image_size=image_size,
+                    use_kernel=use_kernel)
         return model, mean
     mean = assets.load_mean_params(outside=opt.outside)
     if opt.net == "ViT":
@@ -110,11 +136,6 @@ def build_model(opt: Options, image_size: int = 224,
                     remat=opt.remat_blocks,
                     favor_precision=opt.favor_precision)
         return model, mean
-    # --pl_reg differentiates twice through the attention stack (the loss
-    # takes the gradient of the path-length probe); the kernel's backward
-    # is once_differentiable, so pl_reg takes the plain attention path,
-    # as the JAX package's factory.py:46-60 does
-    use_kernel = opt.use_pallas_attention and not opt.pl_reg
     if opt.use_pallas_attention and opt.pl_reg:
         print("--pl_reg needs double-backward: using the plain attention "
               "path (the kernel's backward is once_differentiable)")

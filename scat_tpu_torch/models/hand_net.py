@@ -27,12 +27,15 @@ The 128-token heads ``--net backbone_hrnet`` and ``backbone_incepv3``
 hand_net.py:87-213): HRNet-W24's 56x56x128 map read as 512 x 28x28, or
 Inception-v3's 768 x 12x12 read as 192 x 24x24 (``_reinterpret_channels``)
 -> 3x3 stride-2 conv to 128 channels -> 128 tokens (196 wide at 224 px)
--> PE, masking, the plain pyramid transformer -> the tokens' mean [B,3]
+-> PE, masking, the pyramid transformer -> the tokens' mean [B,3]
 -> ``iteration`` refinements ``pred += Linear(3+61 -> 61)`` from the
-61-dim mean MANO parameters.  They return the bare [B,61] tensor.  The
-reference declares that Linear 196+61 wide, a shape it never ran; flax
-infers 3+61, and so does the port.  ``use_kernel`` routes their attention
-through the kernels (the JAX package's ``use_pallas``).
+61-dim mean MANO parameters.  They return the bare [B,61] tensor, which
+the serving path decodes to camera + 21x3 joints (``mano.ManoDecode``,
+upstream test.py:332-348).  The reference declares that Linear 196+61
+wide, a shape it never ran; flax infers 3+61, and so does the port.
+``use_kernel`` routes their attention through the kernels at N = 128
+(the JAX package's ``use_pallas``), as the factory builds them under
+``--use_pallas_attention``.
 
 Images and feature maps are NCHW, as in the reference torch model whose
 key layout the modules keep.
@@ -292,7 +295,7 @@ def _conv_out(size: int, k: int, stride: int = 1, pad: int = 0) -> int:
 class _TokenRegressorHead(_TokenEncoder):
     """The 128-token head of the HRNet and Inception variants (JAX
     ``hand_net.py:262-302``): reinterpret, 3x3 stride-2 conv to 128
-    channels, tokens, the plain pyramid transformer, the tokens' mean,
+    channels, tokens, the pyramid transformer, the tokens' mean,
     ``iteration`` refinements of the 61-dim MANO mean.  Its parameters
     sit beside the backbone (``mask_token``, ``regressor.0``,
     ``transformer.layers``), the reference's key layout."""
@@ -321,11 +324,13 @@ class _TokenRegressorHead(_TokenEncoder):
         mask_rate <= 0.9 only); drawn here when omitted.  Returns the
         [B,61] MANO parameters."""
         with self._autocast(x.device.type):
-            fmap = self.main_encoder(
-                x.to(self.conv1x1_channel_reduction.weight.dtype))
-            fmap = self.conv1x1_channel_reduction(
-                _reinterpret_channels(fmap, self.new_c))
-            out = self.transformer(self._tokens(fmap, token_mask))
+            with span("scat.model.encoder"):
+                fmap = self.main_encoder(
+                    x.to(self.conv1x1_channel_reduction.weight.dtype))
+                fmap = self.conv1x1_channel_reduction(
+                    _reinterpret_channels(fmap, self.new_c))
+            with span("scat.model.tokens"):
+                out = self.transformer(self._tokens(fmap, token_mask))
             feat = widen(out.mean(dim=1))  # [B,3]
         pred = self.mean_params.expand(x.shape[0], 61)
         for _ in range(self.iteration):
@@ -444,21 +449,16 @@ class H3DWJointsEncoder(H3DWEncoder):
     ``rot_pose_beta_to_mesh`` of the parameters, in float32 whatever the
     compute dtype; ``forward`` returns ``(pred66, feat)``.  The keys are
     ``H3DWEncoder``'s (the JAX package's ``h3dw`` scope is no level of the
-    reference layout).  The MANO model is ``assets.load_mano()``, moved
-    to the input's device at its first forward there."""
+    reference layout): the decode is ``mano.ManoDecode``, whose MANO
+    arrays (``assets.load_mano()``) are no state_dict entries."""
 
     out_dim = 66
 
     def __init__(self, mean_params: torch.Tensor,
                  backbone: str = "resnet50"):
         super().__init__(mean_params, backbone)
-        self.mano = mano_lib.ManoModel.from_data()
+        self.decode = mano_lib.ManoDecode()
 
     def forward(self, x: torch.Tensor):
         feat, pred = super().forward(x)
-        if self.mano.device != pred.device:
-            self.mano = self.mano.to(pred.device)
-        out = mano_lib.rot_pose_beta_to_mesh(
-            self.mano, pred[:, 3:6], pred[:, 6:51], pred[:, 51:61])
-        joints = out[:, :NUM_TOKENS].reshape(-1, 63)
-        return torch.cat([pred[:, :3], joints], dim=1), feat
+        return self.decode(pred), feat

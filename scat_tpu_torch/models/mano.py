@@ -19,28 +19,32 @@ Precision.  The JAX package runs every MANO product at
 ``rot_pose_beta_to_mesh`` cast their inputs to float32 and compute with
 autocast off and the float32 matmul precision "highest" (no TF32),
 whatever the caller's compute dtype: the decode of a bf16 encoder's
-parameters is float32, as in the JAX package.
+parameters is float32, as in the JAX package.  ``ManoDecode`` is that
+decode as a module, the one that the served forward of a 61-dim head
+(``serving.ServingForward``) and ``H3DWJointsEncoder`` run.
 
 The 16-joint chain composes its 4x4 transforms one joint at a time, as
 the JAX package does: 15 small batched matmuls, each a launch on the
 card.  No step copies from the host: the homogeneous row is filled on
-the device and the fingertip indices are device tensors made once per
-device, so the decode never waits for the work queued before it (a
-pageable host-to-device copy would).
+the device and the fingertips are gathered as slices, no index tensor,
+so the decode never waits for the work queued before it (a pageable
+host-to-device copy would), and ``torch.export`` records no tensor made
+while it traces.
 """
 
 from __future__ import annotations
 
-import contextlib
 import dataclasses
-import functools
 from typing import Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+from torch import nn
 
 from scat_tpu_torch import assets
-from scat_tpu_torch.ops.geometry import batch_rodrigues, rodrigues_guarded
+from scat_tpu_torch.ops.geometry import (batch_rodrigues, float32_exact,
+                                         rodrigues_guarded)
+from scat_tpu_torch.utils.profiling import span
 
 NUM_JOINTS = 16
 NUM_VERTS = 778
@@ -93,27 +97,9 @@ class ManoModel:
             for f in dataclasses.fields(self) if f.name != "parents"})
 
 
-@contextlib.contextmanager
-def float32_exact(device_type: str):
-    """float32 products without TF32 and outside autocast: the JAX
-    package's ``Precision.HIGHEST``."""
-    before = torch.get_float32_matmul_precision()
-    torch.set_float32_matmul_precision("highest")
-    try:
-        with torch.autocast(device_type, enabled=False):
-            yield
-    finally:
-        torch.set_float32_matmul_precision(before)
-
-
-@functools.lru_cache(maxsize=None)
-def _index(ids: Tuple[int, ...], device: torch.device) -> torch.Tensor:
-    """``ids`` as an index tensor on ``device``, made once."""
-    return torch.tensor(ids, device=device)
-
-
 def _gather_verts(verts: torch.Tensor, ids: Sequence[int]) -> torch.Tensor:
-    return verts.index_select(1, _index(tuple(ids), verts.device))
+    """Rows ``ids`` of [B,V,3] ``verts``: one slice a vertex, one copy."""
+    return torch.cat([verts[:, i:i + 1] for i in ids], dim=1)
 
 
 def blend_shapes(model: ManoModel, beta: torch.Tensor) -> torch.Tensor:
@@ -233,6 +219,43 @@ def rot_pose_beta_to_mesh(model: ManoModel, rots: torch.Tensor,
         joints = torch.einsum("bxy,bjy->bjx", Rots, joints)
         center = joints[:, 1:2]
         return torch.cat([joints - center, verts - center], dim=1)
+
+
+class ManoDecode(nn.Module):
+    """The decode of the 61 MANO parameters that ``--net backbone_hrnet``,
+    ``backbone_incepv3`` and ``frankmocap`` predict (camera 3, global
+    rotation 3, pose 45, shape 10) to the 66-dim camera + 21x3 joints
+    contract, as upstream test.py:332-348 decodes them: the camera
+    ``params[:, :3]``, the joints the first 21 rows of
+    ``rot_pose_beta_to_mesh(params[:, 3:6], params[:, 6:51],
+    params[:, 51:61])``, in float32 whatever the compute dtype.
+
+    MANO's arrays are non-persistent buffers: they move with the module,
+    no state_dict (a checkpoint, an artifact's ``weights.npz``) carries
+    them, and ``torch.export`` records them as program constants."""
+
+    def __init__(self, data: Optional[assets.ManoModelData] = None):
+        super().__init__()
+        model = ManoModel.from_data(data)
+        for f in dataclasses.fields(ManoModel):
+            if f.name != "parents":
+                self.register_buffer(f.name, getattr(model, f.name),
+                                     persistent=False)
+        self.parents = model.parents
+
+    @property
+    def mano(self) -> ManoModel:
+        """The arrays in float32, whatever dtype the module was cast to."""
+        return ManoModel(parents=self.parents, **{
+            f.name: getattr(self, f.name).float()
+            for f in dataclasses.fields(ManoModel) if f.name != "parents"})
+
+    def forward(self, params: torch.Tensor) -> torch.Tensor:
+        with span("scat.model.mano"):
+            out = rot_pose_beta_to_mesh(self.mano, params[:, 3:6],
+                                        params[:, 6:51], params[:, 51:61])
+            return torch.cat([params[:, :3].float(),
+                              out[:, :21].reshape(-1, 63)], dim=1)
 
 
 def save_obj(verts, faces, obj_mesh_name: str) -> None:

@@ -12,8 +12,25 @@ per-sample host work.
 
 from __future__ import annotations
 
+import contextlib
+
 import numpy as np
 import torch
+
+
+@contextlib.contextmanager
+def float32_exact(device_type: str):
+    """float32 products without TF32 and outside autocast: the JAX
+    package's ``Precision.HIGHEST``.  The flag is cuBLAS's own
+    (``allow_tf32``), as ``ops/favor.py`` sets it: reading the generic
+    matmul precision raises where a caller has set that flag."""
+    before = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        with torch.autocast(device_type, enabled=False):
+            yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = before
 
 
 def quat2mat(quat: torch.Tensor) -> torch.Tensor:

@@ -1,8 +1,11 @@
 """Serving: crops in, 3D joints out (port of
 ``scat_tpu/serving.py:38-256``), for ``--net reg_transformer``,
-``reg_transformer_coarse``, ``ViT`` and ``ViP``: the 66-dim camera +
-joints heads (a 61-dim MANO-parameter head is refused at construction;
-``--net frankmocap`` is served by ``evaluation/tester.py``).
+``reg_transformer_coarse``, ``ViT`` and ``ViP``, the 66-dim camera +
+joints heads, and for the 61-dim MANO-parameter heads ``backbone_hrnet``,
+``backbone_incepv3`` and ``frankmocap``, whose parameters the served
+forward decodes to camera + 21x3 joints in float32 (``models.mano.
+ManoDecode``, upstream test.py:332-348; the JAX package's predictor
+refuses them).
 
 Requests of any size are padded to a ladder of power-of-two batch
 buckets and streamed through the model in bucket-sized chunks, so the
@@ -48,7 +51,8 @@ from scat_tpu_torch.config import Options
 from scat_tpu_torch.data import preprocess
 from scat_tpu_torch.devices import resolve_device
 from scat_tpu_torch.ops import COUNTED
-from scat_tpu_torch.ops.geometry import batch_orth_proj_idrot, project_2d
+from scat_tpu_torch.ops.geometry import (batch_orth_proj_idrot,
+                                         float32_exact, project_2d)
 from scat_tpu_torch.utils.checkpoint import load_weights
 from scat_tpu_torch.utils.profiling import span
 
@@ -125,18 +129,25 @@ def run_bucketed(forward: Callable, x: np.ndarray, buckets, put: Callable,
             "joints_2d": np.concatenate(j2ds)[:n]}
 
 
-def serving_forward(model: nn.Module, images: torch.Tensor):
+def serving_forward(model: nn.Module, images: torch.Tensor,
+                    decode: Optional[nn.Module] = None):
     """The serving program: NHWC crops, uint8 [0,255] (normalised here,
     ``/127.5 - 1``) or float32 [-1,1], -> (camera [B,3], joints_3d
     [B,21,3], joints_2d [B,21,2]) of ``model`` in eval mode.  The
     prediction is the first output of a tuple, as
-    ``training.steps.prediction`` reads it."""
+    ``training.steps.prediction`` reads it; with ``decode``
+    (``models.factory.keypoint_decode``), ``model`` gives the 61 MANO
+    parameters, bare or as ``H3DWEncoder``'s ``(feat, params)``, and
+    ``decode`` turns them into the prediction."""
     if images.dtype == torch.uint8:
         # uint8 requests normalise on the device: the host uploads 4x
         # fewer bytes than float32 crops
         images = images.float() / 127.5 - 1.0
     outputs = model(images.permute(0, 3, 1, 2))
-    pred = outputs[0] if isinstance(outputs, tuple) else outputs
+    if decode is None:
+        pred = outputs[0] if isinstance(outputs, tuple) else outputs
+    else:
+        pred = decode(outputs[1] if isinstance(outputs, tuple) else outputs)
     cam = pred[:, :3]
     j3d = pred[:, 3:66].reshape(-1, 21, 3)
     return cam, j3d, project_2d(batch_orth_proj_idrot(j3d, cam))
@@ -144,14 +155,19 @@ def serving_forward(model: nn.Module, images: torch.Tensor):
 
 class ServingForward(nn.Module):
     """``serving_forward`` of ``model`` as a module, the form that
-    ``torch.export`` records."""
+    ``torch.export`` records, with the decode that ``model``'s output
+    needs (``models.factory.keypoint_decode``): its MANO arrays are the
+    decode's non-persistent buffers, constants of an exported program
+    and no entries of the model's state_dict."""
 
     def __init__(self, model: nn.Module):
         super().__init__()
+        from scat_tpu_torch.models.factory import keypoint_decode
         self.model = model
+        self.decode = keypoint_decode(model)
 
     def forward(self, images: torch.Tensor):
-        return serving_forward(self.model, images)
+        return serving_forward(self.model, images, self.decode)
 
 
 class GraphRunner:
@@ -168,10 +184,15 @@ class GraphRunner:
     returns copies of the static outputs made on the device before the
     call returns, so a later replay of the same graph cannot overwrite
     what an earlier call handed out (``run_bucketed`` keeps several
-    chunks in flight).  A capture that fails raises.  The kernels' launch
-    counters (``ops.COUNTED``) count the warm-up run and the capture,
-    not replays; ``replayed`` tallies, by kernel, the launches the
-    replays ran: each replay runs what its capture counted."""
+    chunks in flight).  The warm-up and the capture compute float32
+    products in float32, no TF32 (``ops.geometry.float32_exact``): an
+    eager forward may ask for that itself (the MANO decode does), but an
+    exported program cannot carry the setting, and a replay keeps the
+    math mode of its capture.  A capture that fails raises.  The
+    kernels' launch counters (``ops.COUNTED``) count the warm-up run and
+    the capture, not replays; ``replayed`` tallies, by kernel, the
+    launches the replays ran: each replay runs what its capture
+    counted."""
 
     def __init__(self, fn: Callable, device: Union[str, torch.device]):
         self._fn = fn
@@ -195,14 +216,16 @@ class GraphRunner:
             stream = torch.cuda.current_stream(self.device)
             side = torch.cuda.Stream(self.device)
             side.wait_stream(stream)
-            with torch.no_grad(), torch.cuda.stream(side):
+            with float32_exact(self.device.type), torch.no_grad(), \
+                    torch.cuda.stream(side):
                 self._fn(static)
             stream.wait_stream(side)
             if self._pool is None:
                 self._pool = torch.cuda.graph_pool_handle()
             before = {n: w.launches for n, w in COUNTED.items()}
             graph = torch.cuda.CUDAGraph()
-            with torch.no_grad(), torch.cuda.graph(graph, pool=self._pool):
+            with float32_exact(self.device.type), torch.no_grad(), \
+                    torch.cuda.graph(graph, pool=self._pool):
                 outs = self._fn(static)
             self._captured[key] = {
                 n: w.launches - before.get(n, 0)
@@ -230,8 +253,8 @@ class HandPosePredictor:
     def from_checkpoint(cls, opt: Options, image_size: int = 224,
                         device: Union[str, torch.device, None] = None,
                         mesh=None) -> "HandPosePredictor":
-        """The predictor of ``opt`` (``--net reg_transformer``,
-        ``reg_transformer_coarse``, ``ViT`` or ``ViP``) on ``device``
+        """The predictor of ``opt`` (any ``--net`` of the factory's
+        ``NETS``) on ``device``
         (default ``cuda``; the CPU only when asked for), or on the first
         device of ``mesh``.  Weights come from ``opt.checkpoint_path_eval``:
         a reference ``.pth`` (``utils/checkpoint.load_pth``: a partial file
@@ -250,8 +273,6 @@ class HandPosePredictor:
     def __post_init__(self):
         import copy
 
-        from scat_tpu_torch.models.factory import check_keypoint_head
-        check_keypoint_head(self.model, "HandPosePredictor")
         self.device = torch.device(self.device)
         # NHWC crops permuted to NCHW are channels_last tensors; keeping
         # the weights channels_last too lets cuDNN run NHWC convolutions
@@ -274,6 +295,8 @@ class HandPosePredictor:
             if self.max_batch % n:
                 self.max_batch = max(self.max_batch // n, 1) * n
             base = n
+        # each replica's serving program, with its decode on its device
+        self._replicas = [ServingForward(m) for m in self._replicas]
         # power-of-two bucket sizes (multiples of the data-axis size) up
         # to max_batch: at most log2(max_batch)+1 batch shapes
         self._buckets = bucket_ladder(self.max_batch, base)
@@ -281,10 +304,10 @@ class HandPosePredictor:
     def _forward(self, images: torch.Tensor):
         with torch.inference_mode():
             if len(self._replicas) == 1:
-                return serving_forward(self.model, images)
+                return self._replicas[0](images)
             # each replica takes its rows of the padded bucket; the
             # devices run at once, the outputs meet on the first
-            outs = [serving_forward(m, x.to(next(m.parameters()).device))
+            outs = [m(x.to(next(m.parameters()).device))
                     for m, x in zip(self._replicas,
                                     images.chunk(len(self._replicas)))]
             return tuple(torch.cat([o[i].to(self.device) for o in outs])
@@ -310,9 +333,9 @@ class HandPosePredictor:
     def predict(self, images) -> Dict[str, np.ndarray]:
         """``images``: [N,H,W,3] uint8 [0,255] or float [-1,1] crops, N
         arbitrary.  Returns numpy ``camera [N,3]``, ``joints_3d [N,21,3]``
-        (root-centred by ``reg_transformer`` and
-        ``reg_transformer_coarse``; ``ViT`` and ``ViP`` predict joint 1
-        like the others) and ``joints_2d [N,21,2]`` (crop pixels)."""
+        (root-centred by ``reg_transformer``, ``reg_transformer_coarse``
+        and the MANO decode; ``ViT`` and ``ViP`` predict joint 1 like
+        the others) and ``joints_2d [N,21,2]`` (crop pixels)."""
         x = np.asarray(images)
         check_image_dtype(x)
         if x.dtype != np.uint8:

@@ -25,14 +25,17 @@ import torch.autograd.profiler as _autograd_profiler
 
 TRACE_FILE = "trace.json"
 
-# every span of the program, each read by one per-layer metric of the
-# benchmark (portbench/metrics/<metric>.py, through harness/spans.py)
+# every span of the program, beside the per-layer metric of the benchmark
+# that reads it (portbench/metrics/<metric>.py, through harness/spans.py);
+# no span reaches an exported program, so the model spans of a served
+# head are read in eager profiles alone
 SPANS = (
     "scat.train.forward",    # forward_host_ms.train.flagship
     "scat.train.backward",   # backward_host_ms.train.flagship
     "scat.train.optimizer",  # optimizer_host_ms.train.flagship
     "scat.model.encoder",    # encoder_host_ms.train.flagship
     "scat.model.tokens",     # tokens_host_ms.train.flagship
+    "scat.model.mano",       # none: the MANO decode (models/mano.py)
     "scat.serve.upload",     # upload_host_ms.serve.{flagship,vip}
     "scat.serve.launch",     # launch_host_ms.serve.{flagship,vip}
     "scat.serve.fetch",      # fetch_wait_ms.serve.{flagship,vip}

@@ -1248,3 +1248,92 @@ def test_graph_replay_matches_eager(cuda):
         np.testing.assert_allclose(got[k], want[k], atol=1e-5, rtol=0)
     images = torch.from_numpy(x[:8]).to(cuda)
     check_graph_consistency(lambda t: serving_forward(live.model, t), images)
+
+
+class _FixedParams(torch.nn.Module):
+    """A stand-in 61-dim head: row i of every batch is ``table[i]``
+    (MANO parameters), whatever the crops, so that a served artifact's
+    joints can be held to the eager decode of known parameters."""
+
+    out_dim = 61
+
+    def __init__(self, table: torch.Tensor):
+        super().__init__()
+        self.w = torch.nn.Parameter(torch.zeros(()))
+        self.register_buffer("table", table, persistent=False)
+
+    def forward(self, x):
+        return self.table[:x.shape[0]] + self.w * x.mean()
+
+
+def test_artifact_decodes_mano_parameters_in_float32(cuda):
+    """A 61-dim head's artifact serves camera + joints through the MANO
+    decode inside its CUDA graph: with TF32 on in the process while the
+    graphs are captured, the joints equal the eager float32 decode
+    (TF32 off) of the same parameters within 1e-5; the MANO arrays are
+    program constants, not entries of ``weights.npz``."""
+    import tempfile
+
+    from scat_tpu_torch.export import ExportedPredictor, export_predictor
+    from scat_tpu_torch.serving import HandPosePredictor
+
+    rng = np.random.RandomState(7)
+    table = np.concatenate([np.full((8, 1), 5.0), rng.randn(8, 2) * 0.1,
+                            rng.randn(8, 3) * 0.8, rng.randn(8, 45) * 0.5,
+                            rng.randn(8, 10)], axis=1).astype(np.float32)
+    table = torch.from_numpy(table)
+    live = HandPosePredictor(model=_FixedParams(table), image_size=32,
+                             max_batch=8, device=cuda)
+    x = np.zeros((8, 32, 32, 3), np.uint8)
+    want = mano.rot_pose_beta_to_mesh(
+        mano.ManoModel.from_data(device=cuda), *(
+            table[:, s].to(cuda) for s in (slice(3, 6), slice(6, 51),
+                                           slice(51, 61))))[:, :21].cpu()
+    with tempfile.TemporaryDirectory() as path:
+        export_predictor(live, path, net="backbone_hrnet")
+        art = ExportedPredictor(path)
+        assert sorted(art.weights) == ["w"]
+        torch.backends.cuda.matmul.allow_tf32 = True
+        try:
+            got = art.predict(x)
+        finally:
+            torch.backends.cuda.matmul.allow_tf32 = False
+    np.testing.assert_allclose(got["joints_3d"], want.numpy(), atol=1e-5,
+                               rtol=0)
+    np.testing.assert_array_equal(got["camera"], table[:, :3].numpy())
+    np.testing.assert_allclose(live.predict(x)["joints_3d"], want.numpy(),
+                               atol=1e-5, rtol=0)
+
+
+def test_hrnet_artifact_replays_the_attention_kernel_at_128_tokens(cuda):
+    """``--net backbone_hrnet`` at 224 px, bf16, built by the factory
+    (``--use_pallas_attention``: the kernels), served from its artifact:
+    a 32-crop request is one bucket-32 replay of 3 ``attention_fwd``
+    launches at [32, 8, 128, 64]; camera and joints are finite and
+    within bf16's reach of the live predictor's."""
+    import tempfile
+
+    from scat_tpu_torch.export import ExportedPredictor, export_predictor
+    from scat_tpu_torch.serving import HandPosePredictor
+
+    model, _ = build_model(Options(net="backbone_hrnet", vit_heads=8), 224)
+    checkpoint.init_weights(model, seed=0)
+    model.cast_compute(torch.bfloat16)
+    live = HandPosePredictor(model=model, device=cuda)
+    x = np.random.RandomState(8).randint(0, 256, (32, 224, 224, 3)).astype(
+        np.uint8)
+    with tempfile.TemporaryDirectory() as path:
+        export_predictor(live, path, net="backbone_hrnet")
+        art = ExportedPredictor(path)
+        runner = art._forwards["uint8"]
+        art.predict(x)
+        got = art.predict(x)
+    assert runner.keys == [((32, 224, 224, 3), torch.uint8)]
+    assert runner.replayed["flash_attention"] == 6
+    want = live.predict(x)
+    for k in want:
+        assert np.isfinite(got[k]).all(), k
+        atol = max(0.05 * np.abs(want[k] - want[k].mean(0)).max(),
+                   1e-3 * np.abs(want[k]).max())
+        np.testing.assert_allclose(got[k], want[k], rtol=0, atol=atol,
+                                   err_msg=k)

@@ -5,7 +5,9 @@ with weights from a flax init through ``state_dict_from_flax``: its
 artifact, exported and loaded on the CPU, against the port's live
 ``HandPosePredictor`` and the JAX package's live predictor on the same
 weights (the JAX side through its Pallas attention in interpret mode);
-a small ViP artifact (32-px crops) against its live predictor; the
+a small HRNet head's artifact (64-px crops), its MANO decode inside the
+programs, against its live predictor (the JAX package serves no 61-dim
+head); a small ViP artifact (32-px crops) against its live predictor; the
 custom-op nodes of the exported graphs; ``opcheck`` of the four ops'
 CPU implementations; an artifact served by a process that imports no
 model module; the contract errors; and ``--serve_artifact`` over HTTP.
@@ -29,9 +31,11 @@ from scat_tpu.models.hand_net import EncoderTransformer as JEncoder
 from scat_tpu.serving import HandPosePredictor as JPredictor
 from scat_tpu_torch import assets, export, server
 from scat_tpu_torch.config import Options
+from scat_tpu_torch.models import build_model
 from scat_tpu_torch.models.hand_net import EncoderTransformer
 from scat_tpu_torch.ops import attention, favor
 from scat_tpu_torch.serving import HandPosePredictor
+from scat_tpu_torch.utils import checkpoint
 from scat_tpu_torch.utils.weights import state_dict_from_flax
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -143,6 +147,48 @@ def test_flagship_graphs_hold_the_attention_op(flagship):
                    if getattr(sub, "graph", None) is not None
                    for node in sub.graph.nodes]
         assert targets and not [t for t in targets if "profiler" in t], name
+
+
+@pytest.fixture(scope="module")
+def hrnet(tmp_path_factory):
+    """(live predictor, artifact) of a small ``--net backbone_hrnet``
+    (64-px crops, 2 heads, the factory's kernel route), a 61-dim head
+    served through its MANO decode."""
+    model, _ = build_model(Options(net="backbone_hrnet", vit_heads=2), IMG)
+    checkpoint.init_weights(model, seed=0)
+    live = HandPosePredictor(model=model, image_size=IMG, max_batch=4,
+                             device="cpu")
+    path = str(tmp_path_factory.mktemp("artifact") / "hrnet")
+    export.export_predictor(live, path, net="backbone_hrnet")
+    return live, export.ExportedPredictor(path, device="cpu")
+
+
+def test_hrnet_artifact_matches_live(hrnet, crops):
+    """uint8 requests of 1 and 5 crops (two chunks of the top bucket 4,
+    the last padded): the artifact's camera and decoded joints are the
+    live predictor's; joint 1 is the decode's origin."""
+    live, art = hrnet
+    for n in (1, 5):
+        got = art.predict(crops[n])
+        _close(got, live.predict(crops[n]), ATOL_LIVE, f"hrnet {n}")
+        assert np.abs(got["joints_3d"][:, 1]).max() == 0.0
+
+
+def test_hrnet_graphs_hold_the_attention_op_and_no_mano_weights(hrnet):
+    """3 attention_fwd nodes a program, no profiler op (the model and
+    decode spans record nothing under torch.export); ``weights.npz``
+    holds the head's state_dict and none of the decode's MANO arrays,
+    which the programs carry as constants."""
+    live, art = hrnet
+    assert sorted(art.weights) == sorted(live.model.state_dict())
+    assert not [k for k in art.weights if "v_template" in k
+                or "posedirs" in k]
+    for name, module in art.programs.items():
+        assert export.op_nodes(module) == {"attention_fwd": 3}, name
+        targets = [str(node.target) for sub in module.modules()
+                   if getattr(sub, "graph", None) is not None
+                   for node in sub.graph.nodes]
+        assert not [t for t in targets if "profiler" in t], name
 
 
 def test_vip_artifact_matches_live(tmp_path):

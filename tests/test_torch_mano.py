@@ -226,8 +226,10 @@ def test_h3dw_encoders_match_jax(joints, rng):
 
 def test_factory_frankmocap_and_its_refusals(tmp_path):
     """``--net frankmocap`` builds H3DWEncoder (61) and, for the keypoint
-    contract, H3DWJointsEncoder (66) with the same keys; the trainer and
-    the predictor refuse the 61-dim head."""
+    contract, H3DWJointsEncoder (66) with the same keys (the decode's
+    MANO arrays are none of them); the trainer refuses the 61-dim head,
+    and the predictor serves it through the same decode as
+    H3DWJointsEncoder's forward."""
     opt = Options(net="frankmocap", checkpoint_path_eval="")
     m, mean = build_model(opt)
     mj, _ = build_model(opt, for_keypoints=True)
@@ -237,8 +239,18 @@ def test_factory_frankmocap_and_its_refusals(tmp_path):
     with pytest.raises(ValueError, match="61-dim"):
         Trainer(dataclasses.replace(opt, checkpoint_folder=str(tmp_path),
                                     debug=False), device="cpu")
-    with pytest.raises(ValueError, match="61 MANO"):
-        HandPosePredictor(model=m, device="cpu")
+    checkpoint.init_weights(m, seed=0)
+    mj.load_state_dict(m.state_dict())
+    x = np.random.RandomState(9).randint(0, 256, (3, 64, 64, 3)).astype(
+        np.uint8)
+    got = HandPosePredictor(model=m, image_size=64, device="cpu").predict(x)
+    with torch.no_grad():
+        want = mj.eval()(torch.from_numpy(x).float().permute(0, 3, 1, 2)
+                         / 127.5 - 1.0)[0]
+    np.testing.assert_allclose(got["camera"], want[:, :3].numpy(),
+                               atol=1e-6, rtol=0)
+    np.testing.assert_allclose(got["joints_3d"].reshape(3, 63),
+                               want[:, 3:].numpy(), atol=1e-6, rtol=0)
 
 
 def test_smplx_glue_matches_jax(rng):

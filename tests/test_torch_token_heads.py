@@ -32,7 +32,7 @@ from scat_tpu.utils.torch_import import (export_torch_hrnet,
 from scat_tpu_torch import assets
 from scat_tpu_torch.config import Options
 from scat_tpu_torch.evaluation import evaluator
-from scat_tpu_torch.models import factory, hand_net, hrnet, inception
+from scat_tpu_torch.models import factory, hand_net, hrnet, inception, mano
 from scat_tpu_torch.models.factory import build_model
 from scat_tpu_torch.models.transformer import Attention
 from scat_tpu_torch.serving import HandPosePredictor
@@ -274,20 +274,23 @@ def test_inception_head_masks_tokens_as_jax(heads, monkeypatch):
 
 @pytest.mark.parametrize("net", sorted(HEADS))
 def test_factory_routes_the_heads_to_plain_attention(net):
-    """--use_pallas_attention (the flagship's flag, on by default) does not
-    route the 128-token heads; use_kernel=True on the constructor does.
-    The mean is the 61-dim MANO mean; a seeded fresh init has flax's
+    """The 128-token heads take the plain attention where
+    --use_pallas_attention is off or --pl_reg on, and the kernels under
+    --use_pallas_attention (on by default), as the flagship does.  The
+    mean is the 61-dim MANO mean; a seeded fresh init has flax's
     scales."""
-    opt = Options(net=net, vit_heads=2, use_pallas_attention=True)
-    model, mean = build_model(opt)
+    def kernels(**flags):
+        model, mean = build_model(Options(net=net, vit_heads=2, **flags))
+        attns = [m for m in model.modules() if isinstance(m, Attention)]
+        assert len(attns) == 3
+        return model, mean, {a.use_kernel for a in attns}
+
+    assert kernels(use_pallas_attention=False)[2] == {False}
+    assert kernels(use_pallas_attention=True, pl_reg=True)[2] == {False}
+    model, mean, on = kernels(use_pallas_attention=True)
+    assert on == {True}
     np.testing.assert_array_equal(mean, jassets.load_mean_mano_pose())
-    attns = [m for m in model.modules() if isinstance(m, Attention)]
-    assert len(attns) == 3 and not any(a.use_kernel for a in attns)
     assert model.mask_token.shape == (1, 1, 196)
-    cls = HEADS[net][1]
-    kernel = cls(torch.from_numpy(mean), heads=2, use_kernel=True)
-    assert all(m.use_kernel for m in kernel.modules()
-               if isinstance(m, Attention))
     checkpoint.init_weights(model, seed=0)
     w = model.regressor[0].weight
     assert w.shape == (61, 3 + 61)
@@ -296,15 +299,32 @@ def test_factory_routes_the_heads_to_plain_attention(net):
 
 @pytest.mark.parametrize("net", sorted(HEADS))
 def test_61_dim_heads_are_refused_where_66_are_read(tmp_path, net):
-    """The trainer (with the JAX trainer's words), the predictor, the
-    Evaluator: a ValueError, never a reshape of 61 numbers."""
+    """The trainer (with the JAX trainer's words) and the Evaluator refuse
+    a 61-dim head with a ValueError, never a reshape of 61 numbers; the
+    predictor serves it as upstream test.py:332-348 does: the camera is
+    the parameters' first 3, the joints the first 21 rows of
+    ``rot_pose_beta_to_mesh`` of the rest, in float32 (96-px crops)."""
     with pytest.raises(ValueError, match="61-dim MANO-parameter head"):
         Trainer(Options(net=net, vit_heads=2, debug=False,
                         synthetic_data=True, batch_size=2,
                         checkpoint_folder=str(tmp_path)), device="cpu")
-    model, _ = build_model(Options(net=net, vit_heads=2))
-    with pytest.raises(ValueError, match="66-dim camera"):
-        HandPosePredictor(model=model, device="cpu")
+    model, _ = build_model(Options(net=net, vit_heads=2), 96)
+    checkpoint.init_weights(model, seed=0)
+    x = np.random.RandomState(6).randint(0, 256, (2, 96, 96, 3)).astype(
+        np.uint8)
+    got = HandPosePredictor(model=model, image_size=96,
+                            device="cpu").predict(x)
+    with torch.no_grad():
+        params = model(torch.from_numpy(x).float().permute(0, 3, 1, 2)
+                       / 127.5 - 1.0)
+    joints = mano.rot_pose_beta_to_mesh(
+        mano.ManoModel.from_data(), params[:, 3:6], params[:, 6:51],
+        params[:, 51:61])[:, :21]
+    np.testing.assert_allclose(got["camera"], params[:, :3].numpy(),
+                               atol=1e-6, rtol=0)
+    np.testing.assert_allclose(got["joints_3d"], joints.numpy(), atol=1e-6,
+                               rtol=0)
+    assert np.abs(got["joints_3d"][:, 1]).max() == 0.0
     with pytest.raises(ValueError, match="66-dim camera"):
         evaluator.Evaluator(Options(net=net, vit_heads=2,
                                     result_dir=str(tmp_path / "e")),

@@ -1,6 +1,7 @@
 """The port's spans (``utils/profiling.span``) on the CPU: no-op while no
 profiler records, ``record_function`` ranges under one, the train
-step's phases with the flagship's model spans inside the forward; and
+step's phases with the flagship's model spans inside the forward, a
+served HRNet head's model and MANO decode spans inside its launch; and
 the CUDA-graph runner's replay tally on a stand-in graph.  The
 serving spans are counted in ``tests/test_torch_slice.py``; that no
 span reaches an exported program, in ``tests/test_torch_export.py``."""
@@ -11,11 +12,13 @@ import pytest
 import torch
 
 from scat_tpu_torch import assets, serving
+from scat_tpu_torch.config import Options
+from scat_tpu_torch.models import build_model
 from scat_tpu_torch.models.hand_net import EncoderTransformer
 from scat_tpu_torch.ops import COUNTED, attention
 from scat_tpu_torch.training import schedule, steps
 from scat_tpu_torch.training.state import TrainState
-from scat_tpu_torch.utils import profiling
+from scat_tpu_torch.utils import checkpoint, profiling
 
 IMG = 32
 CPU = [torch.profiler.ProfilerActivity.CPU]
@@ -91,6 +94,34 @@ def test_train_step_spans_nest_the_model_in_the_forward():
     assert fwd.end <= phases["backward"].time_range.start
     assert phases["backward"].time_range.end <= \
         phases["optimizer"].time_range.start
+
+
+def test_served_hrnet_head_spans_its_model_and_decode():
+    """A 2-crop request of a small ``--net backbone_hrnet`` (64 px, 2
+    heads, the kernel route) served live under a CPU profiler: the
+    encoder (HRNet and the reduction), token (the pyramid) and MANO
+    decode spans once each, inside the request's launch span, in that
+    order."""
+    model, _ = build_model(Options(net="backbone_hrnet", vit_heads=2),
+                           IMG * 2)
+    checkpoint.init_weights(model, seed=0)
+    predictor = serving.HandPosePredictor(model=model, image_size=IMG * 2,
+                                          max_batch=2, device="cpu")
+    crops = torch.randint(0, 256, (2, IMG * 2, IMG * 2, 3),
+                          generator=torch.Generator().manual_seed(0),
+                          dtype=torch.uint8).numpy()
+    with torch.profiler.profile(activities=CPU) as prof:
+        predictor.predict(crops)
+    (launch,) = _events(prof, "scat.serve.launch")
+    starts = []
+    for part in ("encoder", "tokens", "mano"):
+        (got,) = _events(prof, f"scat.model.{part}")
+        parent = got.cpu_parent
+        while parent is not None and parent.name != "scat.serve.launch":
+            parent = parent.cpu_parent
+        assert parent is launch, part
+        starts.append(got.time_range.start)
+    assert starts == sorted(starts)
 
 
 class _StandInGraph:
